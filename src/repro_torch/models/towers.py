@@ -1,0 +1,48 @@
+"""The BERT dual encoder: two towers ({"query", "passage"} params), each
+giving the raw final-layer [CLS] representation."""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from repro_torch.core.types import DualEncoder
+from repro_torch.models.bert import BertConfig, bert_encode, init_bert
+
+
+def _as_tokens(batch):
+    """Batches may be {'tokens': ..., 'mask': ...} dicts or token tensors."""
+    if isinstance(batch, dict):
+        return batch["tokens"], batch.get("mask")
+    return batch, None
+
+
+def make_bert_dual_encoder(
+    cfg: BertConfig, *, shared: bool = False, precision=None
+) -> DualEncoder:
+    """``precision`` (a PrecisionPolicy or preset name) rebinds the towers'
+    dtypes via ``BertConfig.with_precision``: params stored fp32, activations
+    and the emitted representations in ``compute_dtype``. None keeps cfg's."""
+    if precision is not None:
+        cfg = cfg.with_precision(precision)
+
+    def init(generator: torch.Generator, device: Union[str, torch.device] = "cpu"):
+        q = init_bert(cfg, generator, device)
+        p = q if shared else init_bert(cfg, generator, device)
+        return {"query": q, "passage": p}
+
+    def encode_query(params, batch):
+        tokens, mask = _as_tokens(batch)
+        return bert_encode(params["query"], cfg, tokens, mask)
+
+    def encode_passage(params, batch):
+        tokens, mask = _as_tokens(batch)
+        return bert_encode(params["passage"], cfg, tokens, mask)
+
+    return DualEncoder(
+        init=init,
+        encode_query=encode_query,
+        encode_passage=encode_passage,
+        rep_dim=cfg.d_model,
+    )
