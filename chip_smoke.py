@@ -13,7 +13,12 @@ Phases, one JSON line each:
                fused_topk at the eval_topk shape (Q=2048, N=2^20-37 ragged,
                d=768, bf16, k=100, some columns masked) and the serve_topk
                shape (Q=32, N=2^20), plus a tie case and a k > n_valid case;
-               kernel, plain, library and bound times.
+               the fused_infonce forward, dQ and dP kernels at the two
+               shapes of a contaccum_bf16 chunk (M=8 local queries with
+               some labels out of range, and M=2048 query-bank rows, against
+               N=2064 columns of which the last 1000 are masked; d=768,
+               bf16), an fp32 case and a small ragged case; kernel, plain,
+               library and bound times, forward and backward apart.
   4. serve   - the port's main path at the full width of dpr-bert-base, in
                the serve_topk cell (configs/dpr_bert_base.py): a seeded
                Retriever (bf16_banks, top_k=100) encodes 32768 passages of
@@ -24,6 +29,18 @@ Phases, one JSON line each:
                equal the number of coalesced batches; every answer is
                checked, and one batch is held against the plain search on
                the same query reps.
+  5. train   - the port's training path at the full width of dpr-bert-base,
+               in the contaccum_bf16 cell: a seeded encoder (remat="full",
+               bf16_banks), ContAccum with K=16 chunks of 8 and two banks of
+               2048, the fused loss kernels, AdamW with warmup and linear
+               decay, a ShardedLoader over the synthetic corpus and a Trainer
+               checkpointing to a temporary directory, for TRAIN_STEPS
+               steps (the banks wrap). Checks: finite losses, full banks and
+               2063 negatives at the end, launches of exactly 2, 1 and 2 x
+               16 x steps (forward, dQ, dP), one step on the dense backend
+               against the fused one from the same state and batch, a second
+               Trainer resuming from the saved step, and a Top@k eval through
+               the fused search kernel.
 Then the kernels line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line. Any failed check raises and the script
 exits non-zero before the final line. Without a CUDA device, or without the
@@ -65,6 +82,34 @@ P_LEN = 256
 N_REQUESTS = 512
 CLIENTS = 64
 
+# fused_infonce checks against the dense fp32 reference: statistics to 1e-5
+# of the largest |logit| (exact bf16 products summed in fp32 in another
+# order); gradients to 1e-2 of the largest |gradient| under bf16 (the kernel
+# rounds each softmax coefficient to bf16 before its product, as the TPU
+# kernel does, and the result to bf16) and 1e-4 under fp32 (order only)
+STATS_RTOL = 1e-5
+GRAD_RTOL_BF16 = 1e-2
+GRAD_RTOL_FP32 = 1e-4
+N_BANK_MASKED = 1000
+
+# the train phase: steps (16 x 8 = 128 pushes a step wrap the 2048-slot
+# banks after 16), the corpus it draws from (and evaluates on), the paper's
+# peak learning rate (Appendix B) with a short warmup for a short run
+TRAIN_STEPS = 20
+N_CORPUS = 4096
+PEAK_LR = 2e-5
+WARMUP_STEPS = 2
+CHECKPOINT_EVERY = 10
+# the dense and the fused backends on one step from the same state and
+# batch: loss to 1e-3 relative (both sum exact bf16 products in fp32; the
+# towers are the same ops); gradient global norm to 2e-2 relative (the fused
+# backward rounds the softmax coefficients to bf16, the dense one keeps fp32)
+PARITY_LOSS_RTOL = 1e-3
+# about 40 ms of sleep at the H100's clock, longer than the host takes to
+# queue the timed calls of one fused_infonce measurement
+SLEEP_CYCLES = 70_000_000
+PARITY_GRAD_RTOL = 2e-2
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -90,6 +135,25 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, after one warm-up:
+    the calls are queued behind a sleep kernel on the stream, so the events
+    bracket the device's work and not the host's time to enqueue it (a call
+    of a small kernel costs the host more than the device)."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -301,6 +365,294 @@ def phase_serve(torch, ops, ref):
     }
 
 
+def infonce_bound_ms(m: int, n: int, n_valid: int, d: int, itemsize: int, kernel: str):
+    """(bound_ms, bound_by) of one fused_infonce kernel: inputs read once
+    (q, p, labels, col_valid; the backward also lse, g_lse, g_pos) and
+    outputs written once, over HBM bandwidth; the products over the valid
+    columns over the bf16 peak: 2*M*N_valid*d for the forward, 4*M*N_valid*d
+    for dQ or dP (the scores again, then the product)."""
+    moved = (m + n) * d * itemsize + 4 * m + n
+    if kernel == "fwd":
+        moved += 3 * 4 * m
+        ops = 2.0 * m * n_valid * d
+    else:
+        moved += 3 * 4 * m + (m if kernel == "dq" else n) * d * itemsize
+        ops = 4.0 * m * n_valid * d
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def close_err(x, ref, rtol_of_max, what):
+    """Max abs error of x against ref; raises above rtol_of_max of the
+    largest |ref|."""
+    x, ref = x.float(), ref.float()
+    tol = rtol_of_max * ref.abs().max().item()
+    err = (x - ref).abs().max().item()
+    require(err <= tol, f"{what}: max abs err {err} > {tol}")
+    return err
+
+
+def phase_infonce_kernels(torch):
+    """fused_infonce forward, dQ and dP against the plain version and
+    against the dense backend (the yardstick), at the path shapes and at an
+    fp32 and a small ragged case."""
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16
+    from repro_torch.core.loss import DenseLossBackend
+    from repro_torch.core.precision import NEG_INF
+    from repro_torch.kernels.fused_infonce import ops, ref
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    d = BERT_BASE.d_model
+    local = CONTACCUM_BF16["global_batch"] // CONTACCUM_BF16["accum_steps"]     # 8
+    bank = CONTACCUM_BF16["bank_size"]                                          # 2048
+    n_path = local * (1 + CONTACCUM_BF16["n_hard"]) + bank                       # 2064
+    dense = DenseLossBackend()
+
+    def case(m, n, dd, dtype, n_masked, labels, scale=0.2):
+        q = (torch.randn((m, dd), generator=g, device=dev) * scale).to(dtype)
+        p = (torch.randn((n, dd), generator=g, device=dev) * scale).to(dtype)
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+        if n_masked:
+            valid[-n_masked:] = False
+        g_lse = torch.rand((m,), generator=g, device=dev)
+        g_pos = -torch.rand((m,), generator=g, device=dev)
+        return q, p, labels.to(torch.int32), valid, g_lse, g_pos
+
+    def check(name, q, p, labels, valid, g_lse, g_pos, timed):
+        lse, pos, amax = ops.fused_infonce_fwd(q, p, labels, valid)
+        dq = ops.fused_infonce_dq(q, p, labels, valid, lse, g_lse, g_pos)
+        dp = ops.fused_infonce_dp(q, p, labels, valid, lse, g_lse, g_pos)
+        torch.cuda.synchronize()
+        rl, rp, ra = ref.infonce_stats_ref(q, p, labels, valid)
+        rdq, rdp = ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos)
+        # the tolerance's scale: the largest |logit| of a valid column (a
+        # label on a masked column has pos = NEG_INF, which must match exactly)
+        finite = torch.cat([ra, rp])
+        finite = finite[finite > NEG_INF / 2]
+        stats_tol = STATS_RTOL * max(1.0, finite.abs().max().item() if finite.numel() else 1.0)
+        require(torch.equal(pos <= NEG_INF / 2, rp <= NEG_INF / 2),
+                f"{name}: pos at masked labels differs from the plain version")
+        live = rp > NEG_INF / 2
+        stats_err = max((lse - rl).abs().max().item(), (amax - ra).abs().max().item(),
+                        (pos[live] - rp[live]).abs().max().item())
+        require(bool(torch.isfinite(lse).all()), f"{name}: non-finite lse")
+        require(stats_err <= stats_tol, f"{name}: lse/pos/amax err {stats_err} > {stats_tol}")
+        grad_rtol = GRAD_RTOL_BF16 if q.dtype == torch.bfloat16 else GRAD_RTOL_FP32
+        out = {"M": q.shape[0], "N": p.shape[0], "n_valid": int(valid.sum().item()),
+               "d": q.shape[1], "dtype": str(q.dtype).replace("torch.", ""),
+               "stats_max_abs_err": stats_err, "stats_tolerance": stats_tol,
+               "dq_max_abs_err": close_err(dq, rdq, grad_rtol, f"{name} dq"),
+               "dp_max_abs_err": close_err(dp, rdp, grad_rtol, f"{name} dp"),
+               "grad_rtol_of_max": grad_rtol}
+        if not timed:
+            return out
+        m, n, dd = q.shape[0], p.shape[0], q.shape[1]
+        args = (q, p, labels, valid, lse, g_lse, g_pos)
+
+        def plain_bwd(which):
+            qf = q.float().requires_grad_(which == "dq")
+            pf = p.float().requires_grad_(which == "dp")
+            sl, sp, _ = ref.infonce_stats_ref(qf, pf, labels, valid)
+            wrt = qf if which == "dq" else pf
+            return lambda: torch.autograd.grad((sl, sp), wrt, (g_lse, g_pos), retain_graph=True)
+
+        def library_bwd(which):
+            qf = q.detach().requires_grad_(which == "dq")
+            pf = p.detach().requires_grad_(which == "dp")
+            sl, sp, _ = dense.chunk_stats(qf, pf, labels, valid, temperature=1.0)
+            wrt = qf if which == "dq" else pf
+            return lambda: torch.autograd.grad((sl, sp), wrt, (g_lse, g_pos), retain_graph=True)
+
+        for kernel, fn, plain, library in (
+            ("fwd", lambda: ops.fused_infonce_fwd(q, p, labels, valid),
+             lambda: ref.infonce_stats_ref(q, p, labels, valid),
+             lambda: dense.chunk_stats(q, p, labels, valid, temperature=1.0)),
+            ("dq", lambda: ops.fused_infonce_dq(*args), plain_bwd("dq"), library_bwd("dq")),
+            ("dp", lambda: ops.fused_infonce_dp(*args), plain_bwd("dp"), library_bwd("dp")),
+        ):
+            bound_ms, bound_by = infonce_bound_ms(m, n, out["n_valid"], dd, q.element_size(), kernel)
+            out[kernel] = {"ms": device_ms(fn, 20), "plain_ms": device_ms(plain, 5),
+                           "library_ms": device_ms(library, 5), "bound_ms": bound_ms,
+                           "bound_by": bound_by, "ms_with_enqueue": cuda_ms(fn, 20)}
+        return out
+
+    result = {}
+    labels8 = torch.arange(local, device=dev)
+    labels8[local - 3], labels8[local - 2] = -1, n_path + 5     # outside [0, N): pos = 0
+    q, p, labels, valid, g_lse, g_pos = case(local, n_path, d, torch.bfloat16, N_BANK_MASKED, labels8)
+    result["local_rows"] = check("M=8", q, p, labels, valid, g_lse, g_pos, timed=True)
+    pos = ops.fused_infonce_fwd(q, p, labels, valid)[1]
+    require(pos[local - 3].item() == 0.0 and pos[local - 2].item() == 0.0,
+            "out-of-range labels did not give pos = 0")
+    labels_bank = local * (1 + CONTACCUM_BF16["n_hard"]) + torch.arange(bank, device=dev)
+    result["bank_rows"] = check("M=2048", *case(bank, n_path, d, torch.bfloat16, N_BANK_MASKED,
+                                                labels_bank), timed=True)
+    result["fp32"] = check("fp32", *case(64, 1000, d, torch.float32, 100,
+                                         torch.randint(0, 900, (64,), generator=g, device=dev)),
+                           timed=False)
+    result["ragged"] = check("ragged", *case(37, 301, 96, torch.bfloat16, 50,
+                                             torch.randint(0, 251, (37,), generator=g, device=dev)),
+                             timed=False)
+    return result
+
+
+def phase_train(torch, topk_ops):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16
+    from repro_torch.core.methods import build_step_program, init_state
+    from repro_torch.core.types import ContrastiveConfig, RetrievalBatch
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.retrieval import SyntheticRetrievalCorpus
+    from repro_torch.evaluation import evaluate_topk
+    from repro_torch.kernels.fused_infonce import ops
+    from repro_torch.models.towers import make_bert_dual_encoder
+    from repro_torch.optim import adamw, chain, clip_by_global_norm, linear_warmup_linear_decay
+    from repro_torch.retrieval import RetrieverConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cell = CONTACCUM_BF16
+    k, batch = cell["accum_steps"], cell["global_batch"]
+    t0 = time.perf_counter()
+    enc = make_bert_dual_encoder(BERT_BASE, precision=cell["precision"])
+    cfg = ContrastiveConfig(
+        method=cell["method"], accumulation_steps=k, bank_size=cell["bank_size"],
+        loss_impl=cell["loss_impl"], precision=cell["precision"],
+        temperature=1.0, grad_clip_norm=2.0,
+    )
+    tx = chain(clip_by_global_norm(cfg.grad_clip_norm),
+               adamw(linear_warmup_linear_decay(PEAK_LR, WARMUP_STEPS, TRAIN_STEPS)))
+    update = build_step_program(enc, tx, cfg).update
+    state = init_state(torch.Generator().manual_seed(SEED), enc, tx, cfg, device=DEVICE)
+    corpus = SyntheticRetrievalCorpus(
+        n_passages=N_CORPUS, vocab_size=BERT_BASE.vocab_size, q_len=cell["q_len"],
+        p_len=cell["p_len"], n_hard=cell["n_hard"], seed=SEED,
+    )
+    loader = ShardedLoader(N_CORPUS, batch, seed=SEED)
+
+    def next_batch(step):
+        b = corpus.batch(loader.next_indices())
+        return RetrievalBatch(*(torch.from_numpy(np.asarray(b[key], np.int64)).to(DEVICE)
+                                for key in ("query", "passage_pos", "passage_hard")))
+
+    setup_s = time.perf_counter() - t0
+    tokens_per_step = batch * (cell["q_len"] + cell["p_len"] * (1 + cell["n_hard"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_dir=tmp,
+                             checkpoint_every=CHECKPOINT_EVERY, keep_checkpoints=1, log_every=5)
+        trainer = Trainer(tcfg, update, next_batch, loader_state=loader.state)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                               # the train path's run starts here
+        t0 = time.perf_counter()
+        state, report = trainer.run(state)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"fwd": ops.fused_infonce_fwd.launches, "dq": ops.fused_infonce_dq.launches,
+                    "dp": ops.fused_infonce_dp.launches}      # read just after the run
+        peak_bytes = torch.cuda.max_memory_allocated()
+        hist = report.history
+        require(report.steps_run == TRAIN_STEPS and report.restarts == 0,
+                f"ran {report.steps_run} steps with {report.restarts} restarts")
+        require(all(np.isfinite(h["loss"]) for h in hist), "non-finite training loss")
+        last = hist[-1]
+        require(last["bank_fill_q"] == last["bank_fill_p"] == cell["bank_size"],
+                f"banks not full: {last['bank_fill_q']}, {last['bank_fill_p']}")
+        n_neg = batch // k * (1 + cell["n_hard"]) + cell["bank_size"] - 1
+        require(last["n_negatives"] == n_neg, f"n_negatives {last['n_negatives']} != {n_neg}")
+        want = {"fwd": 2 * k * TRAIN_STEPS, "dq": k * TRAIN_STEPS, "dp": 2 * k * TRAIN_STEPS}
+        require(launches == want, f"fused_infonce launches {launches} != {want}")
+
+        # one step from the trained state and a fresh batch on both backends
+        parity_batch = next_batch(TRAIN_STEPS)
+        dense_update = build_step_program(enc, tx, dataclasses.replace(cfg, loss_impl="dense")).update
+        _, m_fused = update(state, parity_batch)
+        _, m_dense = dense_update(state, parity_batch)
+        parity = {key: (float(getattr(m_fused, key)), float(getattr(m_dense, key)))
+                  for key in ("loss", "grad_norm", "accuracy")}
+        for key, rtol in (("loss", PARITY_LOSS_RTOL), ("grad_norm", PARITY_GRAD_RTOL)):
+            fz, dn = parity[key]
+            require(abs(fz - dn) <= rtol * abs(dn), f"dense vs fused {key}: {fz} vs {dn}")
+
+        # the share of a step in the three kernels, from a profile of one step
+        share = profile_step_share(torch, update, state, parity_batch)
+
+        # a second Trainer on the same directory resumes from the saved step
+        resumed = Trainer(dataclasses.replace(tcfg, total_steps=TRAIN_STEPS + 1), update,
+                          next_batch, loader_state=type(loader.state)())
+        _, report2 = resumed.run(state)
+        require(report2.steps_run == 1 and report2.history[0]["step"] == TRAIN_STEPS,
+                f"resume ran steps {[h['step'] for h in report2.history]}")
+        require(np.isfinite(report2.history[0]["loss"]), "resumed step loss not finite")
+
+    # Top@k eval through the fused search kernel
+    topk_ops.fused_topk.launches = 0
+    t0 = time.perf_counter()
+    recalls = evaluate_topk(
+        enc, state.params, corpus, ks=(1, 5, 20),
+        cfg=RetrieverConfig(top_k=20, search_impl="fused", precision=cell["precision"]),
+        device=DEVICE,
+    )
+    eval_s = time.perf_counter() - t0
+    eval_launches = topk_ops.fused_topk.launches
+    require(eval_launches > 0, "evaluate_topk did not launch fused_topk")
+    require(all(np.isfinite(v) for v in recalls.values()), f"non-finite recall {recalls}")
+
+    times = [h["step_time_s"] for h in hist[1:]]
+    step_s = statistics.median(times)
+    return {
+        "model": "dpr-bert-base (2 x bert-base-uncased, 12 layers, d 768, seeded init, remat full)",
+        "cell": "contaccum_bf16", "steps": TRAIN_STEPS, "accumulation_steps": k,
+        "global_batch": batch, "bank_size": cell["bank_size"], "q_len": cell["q_len"],
+        "p_len": cell["p_len"], "n_hard": cell["n_hard"], "precision": cell["precision"],
+        "loss_impl": cell["loss_impl"], "corpus": N_CORPUS, "setup_s": setup_s,
+        "train_s": train_s, "first_step_s": hist[0]["step_time_s"],
+        "median_step_s": step_s, "pairs_per_s": batch / step_s,
+        "tokens_per_s": tokens_per_step / step_s, "tokens_per_step": tokens_per_step,
+        "max_memory_allocated": peak_bytes,
+        "first_loss": hist[0]["loss"], "last_loss": last["loss"],
+        "first_grad_norm_ratio": hist[0]["grad_norm_ratio"],
+        "last_grad_norm_ratio": last["grad_norm_ratio"],
+        "bank_fill": [last["bank_fill_q"], last["bank_fill_p"]],
+        "n_negatives": last["n_negatives"], "launches": launches,
+        "dense_vs_fused": parity, "infonce_share": share,
+        "resumed_from_step": report2.history[0]["step"] - 1,
+        "eval": recalls, "eval_s": eval_s, "eval_fused_topk_launches": eval_launches,
+    }
+
+
+def profile_step_share(torch, update, state, batch):
+    """One step under torch.profiler: its wall time, the device time of its
+    kernels (busy share = device / wall), the part in the fused_infonce
+    kernels, and the kernels that take the most device time. The device
+    fields are None where the profile shows no kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    update(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        update(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernel_ms = sum(ms for _, ms, _ in kernels)
+    if kernel_ms <= 0:
+        return {"step_wall_ms": wall_ms, "device_ms": None, "infonce_ms": None,
+                "share_of_device": None, "busy_share": None, "top_kernels": []}
+    infonce_ms = sum(ms for key, ms, _ in kernels if "infonce" in key)
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return {"step_wall_ms": wall_ms, "device_ms": kernel_ms, "infonce_ms": infonce_ms,
+            "share_of_device": infonce_ms / kernel_ms, "busy_share": kernel_ms / wall_ms,
+            "kernel_launches": sum(c for _, _, c in kernels),
+            "top_kernels": [{"name": key[:80], "ms": ms, "count": c} for key, ms, c in top]}
+
+
 def main() -> int:
     if not (REPO / "src" / "repro_torch").is_dir():
         print("chip_smoke.py runs from a checkout of the repo: src/repro_torch is missing",
@@ -326,26 +678,48 @@ def main() -> int:
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     t0 = time.perf_counter()
-    logs = _build.build(["fused_topk"])
+    logs = _build.build(["fused_topk", "fused_infonce"])
     for name, text in logs.items():
         print(f"[{name}] {text}", file=sys.stderr)
     emit({"phase": "build", "kernels": sorted(logs), "seconds": time.perf_counter() - t0})
 
     kernels = phase_kernels(torch, ops, ref)
-    emit({"phase": "kernels", "fused_topk": kernels, "nvidia_smi": smi})
+    infonce = phase_infonce_kernels(torch)
+    emit({"phase": "kernels", "fused_topk": kernels, "fused_infonce": infonce,
+          "nvidia_smi": smi})
 
     serve = phase_serve(torch, ops, ref)
     emit({"phase": "serve", **serve, "nvidia_smi": smi})
 
+    train = phase_train(torch, ops)
+    emit({"phase": "train", **train, "nvidia_smi": smi})
+
     ev = kernels["eval_topk"]
-    emit({"kernels": [{
+    lines = [{
         "name": "fused_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
         "replaces": "src/repro/kernels/fused_topk/fused_topk.py:47",
         "launches": serve["fused_topk_launches"], "max_abs_err": ev["max_abs_err"],
         "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
         "bound_by": ev["bound_by"], "library_ms": ev["library_ms"],
-    }]})
+    }]
+    # each fused_infonce kernel at its largest shape on the train path (dQ
+    # runs only for the local queries); the phase line has both shapes
+    source = "src/repro_torch/kernels/fused_infonce/csrc/fused_infonce.cu"
+    tpu = "src/repro/kernels/fused_infonce/fused_infonce.py"
+    for kernel, line, shape, err in (("fwd", 54, "bank_rows", "stats_max_abs_err"),
+                                     ("dq", 205, "local_rows", "dq_max_abs_err"),
+                                     ("dp", 229, "bank_rows", "dp_max_abs_err")):
+        t = infonce[shape][kernel]
+        lines.append({
+            "name": f"fused_infonce_{kernel}", "route": "cuda", "source": source,
+            "replaces": f"{tpu}:{line}", "launches": train["launches"][kernel],
+            "max_abs_err": infonce[shape][err], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": f"M={infonce[shape]['M']}, "
+            f"N={infonce[shape]['N']}, d={infonce[shape]['d']}, {infonce[shape]['dtype']}",
+        })
+    emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,11 @@
 """dpr-bert-base: the paper's retriever (two bert-base-uncased towers) and
-the shapes of its serving cells, as in ``repro.configs.dpr_bert_base``.
+the shapes of its cells, as in ``repro.configs.dpr_bert_base``: the
+single-device training cells and the retrieval cells, as dicts.
 
-Only the retrieval cells are here; the training cells come with the training
-slice of the port.
+Not here yet: the cross-device cells (``contaccum_xdev``,
+``contaccum_xdev_ring``, ``contcache_xdev``: multi-device is not yet ported),
+the mined-negative cells (``paper_batch_mined``, ``contaccum_mined``: mining
+is not yet ported) and ``contrastive_16k`` (a pod-scale batch).
 """
 
 from __future__ import annotations
@@ -20,7 +23,25 @@ BERT_BASE = BertConfig(
     vocab_size=30522,
     max_position=512,
     dtype=torch.bfloat16,
+    remat="full",
 )
+
+#: the paper's geometry: N_total=128, N_local=8, K=16, N_mem=2048 (NQ).
+#: ``method`` defaults to contaccum where a cell does not name one.
+_PAPER = {"global_batch": 128, "bank_size": 2048, "q_len": 32, "p_len": 256, "n_hard": 1}
+
+#: single-device training cells (kind "contrastive")
+PAPER_BATCH = {**_PAPER, "accum_steps": 1}
+PAPER_BATCH_FUSED = {**_PAPER, "accum_steps": 1, "loss_impl": "fused"}
+PAPER_BATCH_BF16 = {**_PAPER, "accum_steps": 1, "precision": "bf16_banks"}
+#: the paper's K=16 accumulation with bf16 banks and the fused loss kernels:
+#: the cell ``chip_smoke.py`` trains
+CONTACCUM_BF16 = {
+    **_PAPER, "method": "contaccum", "accum_steps": 16,
+    "precision": "bf16_banks", "loss_impl": "fused",
+}
+CONTCACHE_BATCH = {**_PAPER, "method": "contcache", "accum_steps": 16}
+PREBATCH_CACHE_BATCH = {**_PAPER, "method": "prebatch_cache", "accum_steps": 16}
 
 #: online serving: one coalesced query batch against a 1M-passage index,
 #: bf16 index rows (the policy's bank dtype), fp32 scores. The JAX cell

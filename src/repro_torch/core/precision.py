@@ -25,8 +25,14 @@ import torch
 #: ``-inf``: a fully masked row must stay finite through every reduction.
 NEG_INF = -1e30
 
-#: Retrieval scores and top-k merge buffers are fp32 whatever the inputs.
+#: Named contract dtypes, fp32 in every preset (``repro.core.precision``):
+#: STATS_DTYPE - every statistic that feeds logging or control (loss,
+#:   accuracy, bank fill, softmax statistics) is cast here before reduction;
+#: SCORE_DTYPE - retrieval scores and top-k merge buffers;
+#: MASTER_DTYPE - AdamW master weights and moments.
+STATS_DTYPE = torch.float32
 SCORE_DTYPE = torch.float32
+MASTER_DTYPE = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,10 @@ throughout, raw final-layer [CLS] as the representation (no pooler).
 
 Parameters are nested dicts of tensors in the JAX package's layout, the
 per-layer weights stacked on a leading ``n_layers`` axis, so carrying weights
-across (compat.py) is a straight copy.
+across (compat.py) is a straight copy. ``remat="full"`` runs each layer under
+``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of the layer): its
+activations are recomputed in the backward instead of kept; the values do
+not change.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import dataclasses
 from typing import Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.precision import PrecisionPolicy, resolve_precision
 from repro_torch.models import layers as L
@@ -34,6 +38,7 @@ class BertConfig:
     norm_eps: float = 1e-12
     dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
+    remat: str = "none"          # "none" | "full": recompute each layer in the backward
 
     @property
     def dh(self) -> int:
@@ -52,7 +57,7 @@ class BertConfig:
 def init_bert(
     cfg: BertConfig,
     generator: torch.Generator,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device],
 ) -> Params:
     """Random weights, drawn on the CPU from ``generator`` (so the same seed
     gives the same weights on any device) and placed on ``device``."""
@@ -106,9 +111,12 @@ def bert_hidden(
     emb = params["embed"]
     x = (emb["word"][tokens] + emb["pos"][None, :s] + emb["type"][0][None, None]).to(dt)
     x = L.layer_norm(emb["ln_s"], emb["ln_b"], x, eps=cfg.norm_eps)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = {name: w[i].to(dt) for name, w in layers.items()}
+    # unbind once: the backward of the n_layers slices is one stack, not
+    # n_layers full-size scatters
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+
+    def layer(x, lp):
+        lp = {name: w.to(dt) for name, w in lp.items()}
         qkv = x @ lp["wqkv"] + lp["bqkv"]
         q, k, v = (t.reshape(b, s, h, dh) for t in qkv.split(d, dim=-1))
         o = plain_attention(q, k, v, kv_mask=mask)
@@ -116,7 +124,14 @@ def bert_hidden(
         x = L.layer_norm(lp["ln1_s"], lp["ln1_b"], x + att, eps=cfg.norm_eps)
         ff = L.gelu(x @ lp["w1"] + lp["b1"])
         ff = ff @ lp["w2"] + lp["b2"]
-        x = L.layer_norm(lp["ln2_s"], lp["ln2_b"], x + ff, eps=cfg.norm_eps)
+        return L.layer_norm(lp["ln2_s"], lp["ln2_b"], x + ff, eps=cfg.norm_eps)
+
+    for i in range(cfg.n_layers):
+        lp = {name: ws[i] for name, ws in layers.items()}
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x = layer(x, lp)
     return x
 
 

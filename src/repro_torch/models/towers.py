@@ -27,7 +27,7 @@ def make_bert_dual_encoder(
     if precision is not None:
         cfg = cfg.with_precision(precision)
 
-    def init(generator: torch.Generator, device: Union[str, torch.device] = "cpu"):
+    def init(generator: torch.Generator, device: Union[str, torch.device]):
         q = init_bert(cfg, generator, device)
         p = q if shared else init_bert(cfg, generator, device)
         return {"query": q, "passage": p}

@@ -1,0 +1,189 @@
+"""The hand-written CUDA fused_infonce kernels (forward, dQ, dP) against
+their plain version, on the card. Marked ``cuda``: without a GPU (and nvcc)
+every test here skips. Imports no JAX.
+
+Run on a machine with the card:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_fused_infonce_cuda.py
+
+Tolerances, each against the dense fp32 reference (ref.py) on the same
+inputs:
+  * lse, pos, amax: 1e-5 of the largest |logit| (both sum exact products of
+    the inputs in fp32, in another order);
+  * dQ, dP under bf16: 1e-2 of the largest |reference gradient| (the kernel
+    rounds each softmax coefficient to bf16 before its product, as the TPU
+    kernel does, and the result to bf16: 2^-8 relative each);
+  * dQ, dP under fp32: 1e-4 of the largest |reference gradient| (fp32
+    summation order only).
+"""
+
+import pytest
+import torch
+
+from repro_torch.core.precision import NEG_INF
+from repro_torch.kernels.fused_infonce import ops
+from repro_torch.kernels.fused_infonce.ref import infonce_stats_ref, infonce_stats_vjp_ref
+
+D = 768
+N_PATH = 2064          # 8 local positives + 8 hard negatives + 2048 bank columns
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(shape, dtype, dev, seed, scale=0.2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def _close(x, ref, rtol_of_max, what):
+    x, ref = x.float(), ref.float()
+    tol = rtol_of_max * ref.abs().max().item()
+    err = (x - ref).abs().max().item()
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+    return err
+
+
+def _check(q, p, labels, valid, inv_tau=1.0, grads=True):
+    """Forward and both backward kernels against the reference; returns the
+    kernel outputs."""
+    before = (ops.fused_infonce_fwd.launches, ops.fused_infonce_dq.launches,
+              ops.fused_infonce_dp.launches)
+    qk = q.clone().requires_grad_(grads)
+    pk = p.clone().requires_grad_(grads)
+    lse, pos, amax = ops.fused_infonce_stats(qk, pk, labels, valid, inv_tau)
+    torch.cuda.synchronize()
+    rl, rp, ra = infonce_stats_ref(q, p, labels, valid, inv_tau=inv_tau)
+    # scale of the tolerance: the largest |logit| of a valid column; a label
+    # on a masked column has pos = NEG_INF on both sides, exactly
+    live = rp > NEG_INF / 2
+    assert torch.equal(pos > NEG_INF / 2, live)
+    logits = torch.cat([ra, rp])
+    logits = logits[logits > NEG_INF / 2]
+    scale = 1e-5 * max(1.0, logits.abs().max().item() if logits.numel() else 1.0)
+    for x, r, name in ((lse, rl, "lse"), (pos[live], rp[live], "pos"), (amax, ra, "amax")):
+        assert x.dtype == torch.float32
+        assert torch.isfinite(x).all(), name
+        err = (x - r).abs().max().item() if x.numel() else 0.0
+        assert err <= scale, f"{name}: max abs err {err} > {scale}"
+    assert ops.fused_infonce_fwd.launches == before[0] + 1
+    if not grads:
+        return lse, pos, amax
+    g = torch.Generator(device=q.device).manual_seed(99)
+    g_lse = torch.rand(q.shape[0], generator=g, device=q.device)
+    g_pos = -torch.rand(q.shape[0], generator=g, device=q.device)
+    dq, dp = torch.autograd.grad((lse, pos), (qk, pk), (g_lse, g_pos))
+    torch.cuda.synchronize()
+    assert ops.fused_infonce_dq.launches == before[1] + 1
+    assert ops.fused_infonce_dp.launches == before[2] + 1
+    rdq, rdp = infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, inv_tau=inv_tau)
+    assert dq.dtype == q.dtype and dp.dtype == p.dtype
+    rtol = 1e-2 if torch.bfloat16 in (q.dtype, p.dtype) else 1e-4
+    _close(dq, rdq, rtol, "dq")
+    _close(dp, rdp, rtol, "dp")
+    return lse, pos, amax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 2048])
+def test_path_shapes_bf16(dev, m):
+    """A contaccum_bf16 chunk: local queries (M=8, some labels out of range)
+    and the query-bank rows (M=2048), the last 1000 bank columns invalid."""
+    q = _rand((m, D), torch.bfloat16, dev, 0)
+    p = _rand((N_PATH, D), torch.bfloat16, dev, 1)
+    valid = torch.ones(N_PATH, dtype=torch.bool, device=dev)
+    valid[-1000:] = False
+    if m == 8:
+        labels = torch.arange(m, dtype=torch.int32, device=dev)
+        labels[5], labels[6] = -3, N_PATH + 7            # out of range: pos = 0
+    else:
+        labels = (16 + torch.arange(m, device=dev) % 2048).to(torch.int32)
+    lse, pos, _ = _check(q, p, labels, valid)
+    if m == 8:
+        assert pos[5].item() == 0.0 and pos[6].item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(37, 301, 96), (130, 70, 768), (1, 1, 8), (65, 4100, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_shapes(dev, m, n, d, dtype):
+    """M and N not multiples of any tile; d=40 takes the scalar loads; N=4100
+    splits the columns and M=130 three row tiles."""
+    q = _rand((m, d), dtype, dev, 2)
+    p = _rand((n, d), dtype, dev, 3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    valid = torch.rand(n, generator=g, device=dev) > 0.2
+    labels = torch.randint(0, n, (m,), generator=g, device=dev).to(torch.int32)
+    _check(q, p, labels, valid, inv_tau=1.5)
+
+
+@pytest.mark.cuda
+def test_mixed_types_promote_to_fp32(dev):
+    q = _rand((20, 64), torch.bfloat16, dev, 5)
+    p = _rand((300, 64), torch.float32, dev, 6)
+    labels = torch.arange(20, dtype=torch.int32, device=dev)
+    _check(q, p, labels, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fully_masked_rows_stay_finite(dev, dtype):
+    q = _rand((10, 128), dtype, dev, 7)
+    p = _rand((200, 128), dtype, dev, 8)
+    valid = torch.zeros(200, dtype=torch.bool, device=dev)
+    labels = torch.arange(10, dtype=torch.int32, device=dev)
+    qk, pk = q.clone().requires_grad_(), p.clone().requires_grad_()
+    lse, pos, amax = ops.fused_infonce_stats(qk, pk, labels, valid)
+    assert torch.isfinite(lse).all() and (lse < NEG_INF / 2).all()
+    assert (pos == NEG_INF).all() and (amax == NEG_INF).all()
+    dq, dp = torch.autograd.grad((lse - pos).sum(), (qk, pk))
+    assert torch.equal(dq, torch.zeros_like(dq)) and torch.equal(dp, torch.zeros_like(dp))
+
+
+@pytest.mark.cuda
+def test_bank_rows_launch_no_dq(dev):
+    """A detached q (the query-bank buffer) gets no dQ launch."""
+    q = _rand((2048, D), torch.bfloat16, dev, 9)
+    p = _rand((N_PATH, D), torch.bfloat16, dev, 10).requires_grad_()
+    labels = (16 + torch.arange(2048, device=dev)).to(torch.int32)
+    before = ops.fused_infonce_dq.launches, ops.fused_infonce_dp.launches
+    lse, pos, _ = ops.fused_infonce_stats(q, p, labels, None)
+    (lse - pos).sum().backward()
+    assert (ops.fused_infonce_dq.launches, ops.fused_infonce_dp.launches) == (
+        before[0], before[1] + 1)
+    assert p.grad is not None and torch.isfinite(p.grad.float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached ref.py")
+
+    monkeypatch.setattr(ops, "infonce_stats_ref", refuse)
+    monkeypatch.setattr(ops, "infonce_stats_vjp_ref", refuse)
+    q = _rand((8, 64), torch.bfloat16, dev, 11).requires_grad_()
+    p = _rand((100, 64), torch.bfloat16, dev, 12).requires_grad_()
+    labels = torch.arange(8, dtype=torch.int32, device=dev)
+    lse, pos, _ = ops.fused_infonce_stats(q, p, labels, None)
+    (lse - pos).sum().backward()
+    assert q.grad is not None and p.grad is not None
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(dev):
+    q = _rand((4, 64), torch.bfloat16, dev, 13)
+    p = _rand((100, 64), torch.bfloat16, dev, 14)
+    labels = torch.arange(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_infonce_fwd(q, p.T.contiguous().T, labels)
+    with pytest.raises(TypeError):
+        ops.fused_infonce_fwd(q.half(), p, labels)
+    with pytest.raises(ValueError, match="int32"):
+        ops.fused_infonce_fwd(q, p, labels.long())
+    with pytest.raises(ValueError, match="on"):
+        ops.fused_infonce_fwd(q, p.cpu(), labels)

@@ -79,6 +79,34 @@ def test_entry_points_raise_without_cuda(no_cuda):
     assert Retriever(enc, params, RetrieverConfig(), device="cpu").device.type == "cpu"
 
 
+def test_train_entry_point_raises_without_cuda_unless_asked_for_the_cpu(no_cuda):
+    from repro_torch.launch import train
+
+    args = ["--total-batch", "8", "--local-batch", "4", "--bank", "8", "--steps", "1",
+            "--corpus-size", "16"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(args)
+    _, report = train.main(args + ["--device", "cpu"])
+    assert report.steps_run == 1
+
+
+def test_params_and_state_take_their_device_explicitly():
+    """No path builds parameters on the CPU by omission: the device is a
+    required argument of init_bert, DualEncoder.init and init_state."""
+    import inspect
+
+    from repro_torch.core.step_program import init_state
+    from repro_torch.launch import serve
+    from repro_torch.models.bert import init_bert
+
+    enc = serve.make_bert_dual_encoder(serve.tiny_bert())
+    for fn in (init_bert, enc.init, init_state):
+        param = inspect.signature(fn).parameters["device"]
+        assert param.default is inspect.Parameter.empty, fn
+    with pytest.raises(TypeError):
+        enc.init(torch.Generator().manual_seed(0))
+
+
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
 
