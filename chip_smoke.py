@@ -18,7 +18,14 @@ Phases, one JSON line each:
                some labels out of range, and M=2048 query-bank rows, against
                N=2064 columns of which the last 1000 are masked; d=768,
                bf16), an fp32 case and a small ragged case; kernel, plain,
-               library and bound times, forward and backward apart.
+               library and bound times, forward and backward apart; the
+               flash_attention kernel at the BERT query and passage passes
+               (B=8, S=32 and 256, H=12, D=64, bf16, ragged key masks, q, k
+               and v the strided splits of one fused qkv tensor), a row with
+               every key masked, an fp32 case, and the LM prefill shapes no
+               path runs yet (internlm2-1.8b: S=4096, H=16, Hk=8, D=128;
+               stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16); kernel,
+               plain, library (scaled_dot_product_attention) and bound times.
   4. serve   - the port's main path at the full width of dpr-bert-base, in
                the serve_topk cell (configs/dpr_bert_base.py): a seeded
                Retriever (bf16_banks, top_k=100) encodes 32768 passages of
@@ -41,6 +48,16 @@ Phases, one JSON line each:
                against the fused one from the same state and batch, a second
                Trainer resuming from the saved step, and a Top@k eval through
                the fused search kernel.
+  6. flash   - the same towers with attention_impl="pallas" (the attention
+               of every layer through the flash_attention kernel): their
+               passage reps are held against the plain-attention towers on
+               the same params, the serve phase runs again on them (12
+               launches per encode batch and per coalesced batch, none on
+               the plain towers' run); then contaccum_bf16 trains for
+               FLASH_TRAIN_STEPS steps (finite losses, exactly 16 chunks x 3
+               tower passes x 12 layers x 2 (remat) launches a step), and
+               one step with flash towers is held against plain towers from
+               the same state and batch.
 Then the kernels line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line. Any failed check raises and the script
 exits non-zero before the final line. Without a CUDA device, or without the
@@ -50,6 +67,7 @@ repo's ``src/repro_torch`` beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -61,8 +79,10 @@ REPO = Path(__file__).resolve().parent
 SEED = 0
 DEVICE = "cuda"
 
-# H100 SXM data sheet (dense): bf16 tensor-core peak and HBM bandwidth
+# H100 SXM data sheet (dense): bf16 tensor-core peak, fp32 peak outside the
+# tensor cores, and HBM bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # fp32 sums of 768 exact bf16 products in another order: scores agree to
@@ -109,6 +129,29 @@ PARITY_LOSS_RTOL = 1e-3
 # queue the timed calls of one fused_infonce measurement
 SLEEP_CYCLES = 70_000_000
 PARITY_GRAD_RTOL = 2e-2
+
+# flash_attention against its plain version by ref.flash_attention_error:
+# fp32, each element within 1e-5 of the largest |v| (the same fp32 products
+# and exponentials summed in another order); bf16, each element within
+# 2^-7 (a + |o|) + 2^-12 a, a = sum_j p_j |v_j| and o the exact output (both
+# round their probabilities to bf16, the kernel each tile's unnormalised
+# exp(s - m) and the plain version the normalised softmax, at most 2^-8 a
+# each, and their output, 2^-8 |o| each), and a mean error from the exact
+# attention at most 1.25 times the plain version's (the same kinds of
+# rounding; a dropped or misweighted tile of late keys shows here)
+
+# Where the flash phase departs from the repo's cells: the towers run with
+# attention_impl="pallas", the BertConfig field both packages offer (no named
+# cell selects it); it serves as the serve phase does, and trains
+# FLASH_TRAIN_STEPS steps of the contaccum_bf16 cell.
+FLASH_IMPL = "pallas"
+# prefill shapes of the LM configs (src/repro/configs/internlm2_1p8b.py,
+# stablelm_3b.py) that no path of the port runs yet: (B, S, H, Hk, D), causal
+FLASH_LM_SHAPES = {"internlm2_prefill": (1, 4096, 16, 8, 128),
+                   "stablelm_prefill": (1, 2048, 32, 32, 80)}
+FLASH_TRAIN_STEPS = 5
+# passages whose reps are held against the plain-attention towers
+FLASH_PARITY_PASSAGES = 256
 
 
 def emit(obj) -> None:
@@ -264,7 +307,11 @@ def phase_kernels(torch, ops, ref):
     return result
 
 
-def phase_serve(torch, ops, ref):
+def phase_serve(torch, topk_ref, bert_cfg, counters):
+    """Serve the serve_topk cell with towers of ``bert_cfg``. ``counters``
+    lists (name, wrapper, per encode batch, per coalesced batch): each
+    wrapper's launches in the index encode and in the serving run must be
+    that many times the batches of each."""
     import numpy as np
 
     from repro_torch.configs.dpr_bert_base import BERT_BASE, SERVE_TOPK
@@ -274,13 +321,14 @@ def phase_serve(torch, ops, ref):
 
     k, precision = SERVE_TOPK["top_k"], SERVE_TOPK["precision"]
     n_index, d = SERVE_TOPK["n_passages"], BERT_BASE.d_model
+    encode_batch = 256
     t0 = time.perf_counter()
-    enc = make_bert_dual_encoder(BERT_BASE, precision=precision)
+    enc = make_bert_dual_encoder(bert_cfg, precision=precision)
     params = enc.init(torch.Generator().manual_seed(SEED), DEVICE)
     retriever = Retriever(
         enc, params,
         RetrieverConfig(top_k=k, search_impl=SEARCH_IMPL, precision=precision,
-                        encode_batch=256),
+                        encode_batch=encode_batch),
         device=DEVICE,
     )
     corpus = SyntheticRetrievalCorpus(
@@ -288,10 +336,25 @@ def phase_serve(torch, ops, ref):
         q_len=SERVE_TOPK["q_len"], p_len=P_LEN, seed=SEED,
     )
     setup_s = time.perf_counter() - t0
+
+    def reset():
+        for _, wrapper, _, _ in counters:
+            wrapper.launches = 0
+
+    def read():
+        return {name: wrapper.launches for name, wrapper, _, _ in counters}
+
+    reset()                                           # the index encode starts here
     t0 = time.perf_counter()
     encoded = retriever.build_index(corpus.passages).reps
     encoded.sum().item()                              # waits for the encode
     index_s = time.perf_counter() - t0
+    encode_launches = read()                          # read just after it
+    encode_batches = -(-N_ENCODED // encode_batch)
+    for name, _, per_encode, _ in counters:
+        require(encode_launches[name] == per_encode * encode_batches,
+                f"index encode launched {name} {encode_launches[name]} times for "
+                f"{encode_batches} batches, not {per_encode} each")
     require(encoded.dtype == torch.bfloat16 and tuple(encoded.shape) == (N_ENCODED, d),
             "encoded index is not (N, d_model) bf16")
     require(bool(torch.isfinite(encoded).all()), "index has non-finite rows")
@@ -312,7 +375,7 @@ def phase_serve(torch, ops, ref):
     try:
         server.query(corpus.queries[0])               # warm-up, not counted
         server.batch_sizes.clear()
-        ops.fused_topk.launches = 0                   # the main path's run starts here
+        reset()                                       # the main path's run starts here
         lat = [0.0] * N_REQUESTS
         answers = [None] * N_REQUESTS
 
@@ -325,13 +388,16 @@ def phase_serve(torch, ops, ref):
         with ThreadPoolExecutor(max_workers=CLIENTS) as pool:
             list(pool.map(one, range(N_REQUESTS)))
         wall = time.perf_counter() - t0
-        launches = ops.fused_topk.launches           # read just after the run
+        launches = read()                             # read just after the run
         batches = list(server.batch_sizes)
     finally:
         server.stop()
     require(not server._thread.is_alive(), "server thread did not stop")
-    require(launches == len(batches) > 0,
-            f"fused_topk launched {launches} times for {len(batches)} coalesced batches")
+    require(len(batches) > 0, "no coalesced batch was served")
+    for name, _, _, per_batch in counters:
+        require(launches[name] == per_batch * len(batches),
+                f"{name} launched {launches[name]} times for {len(batches)} coalesced "
+                f"batches, not {per_batch} each")
     for ids, scores in answers:
         require(ids.shape == (k,) and scores.shape == (k,), "answer shape")
         require(bool((ids >= 0).all() and (ids < n_index).all()), "answer id out of range")
@@ -340,25 +406,26 @@ def phase_serve(torch, ops, ref):
     # one coalesced batch of answers against the plain search on the same reps
     tokens = corpus.queries[:max_batch]
     q_reps = retriever.encode_queries(tokens)
-    rs, ri = ref.topk_scores_ref(q_reps, store.reps, k + 1, col_valid=store.row_valid)
+    rs, ri = topk_ref.topk_scores_ref(q_reps, store.reps, k + 1, col_valid=store.row_valid)
     s = torch.as_tensor(np.stack([answers[j][1] for j in range(max_batch)]), device=DEVICE)
     i = torch.as_tensor(np.stack([answers[j][0] for j in range(max_batch)]), device=DEVICE)
     tol = SCORE_RTOL * max(1.0, rs[:, 0].abs().max().item())
-    err, clear = check_topk(ref, s, i, rs, ri, tol, "served batch vs plain")
+    err, clear = check_topk(topk_ref, s, i, rs, ri, tol, "served batch vs plain")
     encoded_hits = int((i < N_ENCODED).sum().item())
     search_ms = cuda_ms(lambda: retriever.search_reps_tensors(q_reps), 10)
     encode_ms = cuda_ms(lambda: retriever.encode_queries(tokens), 10)
     ms = sorted(x * 1e3 for x in lat)
     return {
         "model": "dpr-bert-base (2 x bert-base-uncased, 12 layers, d 768, seeded init)",
+        "attention_impl": bert_cfg.attention_impl,
         "precision": precision, "search_impl": SEARCH_IMPL, "top_k": k,
         "index_rows": n_index, "encoded_rows": N_ENCODED, "p_len": P_LEN,
         "q_len": SERVE_TOPK["q_len"], "index_bytes": store.bytes_per_device(),
-        "setup_s": setup_s, "index_build_s": index_s,
+        "setup_s": setup_s, "index_build_s": index_s, "index_encode_launches": encode_launches,
         "requests": N_REQUESTS, "clients": CLIENTS, "qps": N_REQUESTS / wall,
         "p50_ms": statistics.median(ms), "p99_ms": ms[int(0.99 * (len(ms) - 1))],
         "batches": len(batches), "mean_batch": sum(batches) / len(batches),
-        "fused_topk_launches": launches, "batch_max_abs_err": err, "batch_tolerance": tol,
+        "launches": launches, "batch_max_abs_err": err, "batch_tolerance": tol,
         "batch_clear_slots": clear, "batch_slots": i.numel(),
         "batch_hits_in_encoded_rows": encoded_hits,
         "fused_search_ms_one_batch": search_ms, "encode_ms_one_batch": encode_ms,
@@ -497,9 +564,12 @@ def phase_infonce_kernels(torch):
     return result
 
 
-def phase_train(torch, topk_ops):
-    import dataclasses
-    import tempfile
+def contaccum_setup(torch, bert_cfg, total_steps):
+    """The contaccum_bf16 cell on towers of ``bert_cfg``, seeded: encoder,
+    contrastive config, optimizer (warmup, then linear decay to 0 at
+    ``total_steps``), update, initial state, corpus, loader and the batch
+    function a Trainer draws from."""
+    import types
 
     import numpy as np
 
@@ -508,37 +578,55 @@ def phase_train(torch, topk_ops):
     from repro_torch.core.types import ContrastiveConfig, RetrievalBatch
     from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.retrieval import SyntheticRetrievalCorpus
-    from repro_torch.evaluation import evaluate_topk
-    from repro_torch.kernels.fused_infonce import ops
     from repro_torch.models.towers import make_bert_dual_encoder
     from repro_torch.optim import adamw, chain, clip_by_global_norm, linear_warmup_linear_decay
-    from repro_torch.retrieval import RetrieverConfig
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     cell = CONTACCUM_BF16
-    k, batch = cell["accum_steps"], cell["global_batch"]
-    t0 = time.perf_counter()
-    enc = make_bert_dual_encoder(BERT_BASE, precision=cell["precision"])
+    enc = make_bert_dual_encoder(bert_cfg, precision=cell["precision"])
     cfg = ContrastiveConfig(
-        method=cell["method"], accumulation_steps=k, bank_size=cell["bank_size"],
-        loss_impl=cell["loss_impl"], precision=cell["precision"],
-        temperature=1.0, grad_clip_norm=2.0,
+        method=cell["method"], accumulation_steps=cell["accum_steps"],
+        bank_size=cell["bank_size"], loss_impl=cell["loss_impl"],
+        precision=cell["precision"], temperature=1.0, grad_clip_norm=2.0,
     )
     tx = chain(clip_by_global_norm(cfg.grad_clip_norm),
-               adamw(linear_warmup_linear_decay(PEAK_LR, WARMUP_STEPS, TRAIN_STEPS)))
-    update = build_step_program(enc, tx, cfg).update
-    state = init_state(torch.Generator().manual_seed(SEED), enc, tx, cfg, device=DEVICE)
+               adamw(linear_warmup_linear_decay(PEAK_LR, WARMUP_STEPS, total_steps)))
     corpus = SyntheticRetrievalCorpus(
         n_passages=N_CORPUS, vocab_size=BERT_BASE.vocab_size, q_len=cell["q_len"],
         p_len=cell["p_len"], n_hard=cell["n_hard"], seed=SEED,
     )
-    loader = ShardedLoader(N_CORPUS, batch, seed=SEED)
+    loader = ShardedLoader(N_CORPUS, cell["global_batch"], seed=SEED)
 
     def next_batch(step):
         b = corpus.batch(loader.next_indices())
         return RetrievalBatch(*(torch.from_numpy(np.asarray(b[key], np.int64)).to(DEVICE)
                                 for key in ("query", "passage_pos", "passage_hard")))
 
+    return types.SimpleNamespace(
+        enc=enc, cfg=cfg, tx=tx, update=build_step_program(enc, tx, cfg).update,
+        state=init_state(torch.Generator().manual_seed(SEED), enc, tx, cfg, device=DEVICE),
+        corpus=corpus, loader=loader, next_batch=next_batch,
+    )
+
+
+def phase_train(torch, topk_ops):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16
+    from repro_torch.core.methods import build_step_program
+    from repro_torch.evaluation import evaluate_topk
+    from repro_torch.kernels.fused_infonce import ops
+    from repro_torch.retrieval import RetrieverConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cell = CONTACCUM_BF16
+    k, batch = cell["accum_steps"], cell["global_batch"]
+    t0 = time.perf_counter()
+    run = contaccum_setup(torch, BERT_BASE, TRAIN_STEPS)
+    enc, cfg, tx, update, state = run.enc, run.cfg, run.tx, run.update, run.state
+    corpus, loader, next_batch = run.corpus, run.loader, run.next_batch
     setup_s = time.perf_counter() - t0
     tokens_per_step = batch * (cell["q_len"] + cell["p_len"] * (1 + cell["n_hard"]))
     with tempfile.TemporaryDirectory() as tmp:
@@ -644,13 +732,234 @@ def profile_step_share(torch, update, state, batch):
     kernel_ms = sum(ms for _, ms, _ in kernels)
     if kernel_ms <= 0:
         return {"step_wall_ms": wall_ms, "device_ms": None, "infonce_ms": None,
-                "share_of_device": None, "busy_share": None, "top_kernels": []}
+                "share_of_device": None, "busy_share": None, "flash_ms": None,
+                "top_kernels": []}
     infonce_ms = sum(ms for key, ms, _ in kernels if "infonce" in key)
+    flash_ms = sum(ms for key, ms, _ in kernels if "flash_fwd_kernel" in key)
     top = sorted(kernels, key=lambda k: -k[1])[:10]
     return {"step_wall_ms": wall_ms, "device_ms": kernel_ms, "infonce_ms": infonce_ms,
             "share_of_device": infonce_ms / kernel_ms, "busy_share": kernel_ms / wall_ms,
+            "flash_ms": flash_ms, "flash_launches": sum(c for key, _, c in kernels
+                                                        if "flash_fwd_kernel" in key),
             "kernel_launches": sum(c for _, _, c in kernels),
             "top_kernels": [{"name": key[:80], "ms": ms, "count": c} for key, ms, c in top]}
+
+
+def flash_bound_ms(b, sq, skv, h, hk, d, causal, masked, itemsize):
+    """(bound_ms, bound_by) of one flash_attention call: q, k, v and the key
+    mask read once and o written once, over HBM bandwidth; the two products
+    (4*B*H*Sq*Skv*D, half of it under a causal mask) over the bf16 tensor
+    peak, or the fp32 peak outside the tensor cores for fp32 inputs."""
+    moved = (2 * b * sq * h + 2 * b * skv * hk) * d * itemsize + (b * skv if masked else 0)
+    ops = 4.0 * b * h * sq * skv * d * (0.5 if causal else 1.0)
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash_kernels(torch):
+    """flash_attention against its plain version at the BERT passes (strided
+    q, k, v from one fused projection, ragged key masks), a fully masked
+    row, fp32, and the LM prefill shapes; each also timed against
+    scaled_dot_product_attention on the same inputs (the yardstick)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    h, dh = BERT_BASE.n_heads, BERT_BASE.dh
+    b = CONTACCUM_BF16["global_batch"] // CONTACCUM_BF16["accum_steps"]          # 8
+    bf16 = torch.bfloat16
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def ragged(bb, s):
+        lengths = torch.randint(1, s + 1, (bb,), generator=g, device=dev)
+        return torch.arange(s, device=dev)[None, :] < lengths[:, None]
+
+    def fused_qkv(bb, s, dtype):
+        """q, k, v as bert.py makes them: reshaped splits of one projection."""
+        qkv = rand((bb, s, 3 * h * dh), dtype)
+        return [t.reshape(bb, s, h, dh) for t in qkv.split(h * dh, dim=-1)]
+
+    def check(name, q, k, v, causal=False, kv_mask=None):
+        out = ops.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
+        err = ref.flash_attention_error(out, q, k, v, causal=causal, kv_mask=kv_mask)
+        require(ref.error_ok(err, q.dtype), f"{name}: kernel departs from the plain version: {err}")
+        want = ref.flash_attention_ref(q, k, v, causal=causal, kv_mask=kv_mask)
+        bb, sq, hq, d = q.shape
+        skv, hk = k.shape[1], k.shape[2]
+        res = {"B": bb, "Sq": sq, "Skv": skv, "H": hq, "Hk": hk, "D": d, "causal": causal,
+               "masked_keys": 0 if kv_mask is None else int((~kv_mask).sum().item()),
+               "strided_qkv": not q.is_contiguous(), "dtype": str(q.dtype).replace("torch.", ""),
+               "max_abs_err": err["max_abs_err"], "worst_share_of_allowance": err["worst"],
+               "mean_err_vs_exact": err["mean_err"], "plain_mean_err_vs_exact": err["plain_mean_err"]}
+        mask4 = None if kv_mask is None else kv_mask[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask4,
+                is_causal=causal, scale=d ** -0.5, enable_gqa=hk != hq)
+
+        # the yardstick computes the same function, except for a batch row
+        # with every key masked (it does not average the values there), so
+        # its error is taken over the other rows
+        seen = slice(None) if kv_mask is None else kv_mask.any(1)
+        lib_err = (library().transpose(1, 2).float()[seen] - want.float()[seen]).abs().max().item()
+        bound_ms, bound_by = flash_bound_ms(bb, sq, skv, hq, hk, d, causal, kv_mask is not None,
+                                            q.element_size())
+        res.update({
+            "ms": device_ms(lambda: ops.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask), 20),
+            "plain_ms": device_ms(
+                lambda: ref.flash_attention_ref(q, k, v, causal=causal, kv_mask=kv_mask), 3),
+            "library_ms": device_ms(library, 20), "library_max_abs_err": lib_err,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms_with_enqueue": cuda_ms(
+                lambda: ops.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask), 20),
+        })
+        return res
+
+    result = {}
+    for name, s in (("bert_query", CONTACCUM_BF16["q_len"]), ("bert_passage", CONTACCUM_BF16["p_len"])):
+        q, k, v = fused_qkv(b, s, bf16)
+        result[name] = check(name, q, k, v, kv_mask=ragged(b, s))
+    q, k, v = (rand((4, 256, h, dh), bf16) for _ in range(3))
+    mask = ragged(4, 256)
+    mask[1] = False
+    result["all_masked_row"] = check("all_masked_row", q, k, v, kv_mask=mask)
+    out, v1 = ops.flash_attention(q, k, v, kv_mask=mask)[1].float(), v[1].float()
+    require(bool(((out - v1.mean(0)).abs() <= ref.bf16_allowance(v1.abs().mean(0), v1.mean(0))).all()),
+            "a row with every key masked does not average the values")   # every p is 1 / Skv
+    q, k, v = fused_qkv(b, 256, torch.float32)
+    result["fp32"] = check("fp32", q, k, v, kv_mask=ragged(b, 256))
+    for name, (bb, s, hq, hk, d) in FLASH_LM_SHAPES.items():
+        q = rand((bb, s, hq, d), bf16)
+        k, v = rand((bb, s, hk, d), bf16), rand((bb, s, hk, d), bf16)
+        result[name] = check(name, q, k, v, causal=True)
+    return result
+
+
+def rel_err(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def phase_flash(torch, topk_ops, topk_ref):
+    """The towers with attention_impl="pallas": reps held against the
+    plain-attention towers, the serve phase on them, and contaccum_bf16
+    training."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16, SERVE_TOPK
+    from repro_torch.core.methods import build_step_program
+    from repro_torch.data.retrieval import SyntheticRetrievalCorpus
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.towers import make_bert_dual_encoder
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    flash_cfg = dataclasses.replace(BERT_BASE, attention_impl=FLASH_IMPL)
+    n_layers = BERT_BASE.n_layers
+    precision = SERVE_TOPK["precision"]
+    out = {"attention_impl": FLASH_IMPL}
+
+    # ---- reps against the plain-attention towers on the same params; the
+    # tolerance is bf16's own distance from fp32 (the plain towers in fp32):
+    # the flash path may move the reps no further on average than bf16
+    # compute does, and no element further than that plus one bf16 ulp of
+    # the largest rep (the flash and plain reps are both rounded to bf16, the
+    # fp32 reps are not, so two bf16 reps differ by whole ulps)
+    params = make_bert_dual_encoder(BERT_BASE, precision=precision).init(
+        torch.Generator().manual_seed(SEED), DEVICE)
+    corpus = SyntheticRetrievalCorpus(
+        n_passages=FLASH_PARITY_PASSAGES, vocab_size=BERT_BASE.vocab_size,
+        q_len=SERVE_TOPK["q_len"], p_len=P_LEN, seed=SEED,
+    )
+    with torch.inference_mode():
+        toks = torch.as_tensor(corpus.passages, device=DEVICE).long()
+        reps = {name: make_bert_dual_encoder(cfg, precision=prec).encode_passage(params, toks).float()
+                for name, cfg, prec in (("flash", flash_cfg, precision), ("plain", BERT_BASE, precision),
+                                        ("plain_fp32", BERT_BASE, "fp32"))}
+    diff, floor = (reps["flash"] - reps["plain"]).abs(), (reps["plain"] - reps["plain_fp32"]).abs()
+    cos = torch.nn.functional.cosine_similarity(reps["flash"], reps["plain"], dim=-1)
+    ulp = 2.0 ** (math.floor(math.log2(reps["plain"].abs().max().item())) - 7)
+    out["reps_vs_plain"] = {
+        "passages": FLASH_PARITY_PASSAGES, "max_abs_err": diff.max().item(),
+        "mean_abs_err": diff.mean().item(), "min_cosine": cos.min().item(),
+        "bf16_vs_fp32_max_abs_err": floor.max().item(),
+        "bf16_vs_fp32_mean_abs_err": floor.mean().item(), "bf16_ulp_of_max": ulp,
+    }
+    require(diff.mean().item() <= floor.mean().item()
+            and diff.max().item() <= floor.max().item() + ulp,
+            f"flash reps depart from the plain towers' further than bf16 does from fp32: "
+            f"{out['reps_vs_plain']}")
+    del params, reps, toks
+
+    # ---- serving: the serve phase on the flash towers (every layer of each
+    # encode batch and each coalesced batch launches the kernel once)
+    out["serve"] = phase_serve(torch, topk_ref, flash_cfg, [
+        ("fused_topk", topk_ops.fused_topk, 0, 1),
+        ("flash_attention", flash_ops.flash_attention, n_layers, n_layers),
+    ])
+
+    # ---- training: contaccum_bf16 with the flash towers
+    cell = CONTACCUM_BF16
+    kk, batch = cell["accum_steps"], cell["global_batch"]
+    run = contaccum_setup(torch, flash_cfg, FLASH_TRAIN_STEPS)
+    update, state, next_batch = run.update, run.state, run.next_batch
+    trainer = Trainer(TrainerConfig(total_steps=FLASH_TRAIN_STEPS, log_every=1), update,
+                      next_batch, loader_state=run.loader.state)
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.flash_attention.launches = 0             # the train path's run starts here
+    t0 = time.perf_counter()
+    state, report = trainer.run(state)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = flash_ops.flash_attention.launches      # read just after the run
+    peak_bytes = torch.cuda.max_memory_allocated()
+    hist = report.history
+    require(report.steps_run == FLASH_TRAIN_STEPS, f"flash train ran {report.steps_run} steps")
+    require(all(np.isfinite(row["loss"]) for row in hist), "non-finite flash training loss")
+    # each chunk runs the query, positive and hard-negative tower passes;
+    # each layer's forward runs again in the backward under remat
+    passes = 2 + (1 if cell["n_hard"] else 0)
+    per_step = kk * passes * n_layers * (2 if BERT_BASE.remat != "none" else 1)
+    require(launches == per_step * FLASH_TRAIN_STEPS,
+            f"flash_attention launched {launches} times, not {per_step} x {FLASH_TRAIN_STEPS}")
+
+    # one step with flash towers and one with plain towers, same state and batch
+    parity_batch = next_batch(FLASH_TRAIN_STEPS)
+    plain_update = build_step_program(
+        make_bert_dual_encoder(BERT_BASE, precision=cell["precision"]), run.tx, run.cfg).update
+    _, m_flash = update(state, parity_batch)
+    _, m_plain = plain_update(state, parity_batch)
+    parity = {key: (float(getattr(m_flash, key)), float(getattr(m_plain, key)))
+              for key in ("loss", "grad_norm", "accuracy")}
+    # the dense-vs-fused tolerances, for the same cause: bf16 rounding at
+    # other places (here the attention's probabilities, per tile or
+    # normalised) under fp32 sums of the same products
+    for key, rtol in (("loss", PARITY_LOSS_RTOL), ("grad_norm", PARITY_GRAD_RTOL)):
+        fl, pl = parity[key]
+        require(rel_err(fl, pl) <= rtol, f"flash vs plain towers {key}: {fl} vs {pl}")
+    share = profile_step_share(torch, update, state, parity_batch)
+    times = [row["step_time_s"] for row in hist[1:]]
+    out["train"] = {
+        "cell": "contaccum_bf16", "steps": FLASH_TRAIN_STEPS, "train_s": train_s,
+        "first_step_s": hist[0]["step_time_s"], "median_step_s": statistics.median(times),
+        "step_times_s": [row["step_time_s"] for row in hist],
+        "pairs_per_s": batch / statistics.median(times),
+        "max_memory_allocated": peak_bytes,
+        "losses": [row["loss"] for row in hist], "flash_attention_launches": launches,
+        "launches_per_step": per_step, "flash_vs_plain": parity,
+        "flash_vs_plain_rel_err": {key: rel_err(*parity[key]) for key in ("loss", "grad_norm")},
+        "profile": share,
+    }
+    return out
 
 
 def main() -> int:
@@ -678,28 +987,36 @@ def main() -> int:
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     t0 = time.perf_counter()
-    logs = _build.build(["fused_topk", "fused_infonce"])
+    logs = _build.build(["fused_topk", "fused_infonce", "flash_attention"])
     for name, text in logs.items():
         print(f"[{name}] {text}", file=sys.stderr)
     emit({"phase": "build", "kernels": sorted(logs), "seconds": time.perf_counter() - t0})
 
     kernels = phase_kernels(torch, ops, ref)
     infonce = phase_infonce_kernels(torch)
+    flash_k = phase_flash_kernels(torch)
     emit({"phase": "kernels", "fused_topk": kernels, "fused_infonce": infonce,
-          "nvidia_smi": smi})
+          "flash_attention": flash_k, "nvidia_smi": smi})
 
-    serve = phase_serve(torch, ops, ref)
+    from repro_torch.configs.dpr_bert_base import BERT_BASE
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    serve = phase_serve(torch, ref, BERT_BASE, [("fused_topk", ops.fused_topk, 0, 1),
+                                                ("flash_attention", flash_ops.flash_attention, 0, 0)])
     emit({"phase": "serve", **serve, "nvidia_smi": smi})
 
     train = phase_train(torch, ops)
     emit({"phase": "train", **train, "nvidia_smi": smi})
+
+    flash = phase_flash(torch, ops, ref)
+    emit({"phase": "flash", **flash, "nvidia_smi": smi})
 
     ev = kernels["eval_topk"]
     lines = [{
         "name": "fused_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
         "replaces": "src/repro/kernels/fused_topk/fused_topk.py:47",
-        "launches": serve["fused_topk_launches"], "max_abs_err": ev["max_abs_err"],
+        "launches": serve["launches"]["fused_topk"], "max_abs_err": ev["max_abs_err"],
         "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
         "bound_by": ev["bound_by"], "library_ms": ev["library_ms"],
     }]
@@ -719,6 +1036,18 @@ def main() -> int:
             "library_ms": t["library_ms"], "shape": f"M={infonce[shape]['M']}, "
             f"N={infonce[shape]['N']}, d={infonce[shape]['d']}, {infonce[shape]['dtype']}",
         })
+    # flash_attention at the BERT passage pass (the phase line has every shape)
+    fa = flash_k["bert_passage"]
+    lines.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
+        "launches": flash["train"]["flash_attention_launches"],
+        "max_abs_err": fa["max_abs_err"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"],
+        "shape": f"B={fa['B']}, S={fa['Sq']}, H={fa['H']}, D={fa['D']}, bf16, key mask",
+    })
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

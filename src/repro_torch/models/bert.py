@@ -4,10 +4,12 @@ throughout, raw final-layer [CLS] as the representation (no pooler).
 
 Parameters are nested dicts of tensors in the JAX package's layout, the
 per-layer weights stacked on a leading ``n_layers`` axis, so carrying weights
-across (compat.py) is a straight copy. ``remat="full"`` runs each layer under
-``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of the layer): its
-activations are recomputed in the backward instead of kept; the values do
-not change.
+across (compat.py) is a straight copy. ``attention_impl`` picks the
+attention path of ``models.attention.attention`` ("plain", "chunked", or
+"pallas": the hand-written flash kernel). Any ``remat`` other than "none"
+runs each layer under ``torch.utils.checkpoint`` (the JAX package applies
+``jax.checkpoint`` to the layer for every such value): its activations are
+recomputed in the backward instead of kept; the values do not change.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.precision import PrecisionPolicy, resolve_precision
 from repro_torch.models import layers as L
-from repro_torch.models.attention import plain_attention
+from repro_torch.models.attention import attention
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -38,7 +40,8 @@ class BertConfig:
     norm_eps: float = 1e-12
     dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
-    remat: str = "none"          # "none" | "full": recompute each layer in the backward
+    attention_impl: str = "plain"   # "plain" | "chunked" | "pallas" (models.attention)
+    remat: str = "none"             # anything but "none": recompute each layer in the backward
 
     @property
     def dh(self) -> int:
@@ -119,7 +122,7 @@ def bert_hidden(
         lp = {name: w.to(dt) for name, w in lp.items()}
         qkv = x @ lp["wqkv"] + lp["bqkv"]
         q, k, v = (t.reshape(b, s, h, dh) for t in qkv.split(d, dim=-1))
-        o = plain_attention(q, k, v, kv_mask=mask)
+        o = attention(q, k, v, impl=cfg.attention_impl, causal=False, kv_mask=mask)
         att = o.reshape(b, s, d) @ lp["wo"] + lp["bo"]
         x = L.layer_norm(lp["ln1_s"], lp["ln1_b"], x + att, eps=cfg.norm_eps)
         ff = L.gelu(x @ lp["w1"] + lp["b1"])
@@ -128,7 +131,7 @@ def bert_hidden(
 
     for i in range(cfg.n_layers):
         lp = {name: ws[i] for name, ws in layers.items()}
-        if cfg.remat == "full" and torch.is_grad_enabled():
+        if cfg.remat != "none" and torch.is_grad_enabled():
             x = checkpoint(layer, x, lp, use_reentrant=False)
         else:
             x = layer(x, lp)

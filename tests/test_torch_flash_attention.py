@@ -1,0 +1,187 @@
+"""The port's flash attention op (kernels/flash_attention/ops.py) against the
+JAX package's, on the same numpy inputs. On the CPU the port's forward is
+its plain version (ref.py) and the JAX op runs its Pallas kernel in
+interpret mode, as tests/test_kernels.py runs it; both backwards recompute
+through their package's chunked attention. The kernel itself is held to
+ref.py on the card by tests/test_torch_flash_attention_cuda.py.
+
+Tolerances: fp32 forward, rtol/atol 2e-5 (tests/test_kernels.py's own
+kernel-against-reference tolerance: the kernel's online softmax against the
+full softmax); bf16 forward, 2e-2 (the same file's: the kernel rounds each
+tile's unnormalised probabilities to bf16, the plain version the normalised
+ones); gradients, rtol 1e-5 and atol 1e-5 of the largest gradient (the same
+chunked recompute on both sides, another summation order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jops
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (
+    error_ok,
+    flash_attention_error,
+    flash_attention_ref,
+)
+
+FWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(b, sq, skv, h, hk, d, masked, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, skv, hk, d)).astype(np.float32)
+    v = rng.normal(size=(b, skv, hk, d)).astype(np.float32)
+    mask = None
+    if masked:
+        lengths = rng.integers(1, skv + 1, size=b)
+        mask = np.arange(skv)[None, :] < lengths[:, None]
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize(
+    "b,sq,skv,h,hk,d,causal,masked,dtype",
+    [
+        (2, 32, 32, 2, 2, 16, False, True, "float32"),    # BERT-like: padding mask
+        (1, 32, 32, 4, 2, 16, True, False, "float32"),    # causal GQA
+        (1, 16, 32, 4, 1, 16, True, True, "float32"),     # MQA, Sq != Skv, both masks
+        (2, 32, 32, 2, 2, 16, False, True, "bfloat16"),
+    ],
+)
+def test_forward_matches_jax(b, sq, skv, h, hk, d, causal, masked, dtype):
+    q, k, v, mask = _inputs(b, sq, skv, h, hk, d, masked, seed=sq + h + hk)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    jm = None if mask is None else jnp.asarray(mask)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, kv_mask=jm, block_q=16, block_k=16)
+    tq, tk, tv = (torch.as_tensor(a).to(getattr(torch, dtype)) for a in (q, k, v))
+    tm = None if mask is None else torch.as_tensor(mask)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(tq, tk, tv, causal=causal, kv_mask=tm, block_q=16, block_k=16)
+    assert ops.flash_attention.launches == before          # the CPU path launches nothing
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = FWD_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    # and the plain versions of the two packages agree with each other
+    np.testing.assert_allclose(
+        flash_attention_ref(tq, tk, tv, causal=causal, kv_mask=tm).float().numpy(),
+        np.asarray(jax_ref(jq, jk, jv, causal=causal, kv_mask=jm).astype(jnp.float32)),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal,masked", [(False, True), (True, False)])
+def test_grads_match_jax(causal, masked):
+    q, k, v, mask = _inputs(1, 32, 32, 4, 2, 16, masked, seed=3)
+    cot = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def jloss(q_, k_, v_):
+        out = jops.flash_attention(q_, k_, v_, causal=causal, kv_mask=jm, block_q=16, block_k=16)
+        return jnp.sum(out * cot)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal,
+                              kv_mask=None if mask is None else torch.as_tensor(mask),
+                              block_q=16, block_k=16)
+    (out * torch.as_tensor(cot)).sum().backward()
+    for name, t, jg in zip("qkv", leaves, jgrads):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(t.grad.numpy(), jg, rtol=1e-5, atol=1e-5 * np.abs(jg).max(),
+                                   err_msg=f"d{name}")
+
+
+def test_grads_only_for_the_inputs_that_need_them():
+    q, k, v, _ = _inputs(1, 16, 16, 2, 2, 16, False, seed=5)
+    tq = torch.as_tensor(q).requires_grad_(True)
+    out = ops.flash_attention(tq, torch.as_tensor(k), torch.as_tensor(v))
+    (dq,) = torch.autograd.grad(out.sum(), [tq])
+    assert dq.shape == tq.shape and torch.isfinite(dq).all()
+
+
+def test_no_mask_is_an_all_true_mask():
+    q, k, v, _ = _inputs(2, 16, 16, 2, 2, 16, False, seed=6)
+    tq, tk, tv = (torch.as_tensor(a) for a in (q, k, v))
+    ones = torch.ones((2, 16), dtype=torch.bool)
+    torch.testing.assert_close(ops.flash_attention(tq, tk, tv),
+                               ops.flash_attention(tq, tk, tv, kv_mask=ones), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "sq,skv,block_q,block_k",
+    [(48, 32, 32, 32),      # Sq not a multiple of block_q
+     (32, 48, 32, 32)],     # Skv not a multiple of block_k
+)
+def test_shape_contract_raises_as_in_jax(sq, skv, block_q, block_k):
+    q, k, v, _ = _inputs(1, sq, skv, 2, 2, 16, False, seed=7)
+    with pytest.raises(AssertionError):
+        jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             block_q=block_q, block_k=block_k)
+    with pytest.raises(ValueError, match="Sq % min"):
+        ops.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                            block_q=block_q, block_k=block_k)
+
+
+def test_bad_shapes_and_masks_raise():
+    q = torch.zeros(1, 16, 6, 16)
+    kv = torch.zeros(1, 16, 4, 16)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        ops.flash_attention(q, kv, kv)
+    kv = torch.zeros(1, 16, 2, 16)
+    with pytest.raises(ValueError, match="kv_mask must be bool"):
+        ops.flash_attention(q, kv, kv, kv_mask=torch.ones(1, 15, dtype=torch.bool))
+    with pytest.raises(ValueError, match="need q"):
+        ops.flash_attention(q[0], kv, kv)
+
+
+def _tiled(q, k, v, causal, kv_mask, skip=None, tile=64):
+    """The kernel's arithmetic in plain torch: an online softmax over tiles
+    of ``tile`` keys, each tile's unnormalised exp(s - m) rounded to v's
+    type before its value product, the row sum kept in fp32; the tile
+    starting at key ``skip`` is left out (a fault the check must find)."""
+    b, sq, h, d = q.shape
+    group = h // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.repeat_interleave(group, 2).float()) * d ** -0.5
+    if causal:
+        s = s.masked_fill(torch.arange(k.shape[1])[None, :] > torch.arange(sq)[:, None], -1e30)
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, :], -1e30)
+    vr = v.repeat_interleave(group, 2).float().transpose(1, 2)
+    m = torch.full((b, h, sq, 1), -float("inf"))
+    row_sum, acc = torch.zeros((b, h, sq, 1)), torch.zeros((b, h, sq, d))
+    for c in range(0, k.shape[1], tile):
+        if c == skip:
+            continue
+        m_new = torch.maximum(m, s[..., c : c + tile].amax(-1, keepdim=True))
+        p, corr = torch.exp(s[..., c : c + tile] - m_new), torch.exp(m - m_new)
+        row_sum = row_sum * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(v.dtype).float() @ vr[:, :, c : c + tile]
+        m = m_new
+    return (acc / row_sum.clamp_min(1e-30)).to(v.dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hk,d,causal,masked,dtype,skip,passes",
+    [
+        (4, 256, 4, 4, 64, False, True, torch.bfloat16, None, True),   # BERT passage pass
+        (1, 512, 4, 2, 128, True, False, torch.bfloat16, None, True),  # causal GQA
+        (2, 128, 4, 4, 64, False, True, torch.float32, None, True),
+        (1, 512, 4, 2, 128, True, False, torch.bfloat16, 384, False),  # a late tile dropped
+        (1, 512, 4, 2, 128, True, False, torch.float32, 384, False),
+    ],
+)
+def test_error_check_allows_tile_rounding_and_finds_a_dropped_tile(
+        b, s, h, hk, d, causal, masked, dtype, skip, passes):
+    """The check the card holds the kernel to (ref.flash_attention_error):
+    the kernel's own rounding passes it, a kernel that skips one late key
+    tile does not."""
+    q, k, v, mask = _inputs(b, s, s, h, hk, d, masked, seed=9)
+    q, k, v = (torch.as_tensor(a).to(dtype) for a in (q, k, v))
+    mask = None if mask is None else torch.as_tensor(mask)
+    out = _tiled(q, k, v, causal, mask, skip=skip)
+    err = flash_attention_error(out, q, k, v, causal=causal, kv_mask=mask)
+    assert error_ok(err, dtype) == passes, err

@@ -1,14 +1,20 @@
 """The port's BERT towers against the JAX package's, on the same tokens and
-the same (carried-across) params.
+the same (carried-across) params, with each attention path
+(``attention_impl`` "plain", "chunked" and "pallas": the flash kernel, whose
+plain version runs on the CPU while the JAX package runs its Pallas kernel
+in interpret mode).
 
 Tolerances: fp32 within rtol/atol 1e-5 (the same arithmetic in another
-summation order). bf16 compute: both packages round activations to bf16
+summation order), for [CLS] reps and for parameter gradients (atol 1e-5 of
+the gradient's largest entry). bf16 compute: both packages round activations to bf16
 after every matmul but at different places inside fused ops and with
 different accumulation orders, so [CLS] reps (|x| up to ~3 after LayerNorm,
 where one bf16 ulp is 1/64) agree to a few ulps: atol 0.05 (twice the
 largest difference seen over seeds, 0.023) and a mean error below 0.01
 (seen: 0.005).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +28,7 @@ from repro.models import layers as jax_layers
 from repro.models.towers import make_bert_dual_encoder as jax_dual_encoder
 from repro_torch.compat import params_to_torch
 from repro_torch.launch.serve import tiny_bert
+from repro_torch.models import bert as tbert
 from repro_torch.models import layers
 from repro_torch.models.attention import plain_attention
 from repro_torch.models.towers import make_bert_dual_encoder
@@ -105,3 +112,82 @@ def test_plain_attention_matches_jax():
     want = np.asarray(jax_attention.plain_attention(
         *(jnp.asarray(a) for a in (q, k, v)), kv_mask=jnp.asarray(mask)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "impl,precision,masked",
+    [("chunked", "fp32", True), ("pallas", "fp32", True), ("chunked", "bf16", True),
+     ("pallas", "bf16", True),
+     # no mask: the JAX towers attend under an all-True one, the port passes
+     # None on ("chunked" then takes the custom-backward path)
+     ("chunked", "fp32", False), ("pallas", "fp32", False)],
+)
+def test_bert_attention_impl_matches_jax(impl, precision, masked):
+    """[CLS] reps under ragged masks (or none) and, in fp32, every parameter
+    gradient of the query tower, with the chunked or the flash attention
+    path."""
+    tokens, mask = _tokens(seed=5)
+    w = np.random.default_rng(6).normal(size=(4, 64)).astype(np.float32)
+    jenc = jax_dual_encoder(dataclasses.replace(jax_tiny_bert(), attention_impl=impl),
+                            precision=precision)
+    jparams = jenc.init(jax.random.PRNGKey(7))
+    jbatch = {"tokens": jnp.asarray(tokens), "mask": jnp.asarray(mask)} if masked else jnp.asarray(tokens)
+
+    def jloss(p):
+        reps = jenc.encode_query(p, jbatch).astype(jnp.float32)
+        return jnp.sum(reps * w), reps
+
+    tenc = make_bert_dual_encoder(dataclasses.replace(tiny_bert(), attention_impl=impl),
+                                  precision=precision)
+    tparams = params_to_torch(jax.device_get(jparams), "cpu")
+    tbatch = torch.as_tensor(tokens).long()
+    if masked:
+        tbatch = {"tokens": tbatch, "mask": torch.as_tensor(mask)}
+    if precision == "bf16":
+        want = np.asarray(jloss(jparams)[1])
+        with torch.inference_mode():
+            got = tenc.encode_query(tparams, tbatch).float().numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=0.05)
+        assert np.abs(got - want).mean() < 0.01
+        return
+    jgrads, want = jax.grad(jloss, has_aux=True)(jparams)
+    leaves = tparams["query"]
+    for group in leaves.values():
+        for t in group.values():
+            t.requires_grad_(True)
+    reps = tenc.encode_query(tparams, tbatch)
+    (reps * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(reps.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    jq = jax.device_get(jgrads["query"])
+    for group, ts in leaves.items():
+        for name, t in ts.items():
+            jg = np.asarray(jq[group][name])
+            np.testing.assert_allclose(t.grad.numpy(), jg, rtol=1e-5,
+                                       atol=1e-5 * max(np.abs(jg).max(), 1e-30),
+                                       err_msg=f"{group}/{name}")
+
+
+@pytest.mark.parametrize("impl", ["plain", "pallas"])
+def test_remat_other_than_none_checkpoints_every_layer(impl, monkeypatch):
+    """Any remat value but "none" runs each layer under the checkpoint (as
+    the JAX package applies jax.checkpoint for any such value); values and
+    gradients stay those of "none"."""
+    tokens, mask = _tokens(seed=8)
+    batch = {"tokens": torch.as_tensor(tokens).long(), "mask": torch.as_tensor(mask)}
+    calls = []
+    real = tbert.checkpoint
+    monkeypatch.setattr(tbert, "checkpoint", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    out = {}
+    for remat in ("none", "dots", "full"):
+        calls.clear()
+        enc = make_bert_dual_encoder(
+            dataclasses.replace(tiny_bert(), attention_impl=impl, remat=remat))
+        params = enc.init(torch.Generator().manual_seed(9), "cpu")
+        w = params["passage"]["layers"]["wqkv"].requires_grad_(True)
+        reps = enc.encode_passage(params, batch)
+        reps.square().sum().backward()
+        assert len(calls) == (0 if remat == "none" else tiny_bert().n_layers), remat
+        out[remat] = (reps.detach(), w.grad)
+    for remat in ("dots", "full"):
+        torch.testing.assert_close(out[remat][0], out["none"][0], rtol=0, atol=0)
+        torch.testing.assert_close(out[remat][1], out["none"][1], rtol=1e-6, atol=1e-7)

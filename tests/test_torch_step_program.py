@@ -10,8 +10,13 @@ the fp32 noise from being amplified, as the JAX package's own parity tests
 do). The JAX side runs its dense backend: its fused backend is held to the
 dense one by tests/test_fused_infonce.py, and the port's fused backend on
 the CPU is its plain version behind the same autograd Function as the CUDA
-kernels. One composition (contaccum) is also held to the JAX fused backend.
+kernels. One composition (contaccum) is also held to the JAX fused backend,
+and once more with tiny BERT towers whose attention is the flash kernel
+(``attention_impl="pallas"``: its plain version here, the JAX Pallas kernel
+in interpret mode), under the same tolerances.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -22,6 +27,8 @@ from repro.core import ContrastiveConfig as JConfig
 from repro.core import RetrievalBatch as JBatch
 from repro.core import build_step_program as jax_build
 from repro.core import init_state as jax_init_state
+from repro.launch.train import tiny_bert as jax_tiny_bert
+from repro.models.towers import make_bert_dual_encoder as jax_dual_encoder
 from repro.optim import chain as jchain
 from repro.optim import clip_by_global_norm as jclip
 from repro.optim import sgd as jsgd
@@ -36,6 +43,8 @@ from repro_torch.core.methods import (
     method_uses_banks,
 )
 from repro_torch.core.types import ContrastiveConfig, DualEncoder, RetrievalBatch
+from repro_torch.launch.serve import tiny_bert
+from repro_torch.models.towers import make_bert_dual_encoder
 from repro_torch.optim import adamw, chain, clip_by_global_norm, sgd
 
 from helpers import make_batch, make_mlp_encoder
@@ -80,8 +89,8 @@ def _torch_batch(jb):
     return RetrievalBatch(*(None if x is None else torch.from_numpy(np.array(x)) for x in jb))
 
 
-def _jax_trajectory(kw, batches, loss_impl="dense"):
-    enc = make_mlp_encoder()
+def _jax_trajectory(kw, batches, loss_impl="dense", enc=None):
+    enc = enc or make_mlp_encoder()
     cfg = JConfig(**kw, loss_impl=loss_impl)
     tx = jchain(jclip(cfg.grad_clip_norm), jsgd(0.1))
     state = jax_init_state(jax.random.PRNGKey(0), enc, tx, cfg)
@@ -94,8 +103,8 @@ def _jax_trajectory(kw, batches, loss_impl="dense"):
     return params0, jax.device_get(state), metrics
 
 
-def _port_trajectory(kw, params0, batches, loss_impl):
-    enc = torch_mlp_encoder()
+def _port_trajectory(kw, params0, batches, loss_impl, enc=None):
+    enc = enc or torch_mlp_encoder()
     cfg = ContrastiveConfig(**kw, loss_impl=loss_impl)
     tx = chain(clip_by_global_norm(cfg.grad_clip_norm), sgd(0.1))
     state = init_state(None, enc, tx, cfg, params=params_to_torch(params0, "cpu"), device="cpu")
@@ -139,6 +148,23 @@ def test_contaccum_fused_trajectory_matches_jax_fused():
     params0, jstate, jmetrics = _jax_trajectory(kw, batches, loss_impl="fused")
     tstate, tmetrics = _port_trajectory(kw, params0, batches, "fused")
     _assert_trajectories_close(jstate, jmetrics, tstate, tmetrics, "contaccum/fused")
+
+
+def test_contaccum_step_with_flash_attention_towers_matches_jax():
+    """One ContAccum step (2 chunks, banks of 8, one hard negative) of the
+    tiny BERT dual encoder with attention_impl="pallas" on both sides:
+    every metric (loss and grad_norm_ratio among them), the updated params
+    and the banks."""
+    rng = np.random.default_rng(12)
+    b, q_len, p_len = 4, 8, 16
+    batch = tuple(rng.integers(10, 1000, size=shape).astype(np.int32)
+                  for shape in ((b, q_len), (b, p_len), (b, 1, p_len)))
+    kw = dict(method="contaccum", accumulation_steps=2, bank_size=8)
+    jenc = jax_dual_encoder(dataclasses.replace(jax_tiny_bert(), attention_impl="pallas"))
+    params0, jstate, jmetrics = _jax_trajectory(kw, [batch], "fused", enc=jenc)
+    tenc = make_bert_dual_encoder(dataclasses.replace(tiny_bert(), attention_impl="pallas"))
+    tstate, tmetrics = _port_trajectory(kw, params0, [batch], "fused", enc=tenc)
+    _assert_trajectories_close(jstate, jmetrics, tstate, tmetrics, "contaccum/flash towers")
 
 
 def test_registry_and_multi_device_paths_raise():
