@@ -12,7 +12,9 @@ Phases, one JSON line each:
   3. kernels - each kernel against its plain PyTorch version on the card:
                fused_topk at the eval_topk shape (Q=2048, N=2^20-37 ragged,
                d=768, bf16, k=100, some columns masked) and the serve_topk
-               shape (Q=32, N=2^20), plus a tie case and a k > n_valid case;
+               shape (Q=32, N=2^20), plus a tie case and a k > n_valid case,
+               and k = 129, 256 and 1000 at both shapes (the row states
+               of k > 128 in global memory) plus a k > n_valid case there;
                the fused_infonce forward, dQ and dP kernels at the two
                shapes of a contaccum_bf16 chunk (M=8 local queries with
                some labels out of range, and M=2048 query-bank rows, against
@@ -25,7 +27,13 @@ Phases, one JSON line each:
                every key masked, an fp32 case, and the LM prefill shapes no
                path runs yet (internlm2-1.8b: S=4096, H=16, Hk=8, D=128;
                stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16); kernel,
-               plain, library (scaled_dot_product_attention) and bound times.
+               plain, library (scaled_dot_product_attention) and bound times;
+               the embedding_bag kernel at the full dcn-v2 stacked table
+               (187,767,808 x 16 fp32, 12.0 GB, past 2^31 elements) with
+               65536 x 26 bags of the MLPerf DLRM-DCNv2 multi-hot sizes,
+               at D=128 (dlrm-mlperf's width, rows cut to 2^24) in fp32
+               and bf16, with empty bags, and its backward at a cut size;
+               kernel, plain, library (F.embedding_bag) and bound times.
   4. serve   - the port's main path at the full width of dpr-bert-base, in
                the serve_topk cell (configs/dpr_bert_base.py): a seeded
                Retriever (bf16_banks, top_k=100) encodes 32768 passages of
@@ -58,6 +66,14 @@ Phases, one JSON line each:
                tower passes x 12 layers x 2 (remat) launches a step), and
                one step with flash towers is held against plain towers from
                the same state and batch.
+  7. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
+               its train_batch cell (B=65536, every published width), with
+               each field's vocabulary capped at RECSYS_ROW_CAP rows, for
+               RECSYS_STEPS steps on ClickLogGenerator batches: step time,
+               the host's share (batch generation), peak memory and the
+               losses; checks finite losses, table rows no batch indexed
+               bit-identical at the end and every indexed row moved, and
+               one step at a small cap on the card against the CPU.
 Then the kernels line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line. Any failed check raises and the script
 exits non-zero before the final line. Without a CUDA device, or without the
@@ -153,6 +169,54 @@ FLASH_TRAIN_STEPS = 5
 # passages whose reps are held against the plain-attention towers
 FLASH_PARITY_PASSAGES = 256
 
+# fused_topk at k > 128 (row states in global memory): the k values held
+# against the plain version at the eval_topk and serve_topk shapes
+TOPK_LARGE_K = (129, 256, 1000)
+
+# embedding_bag: the multi-hot pooling sizes of the 26 Criteo fields in the
+# MLPerf DLRM-DCNv2 benchmark (214 lookups a sample); ids drawn per field as
+# ClickLogGenerator draws them (zipf a=1.2, modulo the vocabulary)
+DCN_POOLING = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3,
+               1, 1)
+ZIPF_A = 1.2
+# dlrm-mlperf's width on the same bags, rows cut to 2^24: a 128-wide table
+# of every Criteo row (96 GB in fp32) does not fit the card
+BAG_WIDE_ROWS = 1 << 24
+# the backward at a cut size: rows, samples
+BAG_GRAD_ROWS, BAG_GRAD_SAMPLES = 1 << 20, 4096
+# backward against the plain version's autograd: each row's gradient within
+# 1e-5 of the sum of |g| over its lookups (index_add_ adds them with
+# atomics, in an order that varies; a hot row of the zipf draws sums about
+# 1e5 of them with cancellation, so its error is measured against what it
+# summed, not against the largest |grad|)
+BAG_GRAD_RTOL = 1e-5
+
+# Where the recsys phase departs from dcn-v2's train_batch cell: each
+# field's vocabulary is capped at RECSYS_ROW_CAP rows (the --max-ind-range
+# of the DLRM reference implementation, facebookresearch/dlrm): 54,064,128
+# stacked rows, a 3.46 GB fp32 table. The functional optimizer holds about
+# 11 table-sized buffers at its peak (old and new moments, gradient, clipped
+# gradient, temporaries, updates, new params): about 38 GB here, over 130 GB
+# at the full 187.8M rows.
+RECSYS_ROW_CAP = 10_000_000
+RECSYS_STEPS = 20
+# one step at a small cap on the card against the CPU: the fp32 loss to
+# 1e-5 relative (fp32 GEMMs, TF32 off, sums in another order), and each
+# gradient leaf to 1e-4 of its largest |g| (the index backward adds with
+# atomics), in fp32 and in fp64. In fp32 a ReLU unit of the deep MLP whose
+# pre-activation lies within rounding of 0 can take the other side under
+# another summation order, which moves that sample's whole contribution to
+# every gradient below it (on an H100 this put the last deep layer's fp32
+# gradient 3.1e-3 of its largest |g| from the CPU's over the whole batch).
+# So the fp32 gradients are those of bce_loss's mean over the samples whose
+# deep-MLP ReLU masks agree on the two devices (the others weigh 0 and are
+# counted, at most RECSYS_MAX_FLIPPED of the batch; the batch keeps its
+# shape, so each device rounds as it did when the masks were read), and the
+# fp64 ones those of the whole batch.
+RECSYS_PARITY_CAP, RECSYS_PARITY_BATCH = 100_000, 4096
+RECSYS_LOSS_RTOL, RECSYS_GRAD_RTOL = 1e-5, 1e-4
+RECSYS_MAX_FLIPPED = 0.01
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -243,6 +307,28 @@ def phase_kernels(torch, ops, ref):
     d, k = BERT_BASE.d_model, EVAL_TOPK["top_k"]
     result = {}
 
+    def large_k(name, q, p, valid, n_valid):
+        """k > 128 (the row states in global memory) against the plain
+        version, which is computed once at the largest k + 1; that k timed."""
+        kmax = max(TOPK_LARGE_K)
+        rs, ri = ref.topk_scores_ref(q, p, kmax + 1, col_valid=valid)
+        tol = SCORE_RTOL * rs[:, 0].abs().max().item()
+        out = {"tolerance": tol}
+        for kk in TOPK_LARGE_K:
+            s, i = ops.fused_topk(q, p, kk, col_valid=valid)
+            err, clear = check_topk(ref, s, i, rs[:, : kk + 1], ri[:, : kk + 1], tol,
+                                    f"{name} k={kk}")
+            out[f"k{kk}"] = {"max_abs_err": err, "clear_slots": clear, "slots": i.numel()}
+        del rs, ri, s, i
+        bound_ms, bound_by = topk_bound_ms(q.shape[0], p.shape[0], n_valid, d, kmax, 2)
+        out[f"k{kmax}"].update({
+            "ms": cuda_ms(lambda: ops.fused_topk(q, p, kmax, col_valid=valid), 3),
+            "plain_ms": cuda_ms(lambda: ref.topk_scores_ref(q, p, kmax, col_valid=valid), 1),
+            "library_ms": cuda_ms(lambda: library_topk(q, p, kmax), 2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        return out
+
     # eval_topk shape, ragged N, masked columns
     n_q, n = EVAL_TOPK["n_queries"], EVAL_TOPK["n_passages"] - 37
     q = torch.randn((n_q, d), generator=g, device=dev).to(torch.bfloat16)
@@ -265,6 +351,7 @@ def phase_kernels(torch, ops, ref):
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
     del rs, ri
+    result["eval_topk_large_k"] = large_k("eval shape", q, p, valid, n_valid)
 
     # serve_topk shape: one coalesced batch against 2^20 rows
     n_q, n = SERVE_TOPK["n_queries"], SERVE_TOPK["n_passages"]
@@ -283,6 +370,7 @@ def phase_kernels(torch, ops, ref):
         "library_ms": cuda_ms(lambda: library_topk(q, p, k), 5),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    result["serve_topk_large_k"] = large_k("serve shape", q, p, None, n)
     del q, p, valid
 
     # ties: duplicated integer rows, exact sums, so ties must go to the lowest id
@@ -304,6 +392,17 @@ def phase_kernels(torch, ops, ref):
     require(bool((i[:, 56:] == -1).all()) and bool((s[:, 56:] == -1e30).all()),
             "k > n_valid: tail slots are not (-1e30, -1)")
     check_topk(ref, s, i, rs, ri, tol, "k > n_valid")
+
+    # k > 128 and > n_valid: the tail slots must be (-1e30, -1) as well
+    p = torch.randn((3000, d), generator=g, device=dev).to(torch.bfloat16)
+    valid = torch.zeros((3000,), dtype=torch.bool, device=dev)
+    valid[::9] = True                                       # 334 valid columns
+    s, i = ops.fused_topk(q, p, 500, col_valid=valid)
+    rs, ri = ref.topk_scores_ref(q, p, 501, col_valid=valid)
+    tol = SCORE_RTOL * rs[:, 0].abs().max().item()
+    require(bool((i[:, 334:] == -1).all()) and bool((s[:, 334:] == -1e30).all()),
+            "k=500 > n_valid: tail slots are not (-1e30, -1)")
+    check_topk(ref, s, i, rs, ri, tol, "k=500 > n_valid")
     return result
 
 
@@ -962,6 +1061,272 @@ def phase_flash(torch, topk_ops, topk_ref):
     return out
 
 
+def bag_bound_ms(indices, n_bags: int, d: int, itemsize: int):
+    """(bound_ms, "bytes", distinct rows) of one embedding_bag call: each
+    distinct row read once, the indices and bag ids once (8 bytes a lookup),
+    the output written once, over HBM bandwidth (a lookup adds D values:
+    well under one operation per byte)."""
+    import torch
+
+    distinct = torch.unique(indices).numel()
+    moved = distinct * d * itemsize + 8 * indices.numel() + n_bags * d * itemsize
+    return moved / PEAK_BYTES_PER_S * 1e3, "bytes", distinct
+
+
+def dcn_bags(torch, n_samples: int, vocabs, rows: int):
+    """Multi-hot lookups of n_samples x 26 fields with DCN_POOLING lookups a
+    field: ids drawn per field as ClickLogGenerator draws them (zipf,
+    a=ZIPF_A, modulo the vocabulary) plus the field's stacked-table offset,
+    then modulo ``rows``. Bag b = sample * 26 + field, sorted. Returns
+    (indices, bag_ids) int32 on the device and the number of bags."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    offs = np.concatenate([[0], np.cumsum(vocabs)[:-1]])
+    cols = [((rng.zipf(ZIPF_A, (n_samples, n)) - 1) % v + o) % rows
+            for n, v, o in zip(DCN_POOLING, vocabs, offs)]
+    indices = np.concatenate(cols, axis=1).ravel()           # sample-major, field, lookup
+    n_bags = n_samples * len(DCN_POOLING)
+    bag_ids = np.repeat(np.arange(n_bags), np.tile(DCN_POOLING, n_samples))
+    to = lambda a: torch.from_numpy(a.astype(np.int32)).to(DEVICE)  # noqa: E731
+    return to(indices), to(bag_ids), n_bags
+
+
+def phase_embedding_bag_kernels(torch):
+    """embedding_bag against its plain version at the dcn-v2 stacked table
+    (64-bit row offsets), at D=128 in fp32 and bf16, with empty bags, and
+    its backward; each timed against F.embedding_bag (the yardstick)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    dcn = get_arch("dcn-v2")
+    cfg, n_samples = dcn.model_cfg, dcn.shapes["train_batch"].params["batch"]
+
+    def check(name, table, indices, bag_ids, n_bags, timed=True):
+        out = ops.embedding_bag(table, indices, bag_ids, n_bags)
+        torch.cuda.synchronize()
+        err = ref.embedding_bag_error(out, table, indices, bag_ids, n_bags)
+        # the same adds in the same order and dtype: bit-equal in fp32 and bf16
+        require(err["equal"], f"{name}: kernel departs from the plain version: {err}")
+        v, d = table.shape
+        res = {"V": v, "D": d, "dtype": str(table.dtype).replace("torch.", ""),
+               "table_bytes": table.numel() * table.element_size(),
+               "lookups": indices.numel(), "bags": n_bags, "max_abs_err": err["max_abs_err"],
+               "equal_to_plain": err["equal"], "worst_share_of_allowance": err["worst"]}
+        if not timed:
+            return res, out
+        offsets = torch.searchsorted(bag_ids, torch.arange(n_bags, dtype=torch.int32, device=dev),
+                                     out_int32=True)
+        bound_ms, bound_by, distinct = bag_bound_ms(indices, n_bags, d, table.element_size())
+        res.update({
+            "distinct_rows": distinct,
+            "ms": device_ms(lambda: ops.embedding_bag(table, indices, bag_ids, n_bags), 20),
+            "plain_ms": device_ms(lambda: ref.embedding_bag_ref(table, indices, bag_ids, n_bags), 2),
+            "library_ms": device_ms(
+                lambda: F.embedding_bag(indices, table, offsets, mode="sum"), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        return res, out
+
+    result = {}
+    # 1. the full dcn-v2 stacked table: 187,767,808 x 16 fp32, 3.0e9 elements
+    table = torch.empty((cfg.total_rows, cfg.embed_dim), device=dev)
+    table.uniform_(-0.05, 0.05, generator=g)
+    indices, bag_ids, n_bags = dcn_bags(torch, n_samples, cfg.vocab_sizes, cfg.total_rows)
+    result["dcn_v2"], _ = check("dcn-v2 table", table, indices, bag_ids, n_bags)
+    del table
+    torch.cuda.empty_cache()
+
+    # 2. dlrm-mlperf's width on the same bags, rows cut to 2^24
+    wide_idx = indices % BAG_WIDE_ROWS
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn((BAG_WIDE_ROWS, 128), generator=g, device=dev).to(dtype)
+        name = f"d128_{str(dtype).replace('torch.', '')}"
+        result[name], _ = check(name, table, wide_idx, bag_ids, n_bags)
+        del table
+        torch.cuda.empty_cache()
+    del indices, bag_ids, wide_idx
+
+    # 3. empty bags (only every third bag gets lookups) must come out 0
+    table = torch.randn((5000, 16), generator=g, device=dev)
+    bag_ids = torch.sort(torch.randint(0, 300, (2000,), generator=g, device=dev) * 3).values
+    indices = torch.randint(0, 5000, (2000,), generator=g, device=dev)
+    res, out = check("empty bags", table, indices, bag_ids, 900, timed=False)
+    empty = torch.bincount(bag_ids.long(), minlength=900) == 0
+    require(bool(empty.any()) and bool((out[empty] == 0).all()), "empty bags are not 0")
+    result["empty_bags"] = {**res, "empty": int(empty.sum().item())}
+
+    # 4. the backward at a cut size against the plain version's autograd
+    indices, bag_ids, n_bags = dcn_bags(torch, BAG_GRAD_SAMPLES, cfg.vocab_sizes, BAG_GRAD_ROWS)
+    table = torch.randn((BAG_GRAD_ROWS, cfg.embed_dim), generator=g, device=dev)
+    w = torch.randn((n_bags, cfg.embed_dim), generator=g, device=dev)
+    grads = []
+    for fn in (ops.embedding_bag, ref.embedding_bag_ref):
+        t = table.clone().requires_grad_(True)
+        (fn(t, indices, bag_ids, n_bags) * w).sum().backward()
+        grads.append(t.grad)
+    summed = torch.zeros_like(table).index_add_(0, indices, w[bag_ids].abs())
+    err = (grads[0] - grads[1]).abs()
+    share = (err / (BAG_GRAD_RTOL * summed).clamp(min=1e-30)).max().item()
+    require(share <= 1.0, f"embedding_bag backward: an element uses {share} of its allowance")
+    result["backward"] = {"V": BAG_GRAD_ROWS, "D": cfg.embed_dim, "lookups": indices.numel(),
+                          "bags": n_bags, "max_abs_err": err.max().item(),
+                          "max_abs_grad": grads[1].abs().max().item(),
+                          "rtol_of_summed_abs": BAG_GRAD_RTOL, "worst_share_of_allowance": share}
+    return result
+
+
+def phase_recsys(torch):
+    """dcn-v2 train_batch through launch/steps.py's recsys_train program,
+    vocabularies capped at RECSYS_ROW_CAP rows a field."""
+    import dataclasses
+
+    from repro_torch.common.treemath import tree_leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import ClickLogGenerator
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import _mlp_apply, bce_loss, embedding_lookup, forward
+
+    arch = get_arch("dcn-v2")
+    full, b = arch.model_cfg, arch.shapes["train_batch"].params["batch"]
+
+    def capped(cap):
+        return dataclasses.replace(full, vocab_sizes=tuple(min(v, cap) for v in full.vocab_sizes))
+
+    def tensors(batch, device):
+        return tuple(torch.from_numpy(batch[key]).to(device) for key in ("dense", "sparse", "labels"))
+
+    cfg = capped(RECSYS_ROW_CAP)
+    t0 = time.perf_counter()
+    prog = steps.build_cell("dcn-v2", "train_batch", DEVICE, model_cfg=cfg)
+    state = prog.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    table0 = state.params["table"].cpu()                 # for the untouched-rows check
+    gen = ClickLogGenerator(cfg.vocab_sizes, cfg.n_dense, seed=SEED)
+    offsets = cfg.field_offsets(DEVICE)
+    touched = torch.zeros((cfg.total_rows,), dtype=torch.bool, device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for step in range(RECSYS_STEPS):
+        t0 = time.perf_counter()
+        dense, sparse, labels = tensors(gen.batch(b, step), DEVICE)
+        t1 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = prog.fn(state, dense, sparse, labels)
+        end.record()
+        loss = metrics["loss"].item()                    # waits for the step
+        t2 = time.perf_counter()
+        rows.append({"loss": loss, "accuracy": metrics["accuracy"].item(), "batch_s": t1 - t0,
+                     "step_s": t2 - t0, "device_ms": start.elapsed_time(end)})
+        touched[(sparse + offsets).long().ravel()] = True
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # where a step's device time goes: one more step under the profiler (its
+    # result is dropped, so the checks below see the 20 steps only)
+    profile = profile_step_share(torch, lambda s, batch: prog.fn(s, *batch), state,
+                                 (dense, sparse, labels))
+    require(all(math.isfinite(r["loss"]) for r in rows), "non-finite recsys loss")
+    moved = (state.params["table"] != table0.to(DEVICE)).any(1)
+    n_touched = int(touched.sum().item())
+    require(not bool(moved[~touched].any()),
+            f"{int(moved[~touched].sum().item())} table rows no batch indexed have changed")
+    require(bool(moved[touched].all()),
+            f"{int((~moved[touched]).sum().item())} of {n_touched} indexed rows did not move")
+    del state, table0, moved, touched
+    torch.cuda.empty_cache()
+
+    # one step at a small cap: the card against the port on the CPU
+    small = capped(RECSYS_PARITY_CAP)
+    params = steps.build_cell("dcn-v2", "train_batch", "cpu", model_cfg=small).init(
+        torch.Generator().manual_seed(SEED)).params
+    batch = ClickLogGenerator(small.vocab_sizes, small.n_dense, seed=SEED).batch(RECSYS_PARITY_BATCH, 0)
+
+    def on(device, dtype=torch.float32):
+        cfg_ = dataclasses.replace(small, dtype=dtype, param_dtype=dtype)
+        leaves = tree_map(lambda t: t.detach().to(device, dtype).requires_grad_(True), params)
+        dense, sparse, labels = tensors(batch, device)
+        return cfg_, leaves, dense.to(dtype), sparse, labels
+
+    def loss_and_grads(device, dtype=torch.float32, keep=None):
+        cfg_, leaves, dense, sparse, labels = on(device, dtype)
+        if keep is None:
+            loss, _ = bce_loss(leaves, cfg_, dense, sparse, labels)
+        else:   # bce_loss's mean over the kept samples, at the batch's own shape
+            logits = forward(leaves, cfg_, dense, sparse).float()
+            per = logits.clamp(min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+            w = keep.to(device, per.dtype)
+            loss = (per * w).sum() / w.sum()
+        loss.backward()
+        return loss.item(), [leaf.grad.cpu().double() for leaf in tree_leaves(leaves)]
+
+    def relu_masks(device):
+        """(B, units) the sign of every deep-MLP pre-activation, computed by
+        the model's own ops (x0 as forward builds it, then each layer's
+        pre-activation by _mlp_apply over the layers up to it)."""
+        cfg_, leaves, dense, sparse, _ = on(device)
+        with torch.no_grad():
+            emb = embedding_lookup(leaves, cfg_, sparse)
+            x0 = torch.cat([dense, emb.reshape(emb.shape[0], -1)], dim=-1)
+            pre = [_mlp_apply(leaves["deep"][: i + 1], x0) for i in range(len(leaves["deep"]))]
+        return torch.cat([z > 0 for z in pre], dim=-1).cpu()
+
+    def share(a, c):
+        return (a - c).abs().max().item() / c.abs().max().item()
+
+    (loss_gpu, _), (loss_cpu, _) = loss_and_grads(DEVICE), loss_and_grads("cpu")
+    require(rel_err(loss_gpu, loss_cpu) <= RECSYS_LOSS_RTOL,
+            f"recsys step: card loss {loss_gpu} vs CPU {loss_cpu}")
+    keep = (relu_masks(DEVICE) == relu_masks("cpu")).all(dim=1)
+    flipped = int((~keep).sum().item())
+    require(flipped <= RECSYS_MAX_FLIPPED * RECSYS_PARITY_BATCH,
+            f"recsys step: {flipped} samples have a deep-MLP ReLU on the other side on the card")
+    (_, g_gpu), (_, g_cpu) = loss_and_grads(DEVICE, keep=keep), loss_and_grads("cpu", keep=keep)
+    fp32_share = max(share(a, c) for a, c in zip(g_gpu, g_cpu))
+    require(fp32_share <= RECSYS_GRAD_RTOL,
+            f"recsys step: an fp32 gradient leaf departs from the CPU's by {fp32_share} of its max")
+    (_, g64_gpu), (_, g64_cpu) = (loss_and_grads(DEVICE, torch.float64),
+                                  loss_and_grads("cpu", torch.float64))
+    grad_share = max(share(a, c) for a, c in zip(g64_gpu, g64_cpu))
+    require(grad_share <= RECSYS_GRAD_RTOL,
+            f"recsys step: an fp64 gradient leaf departs from the CPU's by {grad_share} of its max")
+
+    step_s = [r["step_s"] for r in rows[1:]]
+    batch_s = [r["batch_s"] for r in rows[1:]]
+    return {
+        "model": "dcn-v2 (embed 16, 3 cross layers over x0=429, MLP 1024-1024-512, "
+                 "final 941 -> 1; seeded init)",
+        "cell": "train_batch", "batch": b, "steps": RECSYS_STEPS,
+        "vocab_cap": RECSYS_ROW_CAP, "table_rows": cfg.total_rows,
+        "table_bytes": cfg.total_rows * cfg.embed_dim * 4, "params": cfg.param_count(),
+        "allow_tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
+        "setup_s": setup_s, "first_step_s": rows[0]["step_s"],
+        "median_step_s": statistics.median(step_s), "min_step_s": min(step_s),
+        "max_step_s": max(step_s), "median_batch_s": statistics.median(batch_s),
+        "host_share": statistics.median(batch_s) / statistics.median(step_s),
+        "median_device_ms": statistics.median(r["device_ms"] for r in rows[1:]),
+        "model_flops_per_step": prog.static_info["model_flops"],
+        "model_tflops_per_s": prog.static_info["model_flops"] / statistics.median(
+            r["device_ms"] for r in rows[1:]) * 1e-9,
+        "samples_per_s": b / statistics.median(step_s),
+        "max_memory_allocated": peak_bytes,
+        "losses": [r["loss"] for r in rows], "accuracy": [r["accuracy"] for r in rows],
+        "rows_indexed": n_touched,
+        "profile": {key: profile[key] for key in ("step_wall_ms", "device_ms", "busy_share",
+                                                  "kernel_launches", "top_kernels") if key in profile},
+        "parity": {"cap": RECSYS_PARITY_CAP, "batch": RECSYS_PARITY_BATCH,
+                   "loss_card": loss_gpu, "loss_cpu": loss_cpu,
+                   "loss_rel_err": rel_err(loss_gpu, loss_cpu),
+                   "worst_fp64_grad_err_of_max": grad_share,
+                   "worst_fp32_grad_err_of_max": fp32_share,
+                   "fp32_samples_with_a_flipped_relu": flipped},
+    }
+
+
 def main() -> int:
     if not (REPO / "src" / "repro_torch").is_dir():
         print("chip_smoke.py runs from a checkout of the repo: src/repro_torch is missing",
@@ -987,29 +1352,44 @@ def main() -> int:
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     t0 = time.perf_counter()
-    logs = _build.build(["fused_topk", "fused_infonce", "flash_attention"])
+    logs = _build.build(["fused_topk", "fused_infonce", "flash_attention", "embedding_bag"])
     for name, text in logs.items():
         print(f"[{name}] {text}", file=sys.stderr)
     emit({"phase": "build", "kernels": sorted(logs), "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
     kernels = phase_kernels(torch, ops, ref)
     infonce = phase_infonce_kernels(torch)
     flash_k = phase_flash_kernels(torch)
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+    bag_ops.embedding_bag.launches = 0
+    bag = phase_embedding_bag_kernels(torch)
+    bag_launches = bag_ops.embedding_bag.launches
     emit({"phase": "kernels", "fused_topk": kernels, "fused_infonce": infonce,
-          "flash_attention": flash_k, "nvidia_smi": smi})
+          "flash_attention": flash_k, "embedding_bag": bag,
+          "embedding_bag_launches": bag_launches, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
 
     from repro_torch.configs.dpr_bert_base import BERT_BASE
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
+    t0 = time.perf_counter()
     serve = phase_serve(torch, ref, BERT_BASE, [("fused_topk", ops.fused_topk, 0, 1),
                                                 ("flash_attention", flash_ops.flash_attention, 0, 0)])
-    emit({"phase": "serve", **serve, "nvidia_smi": smi})
+    emit({"phase": "serve", **serve, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
+    t0 = time.perf_counter()
     train = phase_train(torch, ops)
-    emit({"phase": "train", **train, "nvidia_smi": smi})
+    emit({"phase": "train", **train, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
+    t0 = time.perf_counter()
     flash = phase_flash(torch, ops, ref)
-    emit({"phase": "flash", **flash, "nvidia_smi": smi})
+    emit({"phase": "flash", **flash, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    recsys = phase_recsys(torch)
+    emit({"phase": "recsys", **recsys, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     ev = kernels["eval_topk"]
     lines = [{
@@ -1047,6 +1427,20 @@ def main() -> int:
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
         "shape": f"B={fa['B']}, S={fa['Sq']}, H={fa['H']}, D={fa['D']}, bf16, key mask",
+    })
+    # embedding_bag at the dcn-v2 stacked table; no path of the port calls it
+    # (the recsys models gather, as in JAX), so its launches are the kernels
+    # phase's
+    eb = bag["dcn_v2"]
+    lines.append({
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:25",
+        "launches": bag_launches, "max_abs_err": eb["max_abs_err"], "ms": eb["ms"],
+        "plain_ms": eb["plain_ms"], "bound_ms": eb["bound_ms"], "bound_by": eb["bound_by"],
+        "library_ms": eb["library_ms"],
+        "shape": f"dcn-v2 stacked table {eb['V']} x {eb['D']} fp32, {eb['bags']} bags, "
+                 f"L={eb['lookups']}",
     })
     emit({"kernels": lines})
     print(smi, flush=True)

@@ -33,6 +33,8 @@ NEG_INF = -1e30
 STATS_DTYPE = torch.float32
 SCORE_DTYPE = torch.float32
 MASTER_DTYPE = torch.float32
+#: numpy dtype of host-made float arrays (synthetic batches), fp32 as in JAX
+HOST_FLOAT_DTYPE = np.float32
 
 
 @dataclasses.dataclass(frozen=True)

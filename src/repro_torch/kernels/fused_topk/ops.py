@@ -1,9 +1,24 @@
 """Wrapper of the fused top-k CUDA kernel (csrc/fused_topk.cu).
 
 ``fused_topk(q, index, k)`` returns (scores (Q, k) fp32, ids (Q, k) int32),
-ids -1 for empty slots. On CPU tensors it is the plain version (ref.py); on
+ids -1 for empty slots, for any k from 1 up to ``K_MAX`` (k may exceed N, as
+in the Pallas kernel). On CPU tensors it is the plain version (ref.py); on
 CUDA tensors it launches the kernel or raises. ``fused_topk.launches`` counts
 the kernel launches. The kernel is built from source at its first launch.
+
+k <= ``SMEM_K`` keeps each row's running top-k in shared memory; a larger k
+keeps it in a global scratch buffer allocated here, and sorts a full offer
+buffer in shared memory up to k = 1024, in the global buffer itself past it
+(csrc/fused_topk.cu).
+
+Memory past ``SMEM_K``: beside the (Q, k) outputs, a (Q, splits, k)
+candidate buffer and the row states, 2 kp (score, id) pairs of 8 bytes for
+each padded query row and split (kp the next power of two >= k), so about
+Q (splits k + 2 kp) 8 bytes in all; the splits are cut so that the states
+stay under ``STATE_BYTES``, down to one. ``K_MAX`` bounds the kernel's
+32-bit indexing, not memory: at Q = 2048 a k of 2^20 already asks for about
+34 GB of states, and torch raises its out-of-memory error where the card
+cannot hold them.
 """
 
 from __future__ import annotations
@@ -18,10 +33,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_topk.ref import topk_scores_ref
 
 NAME = "fused_topk"
-#: the largest k the kernel takes (its per-row shared-memory state)
-K_MAX = 128
+#: the largest k whose per-row state lives in shared memory
+SMEM_K = 128
+#: the largest k the op takes: a row state of 2 * next_pow2(k) pairs is
+#: indexed with 32-bit ints inside the kernel
+K_MAX = 1 << 24
 BLOCK_Q = 64
 BLOCK_N = 128
+#: global row-state bytes (k > SMEM_K) above which fewer column splits are
+#: used (each split holds BLOCK_Q row states per query tile)
+STATE_BYTES = 1 << 30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -30,31 +51,41 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def _library() -> ctypes.CDLL:
     lib = _build.load(NAME)
     lib.fused_topk_launch.argtypes = (
-        [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     lib.fused_topk_launch.restype = ctypes.c_int
     lib.fused_topk_error_string.argtypes = [ctypes.c_int]
     lib.fused_topk_error_string.restype = ctypes.c_char_p
-    for fn in ("fused_topk_kmax", "fused_topk_block_q", "fused_topk_block_n"):
+    for fn in ("fused_topk_kpad", "fused_topk_block_q", "fused_topk_block_n"):
         getattr(lib, fn).restype = ctypes.c_int
-    if (lib.fused_topk_kmax(), lib.fused_topk_block_q(), lib.fused_topk_block_n()) != (
-        K_MAX, BLOCK_Q, BLOCK_N
+    if (lib.fused_topk_kpad(), lib.fused_topk_block_q(), lib.fused_topk_block_n()) != (
+        SMEM_K, BLOCK_Q, BLOCK_N
     ):
-        raise RuntimeError("fused_topk.cu and ops.py disagree on k_max or tile sizes")
+        raise RuntimeError("fused_topk.cu and ops.py disagree on k_pad or tile sizes")
     return lib
 
 
-def split_plan(n_q: int, n: int, sm_count: int) -> Tuple[int, int]:
+def state_pairs(k: int) -> int:
+    """kp, the sorted-best length of a row state (2 * kp pairs with its
+    offer buffer): SMEM_K up to SMEM_K, else the next power of two >= k."""
+    return SMEM_K if k <= SMEM_K else 1 << (k - 1).bit_length()
+
+
+def split_plan(n_q: int, n: int, sm_count: int, max_splits: Optional[int] = None
+               ) -> Tuple[int, int]:
     """(splits, cols_per_split): the index is cut into column ranges, whole
     tiles each, so that query tiles x splits fills the SMs once (one block
-    fits per SM). On an H100, more splits ran slower at both the serve and
-    the eval shape: each split pays its own warm-up of the per-row top-k,
-    and the merge pass grows with the splits."""
+    fits per SM), and at most ``max_splits`` ranges. On an H100, more splits
+    ran slower at both the serve and the eval shape: each split pays its own
+    warm-up of the per-row top-k, and the merge pass grows with the
+    splits."""
     q_tiles = -(-n_q // BLOCK_Q)
     n_tiles = -(-n // BLOCK_N)
     want = max(1, min(n_tiles, sm_count // q_tiles))
+    if max_splits is not None:
+        want = max(1, min(want, max_splits))
     tiles_per_split = -(-n_tiles // want)
     return -(-n_tiles // tiles_per_split), tiles_per_split * BLOCK_N
 
@@ -109,11 +140,22 @@ def fused_topk(
     n = index.shape[0]
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, cols_per_split = split_plan(n_q, n, sms)
+    kp = state_pairs(k)
+    q_tiles = -(-n_q // BLOCK_Q)
+    # k > SMEM_K: each split block's BLOCK_Q row states of 2 * kp (score, id)
+    # pairs live in global scratch, 8 bytes a pair
+    per_split = q_tiles * BLOCK_Q * 2 * kp * 8
+    max_splits = None if kp == SMEM_K else max(1, STATE_BYTES // per_split)
+    splits, cols_per_split = split_plan(n_q, n, sms, max_splits)
     cand_s = torch.empty((n_q, splits, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((n_q, splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+    state_s = state_i = None
+    if kp != SMEM_K:
+        n_state = q_tiles * splits * BLOCK_Q * 2 * kp
+        state_s = torch.empty((n_state,), dtype=torch.float32, device=dev)
+        state_i = torch.empty((n_state,), dtype=torch.int32, device=dev)
     # 16-byte vector loads need whole 16-byte rows and aligned bases
     vec = int(
         (d * q.element_size()) % 16 == 0
@@ -125,7 +167,9 @@ def fused_topk(
             q.data_ptr(), index.data_ptr(),
             None if col_valid is None else col_valid.data_ptr(),
             cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            n_q, n, d, k, splits, cols_per_split, float(inv_tau),
+            None if state_s is None else state_s.data_ptr(),
+            None if state_i is None else state_i.data_ptr(),
+            n_q, n, d, k, kp, splits, cols_per_split, float(inv_tau),
             _DTYPE_CODES[ct], vec, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -10,6 +10,9 @@ attention path of ``models.attention.attention`` ("plain", "chunked", or
 runs each layer under ``torch.utils.checkpoint`` (the JAX package applies
 ``jax.checkpoint`` to the layer for every such value): its activations are
 recomputed in the backward instead of kept; the values do not change.
+``scan_layers`` picks ``lax.scan`` or an unrolled loop in the JAX package;
+the port runs a Python loop over the layers for either value, so one config
+drives both packages and the values do not depend on it.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ class BertConfig:
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "plain"   # "plain" | "chunked" | "pallas" (models.attention)
     remat: str = "none"             # anything but "none": recompute each layer in the backward
+    scan_layers: bool = True        # JAX: scan vs unrolled layers; the port loops either way
 
     @property
     def dh(self) -> int:

@@ -31,22 +31,39 @@ class RetrieverConfig:
     index_layout: 'replicated' (the only layout of this slice).
     precision: PrecisionPolicy or preset name: queries scored in
     ``compute_dtype``, index stored in ``bank_dtype``, scores fp32.
-    score_block: dense backend column block. encode_batch: corpus encode
-    batch."""
+    index_dtype: a torch dtype that overrides the index's; None defers to
+    the policy's ``bank_dtype``. score_block: dense backend column block.
+    block_q/block_n: the JAX kernel's tile sizes, passed to the fused
+    backend, which keeps its own tiling. encode_batch: corpus encode batch.
+    dp_axis: the axis the sharded layout shards over (stored; the sharded
+    layout is not yet ported)."""
 
     top_k: int = 20
     search_impl: str = "dense"
     index_layout: str = "replicated"
     precision: Any = "fp32"
+    index_dtype: Any = None
     score_block: int = 65536
+    block_q: int = 128
+    block_n: int = 128
     encode_batch: int = 256
+    dp_axis: str = "data"
 
     def resolved_precision(self) -> PrecisionPolicy:
         return resolve_precision(self.precision)
 
+    def resolved_index_dtype(self) -> torch.dtype:
+        if self.index_dtype is not None:
+            return self.index_dtype
+        return self.resolved_precision().bank_dtype
+
     def resolve_backend(self) -> SearchBackend:
         if self.search_impl == "dense":
             return resolve_search_backend("dense", block=self.score_block)
+        if self.search_impl == "fused":
+            return resolve_search_backend(
+                "fused", block_q=self.block_q, block_n=self.block_n
+            )
         return resolve_search_backend(self.search_impl)
 
 
@@ -66,7 +83,7 @@ class Retriever:
     ):
         if cfg.index_layout == "sharded":
             raise NotImplementedError(
-                "index_layout='sharded' is not yet ported to repro_torch"
+                "index_layout='sharded' is not yet ported to repro_torch (ROADMAP A8)"
             )
         if cfg.index_layout != "replicated":
             raise ValueError(
@@ -85,13 +102,14 @@ class Retriever:
 
     @torch.inference_mode()
     def build_index(self, passages: np.ndarray) -> IndexStore:
-        """Encode the corpus with the passage tower into the index dtype.
+        """Encode the corpus with the passage tower into the index dtype
+        (``cfg.resolved_index_dtype()``).
         Rebuilding with the current ``self.params`` is the periodic re-encode."""
         self.index = build_index_store(
             lambda toks: self.encoder.encode_passage(self.params, self._tokens(toks)),
             passages,
             batch=self.cfg.encode_batch,
-            dtype=self.policy.bank_dtype,
+            dtype=self.cfg.resolved_index_dtype(),
         )
         return self.index
 

@@ -75,7 +75,13 @@ class DenseSearchBackend:
 
 @dataclasses.dataclass(frozen=True)
 class FusedSearchBackend:
-    """The CUDA QK^T + top-k kernel (kernels/fused_topk)."""
+    """The CUDA QK^T + top-k kernel (kernels/fused_topk). ``block_q`` and
+    ``block_n`` are the JAX kernel's Pallas tile sizes, taken so that one
+    config drives both packages; the CUDA kernel keeps its own tiling
+    (``fused_topk.ops.BLOCK_Q``/``BLOCK_N``) and ignores them."""
+
+    block_q: int = 128
+    block_n: int = 128
 
     name = "fused"
 

@@ -46,6 +46,28 @@ def test_round_trip_keeps_other_dtypes(dtype):
     assert np.array_equal(x.view(np.uint8), y.view(np.uint8))
 
 
+def test_trees_with_lists_round_trip_bit_exact():
+    """Recsys params hold lists of per-layer dicts (the MLPs, the cross
+    layers); they come across as lists, and tuples as tuples."""
+    from repro.models.recsys import RecsysConfig, init_recsys
+
+    cfg = RecsysConfig(name="dcn-ut", n_dense=4, vocab_sizes=(50, 30, 20), embed_dim=8,
+                       interaction="cross", n_cross_layers=2, top_mlp=(16, 8))
+    params = jax.device_get(init_recsys(jax.random.PRNGKey(0), cfg))
+    tree = {"params": params, "pair": (np.arange(3, dtype=np.int32), np.ones(2, np.float32))}
+    port = params_to_torch(tree, "cpu")
+    assert isinstance(port["params"]["cross"], list) and len(port["params"]["cross"]) == 2
+    assert isinstance(port["pair"], tuple) and isinstance(port["params"]["deep"][1]["w"], torch.Tensor)
+    back = params_to_numpy(port)
+    a = jax.tree_util.tree_leaves_with_path(tree)
+    b = jax.tree_util.tree_leaves_with_path(back)
+    assert [k for k, _ in a] == [k for k, _ in b]
+    for (key, x), (_, y) in zip(a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        assert x.dtype == y.dtype and x.shape == y.shape, key
+        assert np.array_equal(x.view(np.uint8), y.view(np.uint8)), key
+
+
 def test_port_init_has_the_jax_layout():
     jax_params = jax.device_get(jax_dual_encoder(jax_tiny_bert()).init(jax.random.PRNGKey(0)))
     port = make_bert_dual_encoder(tiny_bert()).init(torch.Generator().manual_seed(0), "cpu")

@@ -72,6 +72,26 @@ def test_bert_cls_reps_match_jax(precision, masked, tower):
         assert np.abs(got - want).mean() < 0.01
 
 
+@pytest.mark.parametrize("scan_layers", [True, False])
+def test_scan_layers_gives_the_same_reps(scan_layers):
+    """The field drives both packages; the reps do not depend on it."""
+    tokens, mask = _tokens(seed=3)
+    jcfg = dataclasses.replace(jax_tiny_bert(), scan_layers=scan_layers)
+    jenc = jax_dual_encoder(jcfg)
+    jparams = jenc.init(jax.random.PRNGKey(2))
+    want = np.asarray(jenc.encode_passage(jparams, {"tokens": jnp.asarray(tokens),
+                                                    "mask": jnp.asarray(mask)}))
+    cfg = dataclasses.replace(tiny_bert(), scan_layers=scan_layers)
+    assert cfg.scan_layers is scan_layers and tiny_bert().scan_layers is True
+    tparams = params_to_torch(jax.device_get(jparams), "cpu")
+    batch = {"tokens": torch.as_tensor(tokens).long(), "mask": torch.as_tensor(mask)}
+    with torch.inference_mode():
+        got = make_bert_dual_encoder(cfg).encode_passage(tparams, batch)
+        scanned = make_bert_dual_encoder(tiny_bert()).encode_passage(tparams, batch)
+    assert torch.equal(got, scanned)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_unmasked_padding_attends_like_jax():
     """With no mask every position attends, padding included: the reps of a
     padded batch differ from the masked ones in both packages alike."""

@@ -10,6 +10,7 @@ bf16 tolerance (0.05, see test_torch_models.py), and the search is then held
 to the fp32 tolerance on the port's own bf16 reps.
 """
 
+import dataclasses
 import threading
 import time
 
@@ -99,6 +100,65 @@ def test_resolve_search_backend_and_layouts():
         Retriever(None, None, RetrieverConfig(index_layout="interleaved"), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Retriever(None, None, RetrieverConfig(index_layout="sharded"), device="cpu")
+
+
+def test_retriever_config_takes_the_jax_fields():
+    cfg = RetrieverConfig(search_impl="fused", precision="fp32", index_dtype=torch.bfloat16,
+                          dp_axis="model", block_q=16, block_n=32)
+    assert cfg.resolved_index_dtype() == torch.bfloat16
+    assert RetrieverConfig(precision="bf16_banks").resolved_index_dtype() == torch.bfloat16
+    assert RetrieverConfig(precision="fp32").resolved_index_dtype() == torch.float32
+    backend = cfg.resolve_backend()
+    assert isinstance(backend, FusedSearchBackend) and (backend.block_q, backend.block_n) == (16, 32)
+    assert resolve_search_backend("fused", block_q=8, block_n=64).block_n == 64
+    assert cfg.dp_axis == "model"
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        Retriever(None, None, dataclasses.replace(cfg, index_layout="sharded"), device="cpu")
+
+
+def test_index_is_stored_in_index_dtype_as_in_jax():
+    """An fp32 policy with a bf16 index: both packages store bf16 rows and
+    score fp32 queries against them."""
+    corpus = SyntheticRetrievalCorpus(n_passages=64, q_len=16, p_len=32, seed=2)
+    jenc = jax_dual_encoder(jax_tiny_bert(), precision="fp32")
+    params = jenc.init(jax.random.PRNGKey(6))
+    jr = JaxRetriever(jenc, params, JaxRetrieverConfig(
+        top_k=5, search_impl="dense", precision="fp32", index_dtype=jnp.bfloat16,
+        encode_batch=32))
+    tr = Retriever(serve.make_bert_dual_encoder(serve.tiny_bert(), precision="fp32"),
+                   jax.device_get(params),
+                   RetrieverConfig(top_k=5, search_impl="dense", precision="fp32",
+                                   index_dtype=torch.bfloat16, encode_batch=32),
+                   device="cpu")
+    jstore, tstore = jr.build_index(corpus.passages), tr.build_index(corpus.passages)
+    assert tstore.reps.dtype == torch.bfloat16 and jstore.reps.dtype == jnp.bfloat16
+    assert tstore.bytes_per_device() == 64 * 64 * 2
+    # fp32 towers agree to 1e-5, so the bf16 roundings agree but for a rare
+    # tie at a rounding boundary: one bf16 ulp at most
+    np.testing.assert_allclose(tstore.reps.float().numpy(),
+                               np.asarray(jstore.reps.astype(jnp.float32)), rtol=2 ** -7, atol=1e-6)
+    ji, js = jr.search(corpus.queries[:6])
+    ti, ts = tr.search(corpus.queries[:6])
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("k", [129, 300])
+def test_fused_backend_takes_k_past_128_as_jax(k):
+    """k > 128 on CPU tensors (the plain version) against the JAX kernel in
+    interpret mode; 150 of 400 columns masked, so k=300 also runs past the
+    valid columns into (-1e30, -1) slots."""
+    q, p = _rand(6, 400, 16, seed=k)
+    valid = np.random.default_rng(k).random(400) > 0.375
+    s, i = FusedSearchBackend(block_q=8, block_n=64).topk(
+        torch.as_tensor(q), torch.as_tensor(p), k, col_valid=torch.as_tensor(valid))
+    js, ji = fused_topk_scores(jnp.asarray(q), jnp.asarray(p), k, col_valid=jnp.asarray(valid),
+                               block_q=8, block_n=64)
+    assert i.shape == (6, k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
+    if k > valid.sum():
+        assert (i[:, int(valid.sum()):] == -1).all()
 
 
 def _retrievers(precision, impl, top_k=8):

@@ -107,6 +107,43 @@ def test_params_and_state_take_their_device_explicitly():
         enc.init(torch.Generator().manual_seed(0))
 
 
+def test_build_cell_raises_without_cuda_unless_asked_for_the_cpu(no_cuda):
+    from repro_torch.launch import steps
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_cell("dcn-v2", "train_batch")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_cell("deepfm", "serve_p99", "cuda")
+    assert steps.build_cell("dcn-v2", "train_batch", device="cpu").kind == "recsys_train"
+
+
+def test_embedding_bag_raises_for_a_device_tensor_when_its_build_fails(monkeypatch, tmp_path):
+    """Any tensor not on the CPU goes to the kernel: with no nvcc the call
+    raises, and the plain version never runs (a meta tensor stands in for a
+    CUDA one, which this machine cannot make)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import ops
+
+    def plain(*args):
+        raise AssertionError("the plain version ran for a device tensor")
+
+    monkeypatch.setattr(ops, "embedding_bag_ref", plain)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    real_isfile = os.path.isfile
+    monkeypatch.setattr(os.path, "isfile",
+                        lambda p: False if str(p).endswith("nvcc") else real_isfile(p))
+    ops._library.cache_clear()
+    table = torch.empty((8, 4), device="meta")
+    idx = torch.zeros((3,), dtype=torch.int32, device="meta")
+    before = ops.embedding_bag.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops._EmbeddingBag.apply(table, idx, idx, 2)
+    assert ops.embedding_bag.launches == before
+    ops._library.cache_clear()
+
+
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
 
