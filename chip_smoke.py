@@ -26,8 +26,13 @@ Phases, one JSON line each:
                and v the strided splits of one fused qkv tensor), a row with
                every key masked, an fp32 case, and the LM prefill shapes no
                path runs yet (internlm2-1.8b: S=4096, H=16, Hk=8, D=128;
-               stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16); kernel,
-               plain, library (scaled_dot_product_attention) and bound times;
+               stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16); kernel
+               (also with the host's enqueue), plain, library
+               (scaled_dot_product_attention) and bound times, TFLOP/s and
+               the tile plan at each shape, and the registers, shared
+               memory, local memory and spills of every flash_attention
+               kernel, from the card and from ptxas's log (a bf16 kernel
+               with local memory or spills fails the run);
                the embedding_bag kernel at the full dcn-v2 stacked table
                (187,767,808 x 16 fp32, 12.0 GB, past 2^31 elements) with
                65536 x 26 bags of the MLPerf DLRM-DCNv2 multi-hot sizes,
@@ -61,11 +66,13 @@ Phases, one JSON line each:
                passage reps are held against the plain-attention towers on
                the same params, the serve phase runs again on them (12
                launches per encode batch and per coalesced batch, none on
-               the plain towers' run); then contaccum_bf16 trains for
+               the plain towers' run; the phase line pairs the two runs'
+               qps, p50 and p99); then contaccum_bf16 trains for
                FLASH_TRAIN_STEPS steps (finite losses, exactly 16 chunks x 3
                tower passes x 12 layers x 2 (remat) launches a step), and
                one step with flash towers is held against plain towers from
-               the same state and batch.
+               the same state and batch; a profiled step must show the
+               kernel's time and launches.
   7. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
                its train_batch cell (B=65536, every published width), with
                each field's vocabulary capped at RECSYS_ROW_CAP rows, for
@@ -75,7 +82,12 @@ Phases, one JSON line each:
                bit-identical at the end and every indexed row moved, and
                one step at a small cap on the card against the CPU.
 Then the kernels line, the nvidia-smi line, and the final
-{"ok": true, "device": {...}} line. Any failed check raises and the script
+{"ok": true, "device": {...}} line.
+
+    python3 chip_smoke.py --serve-turns     # builds, then only serves
+
+runs the serve phase with plain and flash towers in turns (plain, flash,
+flash, plain, ...), one line a run, and the nvidia-smi line; no final line. Any failed check raises and the script
 exits non-zero before the final line. Without a CUDA device, or without the
 repo's ``src/repro_torch`` beside it, it exits non-zero at once.
 """
@@ -84,8 +96,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -141,9 +153,6 @@ CHECKPOINT_EVERY = 10
 # towers are the same ops); gradient global norm to 2e-2 relative (the fused
 # backward rounds the softmax coefficients to bf16, the dense one keeps fp32)
 PARITY_LOSS_RTOL = 1e-3
-# about 40 ms of sleep at the H100's clock, longer than the host takes to
-# queue the timed calls of one fused_infonce measurement
-SLEEP_CYCLES = 70_000_000
 PARITY_GRAD_RTOL = 2e-2
 
 # flash_attention against its plain version by ref.flash_attention_error:
@@ -161,6 +170,8 @@ PARITY_GRAD_RTOL = 2e-2
 # cell selects it); it serves as the serve phase does, and trains
 # FLASH_TRAIN_STEPS steps of the contaccum_bf16 cell.
 FLASH_IMPL = "pallas"
+#: plain and flash serves of each under --serve-turns
+SERVE_TURN_PAIRS = 2
 # prefill shapes of the LM configs (src/repro/configs/internlm2_1p8b.py,
 # stablelm_3b.py) that no path of the port runs yet: (B, S, H, Hk, D), causal
 FLASH_LM_SHAPES = {"internlm2_prefill": (1, 4096, 16, 8, 128),
@@ -227,48 +238,6 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, after one warm-up."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, after one warm-up:
-    the calls are queued behind a sleep kernel on the stream, so the events
-    bracket the device's work and not the host's time to enqueue it (a call
-    of a small kernel costs the host more than the device)."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def topk_bound_ms(n_q: int, n: int, n_valid: int, d: int, k: int, itemsize: int):
     """(bound_ms, bound_by): each input read once, each output written once,
     over HBM bandwidth; the products over valid columns over bf16 peak."""
@@ -301,6 +270,7 @@ def check_topk(ref, s, i, rs, ri, tol, what):
 
 def phase_kernels(torch, ops, ref):
     from repro_torch.configs.dpr_bert_base import BERT_BASE, EVAL_TOPK, SERVE_TOPK
+    from repro_torch.kernels._timing import cuda_ms
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -416,6 +386,7 @@ def phase_serve(torch, topk_ref, bert_cfg, counters):
     from repro_torch.configs.dpr_bert_base import BERT_BASE, SERVE_TOPK
     from repro_torch.data.retrieval import SyntheticRetrievalCorpus
     from repro_torch.models.towers import make_bert_dual_encoder
+    from repro_torch.kernels._timing import cuda_ms
     from repro_torch.retrieval import IndexStore, Retriever, RetrieverConfig, make_server
 
     k, precision = SERVE_TOPK["top_k"], SERVE_TOPK["precision"]
@@ -566,6 +537,7 @@ def phase_infonce_kernels(torch):
     from repro_torch.core.loss import DenseLossBackend
     from repro_torch.core.precision import NEG_INF
     from repro_torch.kernels.fused_infonce import ops, ref
+    from repro_torch.kernels._timing import cuda_ms, device_ms
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -844,13 +816,75 @@ def profile_step_share(torch, update, state, batch):
             "top_kernels": [{"name": key[:80], "ms": ms, "count": c} for key, ms, c in top]}
 
 
+def ptxas_report(log: str):
+    """Each kernel entry of an ``nvcc -Xptxas -v`` log: its registers,
+    static shared memory, stack frame and spill bytes."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)), static_smem_bytes=int(sm.group(1)) if sm else 0)
+    return entries
+
+
+def flash_instantiations(torch, log: str):
+    """Every flash_attention kernel, named by its path and tile plan (BQ x
+    BK x D): the dynamic shared memory it asks for, its registers and local
+    memory (stack frame and spills) as the card reports them
+    (``ops.kernel_attributes``), and ptxas's report of it from the build log
+    (kept beside the library, so a library built earlier has it too). Fails
+    unless the log reports every kernel with the card's register count."""
+    from repro_torch.kernels.flash_attention import ops
+
+    ptxas = {}
+    for e in ptxas_report(log):
+        plan = re.search(r"PlanILi(\d+)ELi(\d+)ELi(\d+)E", e["entry"])
+        if plan:
+            ptxas["flash_fwd_kernel_wgmma<{}, {}, {}>".format(*plan.groups())] = e
+        elif "flash_fwd_kernel_fp32" in e["entry"]:
+            ptxas["flash_fwd_kernel_fp32"] = e
+    smem = ops._library().flash_attention_smem_bytes   # (dtype code, BQ, BK, D)
+    kernels = [(f"flash_fwd_kernel_wgmma<{bq}, {bk}, {d}>", smem(1, bq, bk, d),
+                ops.kernel_attributes(bq, bk, d, torch.bfloat16))
+               for bq in (128, 64) for bk in (128, 64) for d in ops.HEAD_DIMS]
+    kernels.append(("flash_fwd_kernel_fp32", f"{smem(0, 64, 64, 16)}-{smem(0, 64, 64, 128)} (D)",
+                    ops.kernel_attributes(64, 64, 128, torch.float32)))
+    out = []
+    for name, dynamic_smem, attrs in kernels:
+        e = ptxas.get(name)
+        require(e is not None and e.get("registers") == attrs["registers"],
+                f"the build log has no ptxas report of {name} with the card's {attrs}: {e}")
+        out.append({"name": name, "dynamic_smem_bytes": dynamic_smem, **attrs,
+                    **{k: v for k, v in e.items() if k not in ("entry", "registers")}})
+    return out
+
+
+def flash_flops(b, sq, skv, h, d, causal):
+    """Operations of one flash_attention call: the two products,
+    4*B*H*Sq*Skv*D, half of them under a causal mask."""
+    return 4.0 * b * h * sq * skv * d * (0.5 if causal else 1.0)
+
+
 def flash_bound_ms(b, sq, skv, h, hk, d, causal, masked, itemsize):
     """(bound_ms, bound_by) of one flash_attention call: q, k, v and the key
     mask read once and o written once, over HBM bandwidth; the two products
     (4*B*H*Sq*Skv*D, half of it under a causal mask) over the bf16 tensor
     peak, or the fp32 peak outside the tensor cores for fp32 inputs."""
     moved = (2 * b * sq * h + 2 * b * skv * hk) * d * itemsize + (b * skv if masked else 0)
-    ops = 4.0 * b * h * sq * skv * d * (0.5 if causal else 1.0)
+    ops = flash_flops(b, sq, skv, h, d, causal)
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
     t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -865,6 +899,7 @@ def phase_flash_kernels(torch):
 
     from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16
     from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels._timing import cuda_ms, device_ms
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -912,8 +947,10 @@ def phase_flash_kernels(torch):
         lib_err = (library().transpose(1, 2).float()[seen] - want.float()[seen]).abs().max().item()
         bound_ms, bound_by = flash_bound_ms(bb, sq, skv, hq, hk, d, causal, kv_mask is not None,
                                             q.element_size())
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask), 20)
         res.update({
-            "ms": device_ms(lambda: ops.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask), 20),
+            "tiles": "x".join(map(str, ops._plan(bb, sq, skv, hq, d, q.dtype, q.device.index))),
+            "ms": ms, "tflops": flash_flops(bb, sq, skv, hq, d, causal) / ms / 1e9,
             "plain_ms": device_ms(
                 lambda: ref.flash_attention_ref(q, k, v, causal=causal, kv_mask=kv_mask), 3),
             "library_ms": device_ms(library, 20), "library_max_abs_err": lib_err,
@@ -941,6 +978,34 @@ def phase_flash_kernels(torch):
         k, v = rand((bb, s, hk, d), bf16), rand((bb, s, hk, d), bf16)
         result[name] = check(name, q, k, v, causal=True)
     return result
+
+
+def serve_pair(plain, flash):
+    """This run's serving with plain and with flash towers, side by side."""
+    keys = ("qps", "p50_ms", "p99_ms", "encode_ms_one_batch")
+    return {name: {key: r[key] for key in keys} for name, r in (("plain", plain), ("flash", flash))}
+
+
+def serve_turns(torch, topk_ops, topk_ref, pairs: int):
+    """The serve phase with plain and with flash towers in turns (plain,
+    flash, flash, plain, ...: ``pairs`` runs of each), one JSON line a run,
+    with the launch checks of the two phases."""
+    import dataclasses
+
+    from repro_torch.configs.dpr_bert_base import BERT_BASE
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    n_layers = BERT_BASE.n_layers
+    for turn in range(2 * pairs):
+        flash = turn % 4 in (1, 2)
+        cfg = dataclasses.replace(BERT_BASE, attention_impl=FLASH_IMPL) if flash else BERT_BASE
+        n = n_layers if flash else 0
+        r = phase_serve(torch, topk_ref, cfg, [
+            ("fused_topk", topk_ops.fused_topk, 0, 1),
+            ("flash_attention", flash_ops.flash_attention, n, n)])
+        emit({"phase": "serve_turn", "turn": turn, "towers": "flash" if flash else "plain",
+              **{key: r[key] for key in ("qps", "p50_ms", "p99_ms", "encode_ms_one_batch",
+                                         "index_build_s", "batches")}})
 
 
 def rel_err(a: float, b: float) -> float:
@@ -1046,6 +1111,9 @@ def phase_flash(torch, topk_ops, topk_ref):
         fl, pl = parity[key]
         require(rel_err(fl, pl) <= rtol, f"flash vs plain towers {key}: {fl} vs {pl}")
     share = profile_step_share(torch, update, state, parity_batch)
+    # the profile finds the kernel by its symbol: a renamed kernel reads 0
+    require(bool(share.get("flash_launches")) and bool(share.get("flash_ms")),
+            f"the profiled flash step shows no flash_fwd_kernel time: {share}")
     times = [row["step_time_s"] for row in hist[1:]]
     out["train"] = {
         "cell": "contaccum_bf16", "steps": FLASH_TRAIN_STEPS, "train_s": train_s,
@@ -1100,6 +1168,7 @@ def phase_embedding_bag_kernels(torch):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.kernels._timing import device_ms
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1327,7 +1396,14 @@ def phase_recsys(torch):
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    ap.add_argument("--serve-turns", action="store_true",
+                    help="only build, then serve with plain and flash towers in turns "
+                         f"(plain, flash, flash, plain, ...), {SERVE_TURN_PAIRS} runs of each")
+    args = ap.parse_args(argv)
     if not (REPO / "src" / "repro_torch").is_dir():
         print("chip_smoke.py runs from a checkout of the repo: src/repro_torch is missing",
               file=sys.stderr)
@@ -1343,8 +1419,9 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_topk import ops, ref
+    from repro_torch.kernels._timing import card
 
-    smi = nvidia_smi_line()
+    smi = card()
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -1355,7 +1432,15 @@ def main() -> int:
     logs = _build.build(["fused_topk", "fused_infonce", "flash_attention", "embedding_bag"])
     for name, text in logs.items():
         print(f"[{name}] {text}", file=sys.stderr)
+    flash_ptxas = flash_instantiations(torch, logs["flash_attention"])
+    require(all(e["spill_store_bytes"] == e["spill_load_bytes"] == e["local_bytes"] == 0
+                for e in flash_ptxas if e["name"] != "flash_fwd_kernel_fp32"),
+            f"a bf16 flash_attention kernel spills: {flash_ptxas}")
     emit({"phase": "build", "kernels": sorted(logs), "seconds": time.perf_counter() - t0})
+    if args.serve_turns:
+        serve_turns(torch, ops, ref, SERVE_TURN_PAIRS)
+        print(card(), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     kernels = phase_kernels(torch, ops, ref)
@@ -1367,7 +1452,7 @@ def main() -> int:
     bag = phase_embedding_bag_kernels(torch)
     bag_launches = bag_ops.embedding_bag.launches
     emit({"phase": "kernels", "fused_topk": kernels, "fused_infonce": infonce,
-          "flash_attention": flash_k, "embedding_bag": bag,
+          "flash_attention": flash_k, "flash_attention_ptxas": flash_ptxas, "embedding_bag": bag,
           "embedding_bag_launches": bag_launches, "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi})
 
@@ -1385,7 +1470,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     flash = phase_flash(torch, ops, ref)
-    emit({"phase": "flash", **flash, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    emit({"phase": "flash", **flash, "serve_vs_plain": serve_pair(serve, flash["serve"]),
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     t0 = time.perf_counter()
     recsys = phase_recsys(torch)

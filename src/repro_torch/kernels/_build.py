@@ -1,9 +1,11 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled by
-``nvcc`` for ``sm_90a`` into a shared library under ``<repo>/build/kernels/``
-(listed in ``.gitignore``). The library's name carries a hash of its source,
-so an edited kernel is rebuilt and an unchanged one is loaded as built.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (it may
+include headers beside it in ``csrc/``), compiled by ``nvcc`` for ``sm_90a``
+into a shared library under ``<repo>/build/kernels/`` (listed in
+``.gitignore``). The library's name carries a hash of every file under
+``csrc/``, so an edited kernel or header is rebuilt and an unchanged one is
+loaded as built.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -46,13 +48,27 @@ def find_nvcc() -> str:
     return found
 
 
+def _csrc(name: str) -> Path:
+    return PACKAGE_ROOT / "kernels" / name / "csrc"
+
+
 def _source(name: str) -> Path:
-    return PACKAGE_ROOT / "kernels" / name / "csrc" / f"{name}.cu"
+    return _csrc(name) / f"{name}.cu"
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(_source(name).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path: its name carries a hash of each file under the
+    kernel's ``csrc/`` (path and content)."""
+    digest = hashlib.sha256()
+    csrc = _csrc(name)
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        digest.update(f.relative_to(csrc).as_posix().encode() + b"\0" + f.read_bytes() + b"\0")
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    """Where the compiler's output of the built library is kept."""
+    return library_path(name).with_suffix(".log")
 
 
 def _start_build(name: str, nvcc: str) -> Optional[subprocess.Popen]:
@@ -75,14 +91,16 @@ def _start_build(name: str, nvcc: str) -> Optional[subprocess.Popen]:
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compiles the named kernels, one ``nvcc`` each, all at once. Returns
     each kernel's compiler output (``-Xptxas -v``: registers, shared memory,
-    spills); empty for a library that was already built."""
+    spills), kept beside the library (``log_path``) and read from there for
+    a library that was already built (empty if it has none)."""
     nvcc = find_nvcc()
     procs: List[subprocess.Popen] = []
     logs: Dict[str, str] = {}
     for name in names:
         proc = _start_build(name, nvcc)
         if proc is None:
-            logs[name] = ""
+            log = log_path(name)
+            logs[name] = log.read_text() if log.exists() else ""
         else:
             procs.append(proc)
     failed = []
@@ -92,6 +110,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{proc.kernel_name} (exit {proc.returncode}):\n{text}")
         else:
+            proc.out_path.with_suffix(".log").write_text(text)
             os.replace(proc.tmp_path, proc.out_path)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -13,10 +13,10 @@ Needs a CUDA device; builds the kernel at first use like any caller.
 from __future__ import annotations
 
 import argparse
-import subprocess
 
 import torch
 
+from repro_torch.kernels._timing import card
 from repro_torch.kernels.fused_topk import ops
 
 
@@ -26,10 +26,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench.py needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     p = torch.randn((1 << 20, 768), generator=g, device=dev).to(torch.bfloat16)
@@ -41,7 +37,7 @@ def main(argv=None):
             for _ in range(args.reps):
                 ops.fused_topk(q, p, 100)
             torch.cuda.synchronize()
-        print(f"Q={n_q}, N={p.shape[0]}, {args.reps} calls, {card}")
+        print(f"Q={n_q}, N={p.shape[0]}, {args.reps} calls, {card()}")
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=4))
 
 

@@ -185,3 +185,173 @@ def test_error_check_allows_tile_rounding_and_finds_a_dropped_tile(
     out = _tiled(q, k, v, causal, mask, skip=skip)
     err = flash_attention_error(out, q, k, v, causal=causal, kv_mask=mask)
     assert error_ok(err, dtype) == passes, err
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hk,d,causal,masked,dtype",
+    [
+        (4, 256, 4, 4, 64, False, True, torch.bfloat16),
+        (1, 512, 4, 2, 128, True, False, torch.bfloat16),
+        (1, 512, 4, 4, 80, True, True, torch.bfloat16),
+    ],
+)
+def test_error_check_allows_128_key_tiles(b, s, h, hk, d, causal, masked, dtype):
+    """The kernel's tiles of 128 keys (BK = 128) round each tile's
+    probabilities as the 64-key tiles do: the card's check passes them."""
+    q, k, v, mask = _inputs(b, s, s, h, hk, d, masked, seed=10)
+    q, k, v = (torch.as_tensor(a).to(dtype) for a in (q, k, v))
+    mask = None if mask is None else torch.as_tensor(mask)
+    err = flash_attention_error(_tiled(q, k, v, causal, mask, tile=128), q, k, v,
+                                causal=causal, kv_mask=mask)
+    assert error_ok(err, dtype), err
+
+
+# the shapes the port runs or times the kernel at: the BERT query and passage
+# passes (B=8, H=12, D=64), an index encode batch, internlm2-1.8b and
+# stablelm-3b prefill
+PLAN_SHAPES = [(8, 32, 32, 12), (8, 256, 256, 12), (256, 256, 256, 12), (1, 4096, 4096, 16),
+               (1, 2048, 2048, 32), (1, 1, 1, 1), (64, 512, 512, 16)]
+#: an H100 SXM: its SMs and each SM's shared memory
+H100 = {"sms": 132, "sm_smem": 233_472}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", list(ops.HEAD_DIMS))
+def test_tile_plan_is_legal_and_fits_shared_memory(d, dtype):
+    """Every head dim, both dtypes, at the port's shapes: the plan is a tile
+    shape the kernel has (bf16: BQ, BK in {64, 128}; fp32: 64 x 64) and one
+    block's shared memory is within the 227 KB a block may use."""
+    for b, sq, skv, h in PLAN_SHAPES:
+        bq, bk = ops.tile_plan(b, sq, skv, h, d, dtype, **H100)
+        if dtype == torch.float32:
+            assert (bq, bk) == (64, 64)
+        else:
+            assert bq in (64, 128) and bk in (64, 128)
+        assert 0 < ops.smem_bytes_mirror(bq, bk, d, dtype) <= ops.SMEM_LIMIT
+    if dtype == torch.bfloat16:
+        for bq in (64, 128):
+            for bk in (64, 128):
+                assert ops.smem_bytes_mirror(bq, bk, d, dtype) <= ops.SMEM_LIMIT
+
+
+@pytest.mark.parametrize(
+    "b,sq,skv,h,d,want",
+    [(8, 32, 32, 12, 64, (64, 64)),            # BERT query pass: 96 blocks of 64 rows
+     (8, 256, 256, 12, 64, (64, 128)),         # BERT passage pass
+     (32, 32, 32, 12, 64, (64, 64)),           # a served batch of queries
+     (256, 256, 256, 12, 64, (64, 64)),        # an index encode batch: 12288 blocks
+     (1, 4096, 4096, 16, 128, (128, 128)),     # internlm2-1.8b prefill
+     (1, 2048, 2048, 32, 80, (128, 128)),      # stablelm-3b prefill
+     (1, 2048, 2048, 16, 128, (128, 128))],    # 256 blocks of 128 rows, one 64-row block a SM
+)
+def test_tile_plan_at_the_timed_shapes(b, sq, skv, h, d, want):
+    """The plan kernels/flash_attention/bench.py timed fastest at each of
+    these shapes on an H100 (PERF.md)."""
+    assert ops.tile_plan(b, sq, skv, h, d, torch.bfloat16, **H100) == want
+
+
+def test_tile_plan_follows_the_card():
+    """The plan reads the card it is given: the BERT passage pass's 384
+    blocks of 64 rows fill half the SMs' two slots more than twice over
+    (64 x 64), and where a SM holds one 64 x 128 block only, its 192 blocks
+    of 128 rows fill the SMs (128 x 128)."""
+    passage = (8, 256, 256, 12, 64, torch.bfloat16)
+    assert ops.tile_plan(*passage, **H100) == (64, 128)
+    assert ops.tile_plan(*passage, sms=66, sm_smem=H100["sm_smem"]) == (64, 64)
+    assert ops.tile_plan(*passage, sms=132, sm_smem=100_000) == (128, 128)
+
+
+def test_plan_is_computed_once_a_shape(monkeypatch):
+    """The launch's plan (ops._plan) is tile_plan with the card's SMs and
+    their shared memory and the library's shared memory a block, asked once
+    for each shape and card and then cached."""
+    import types
+
+    asked, cards = [], []
+
+    def library_smem(bq, bk, d, dtype):
+        asked.append((bq, bk, d))
+        return ops.smem_bytes_mirror(bq, bk, d, dtype)
+
+    def properties(device):
+        cards.append(device)
+        return types.SimpleNamespace(multi_processor_count=H100["sms"],
+                                     shared_memory_per_multiprocessor=H100["sm_smem"])
+
+    monkeypatch.setattr(ops, "_library_smem_bytes", library_smem)
+    monkeypatch.setattr(ops.torch.cuda, "get_device_properties", properties)
+    ops._plan.cache_clear()
+    try:
+        for _ in range(3):
+            for shape in ((8, 256, 256, 12, 64), (1, 2048, 2048, 32, 80)):
+                assert ops._plan(*shape, torch.bfloat16, 0) == ops.tile_plan(
+                    *shape, torch.bfloat16, **H100)
+        assert asked == [(64, 128, 64), (64, 128, 80)] and cards == [0, 0]
+    finally:
+        ops._plan.cache_clear()
+
+
+@pytest.mark.parametrize("sq", [1, 32, 64])
+@pytest.mark.parametrize("b", [8, 32, 256])
+def test_tile_plan_keeps_one_warpgroup_for_short_queries(b, sq):
+    """At most 64 query rows: one consumer warpgroup (BQ = 64) however many
+    blocks there are, since a second one would have no row to compute."""
+    for d in ops.HEAD_DIMS:
+        assert ops.tile_plan(b, sq, 512, 12, d, torch.bfloat16, **H100)[0] == 64
+
+
+def _view(base: torch.Tensor, offset: int, shape, strides):
+    return base.as_strided(shape, strides, storage_offset=offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "offset,strides,aligned",
+    [
+        (0, (8192, 512, 64, 1), True),     # contiguous (2, 16, 8, 64)
+        (0, (24576, 1536, 64, 1), True),   # a head split of one fused qkv projection
+        (64, (24576, 1536, 64, 1), True),  # the k split: 64 elements in
+        (1, (8192, 512, 64, 1), False),    # base off by one element
+        (0, (8192, 513, 64, 1), False),    # row stride not a 16-byte multiple
+        (0, (8200, 512, 64, 1), True),     # batch stride 8200 elements: 16 bytes in either type
+        (0, (8196, 512, 64, 1), None),     # batch stride 8196: 16 bytes in fp32 only
+        (0, (8192, 512, 65, 1), False),    # head stride not a 16-byte multiple
+        (0, (8192, 512, 1, 8), False),     # last dim not contiguous
+    ],
+)
+def test_alignment_helper_copies_exactly_the_misaligned(offset, strides, aligned, dtype):
+    """_tma_ready keeps a tensor whose base and batch, row and head strides
+    are 16-byte multiples (and whose last dim is contiguous), and copies any
+    other to a new contiguous tensor of the same values."""
+    if aligned is None:
+        aligned = dtype == torch.float32
+    base = torch.arange(2 * 24576 + 1024, dtype=torch.float32).to(dtype)
+    t = _view(base, offset, (2, 16, 8, 64), strides)
+    assert (base.data_ptr() % 64) == 0
+    got = ops._tma_ready(t)
+    if aligned:
+        assert got is t
+    else:
+        assert got is not t and got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert got.data_ptr() != t.data_ptr() and torch.equal(got, t)
+
+
+@pytest.mark.parametrize("edit", ["kernel", "header", "new_header"])
+def test_library_path_follows_every_file_under_csrc(tmp_path, monkeypatch, edit):
+    """The built library's name hashes every file under the kernel's csrc/,
+    so editing a header it includes rebuilds it too."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    root = tmp_path / "repro_torch"
+    shutil.copytree(_build.PACKAGE_ROOT / "kernels" / "flash_attention" / "csrc",
+                    root / "kernels" / "flash_attention" / "csrc")
+    monkeypatch.setattr(_build, "PACKAGE_ROOT", root)
+    csrc = root / "kernels" / "flash_attention" / "csrc"
+    before = _build.library_path("flash_attention")
+    assert before == _build.library_path("flash_attention")
+    target = {"kernel": csrc / "flash_attention.cu", "header": csrc / "hopper.cuh",
+              "new_header": csrc / "extra.cuh"}[edit]
+    target.write_text((target.read_text() if target.exists() else "") + "\n// edited\n")
+    assert _build.library_path("flash_attention") != before

@@ -158,6 +158,28 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "kernels").exists()
 
 
+def test_build_keeps_the_compiler_log_beside_the_library(monkeypatch, tmp_path):
+    """A build returns nvcc's output and keeps it beside the library, so a
+    later build that finds the library already built returns the same log
+    (a stand-in nvcc writes the library and one ptxas line)."""
+    from repro_torch.kernels import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n: > "$2"\n'
+                    'echo "ptxas info    : Used 42 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    real_isfile = os.path.isfile
+    monkeypatch.setattr(os.path, "isfile", lambda p: False if str(p) == "/usr/local/cuda/bin/nvcc"
+                        else real_isfile(p))
+    first = _build.build(["fused_topk"])["fused_topk"]
+    assert "Used 42 registers" in first and _build.library_path("fused_topk").exists()
+    assert _build.log_path("fused_topk").read_text() == first
+    assert _build.build(["fused_topk"]) == {"fused_topk": first}
+
+
 def test_kernel_sources_exist_and_build_dir_is_ignored():
     from repro_torch.kernels import _build
 
