@@ -13,8 +13,11 @@ Phases, one JSON line each:
                fused_topk at the eval_topk shape (Q=2048, N=2^20-37 ragged,
                d=768, bf16, k=100, some columns masked) and the serve_topk
                shape (Q=32, N=2^20), plus a tie case and a k > n_valid case,
-               and k = 129, 256 and 1000 at both shapes (the row states
-               of k > 128 in global memory) plus a k > n_valid case there;
+               and k = 129, 256 and 1000 at both shapes plus a k > n_valid
+               case there; each bf16 call at those shapes must report the
+               Hopper kernel (ops.fused_topk.paths), and every fused_topk
+               kernel's registers and local memory are held to ptxas's log
+               (a bf16 one that spills fails the run);
                the fused_infonce forward, dQ and dP kernels at the two
                shapes of a contaccum_bf16 chunk (M=8 local queries with
                some labels out of range, and M=2048 query-bank rows, against
@@ -46,7 +49,8 @@ Phases, one JSON line each:
                2^20 rows with seeded random rows, and a BatchingServer
                (max_batch=32, the cell's batch) answers single-query
                requests from client threads. The kernel's launch count must
-               equal the number of coalesced batches; every answer is
+               equal the number of coalesced batches, each through the
+               Hopper kernel (its path count); every answer is
                checked, and one batch is held against the plain search on
                the same query reps.
   5. train   - the port's training path at the full width of dpr-bert-base,
@@ -60,7 +64,8 @@ Phases, one JSON line each:
                16 x steps (forward, dQ, dP), one step on the dense backend
                against the fused one from the same state and batch, a second
                Trainer resuming from the saved step, and a Top@k eval through
-               the fused search kernel.
+               the fused search kernel (every search through the Hopper
+               kernel).
   6. flash   - the same towers with attention_impl="pallas" (the attention
                of every layer through the flash_attention kernel): their
                passage reps are held against the plain-attention towers on
@@ -285,7 +290,7 @@ def phase_kernels(torch, ops, ref):
         tol = SCORE_RTOL * rs[:, 0].abs().max().item()
         out = {"tolerance": tol}
         for kk in TOPK_LARGE_K:
-            s, i = ops.fused_topk(q, p, kk, col_valid=valid)
+            s, i = hopper_call(f"{name} k={kk}", q, p, kk, col_valid=valid)
             err, clear = check_topk(ref, s, i, rs[:, : kk + 1], ri[:, : kk + 1], tol,
                                     f"{name} k={kk}")
             out[f"k{kk}"] = {"max_abs_err": err, "clear_slots": clear, "slots": i.numel()}
@@ -299,12 +304,20 @@ def phase_kernels(torch, ops, ref):
         })
         return out
 
+    def hopper_call(what, *args, **kw):
+        """One call, which must take the Hopper kernel (ops.fused_topk.paths)."""
+        ops.reset_launches()
+        out = ops.fused_topk(*args, **kw)
+        require(ops.fused_topk.paths["hopper"] == ops.fused_topk.launches == 1,
+                f"{what}: fused_topk took {ops.fused_topk.paths}, not the Hopper kernel")
+        return out
+
     # eval_topk shape, ragged N, masked columns
     n_q, n = EVAL_TOPK["n_queries"], EVAL_TOPK["n_passages"] - 37
     q = torch.randn((n_q, d), generator=g, device=dev).to(torch.bfloat16)
     p = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
     valid = torch.rand((n,), generator=g, device=dev) > 0.01
-    s, i = ops.fused_topk(q, p, k, col_valid=valid)
+    s, i = hopper_call("eval shape", q, p, k, col_valid=valid)
     rs, ri = ref.topk_scores_ref(q, p, k + 1, col_valid=valid)
     tol = SCORE_RTOL * rs[:, 0].abs().max().item()
     err, clear = check_topk(ref, s, i, rs, ri, tol, "eval shape")
@@ -317,7 +330,7 @@ def phase_kernels(torch, ops, ref):
     result["eval_topk"] = {
         "Q": n_q, "N": n, "n_valid": n_valid, "d": d, "k": k, "dtype": "bf16",
         "max_abs_err": err, "tolerance": tol, "clear_slots": clear, "slots": i.numel(),
-        "ms": kernel_ms, "plain_ms": plain_ms,
+        "path": "hopper", "ms": kernel_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
     del rs, ri
@@ -327,14 +340,14 @@ def phase_kernels(torch, ops, ref):
     n_q, n = SERVE_TOPK["n_queries"], SERVE_TOPK["n_passages"]
     q = torch.randn((n_q, d), generator=g, device=dev).to(torch.bfloat16)
     p = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
-    s, i = ops.fused_topk(q, p, k)
+    s, i = hopper_call("serve shape", q, p, k)
     rs, ri = ref.topk_scores_ref(q, p, k + 1)
     tol = SCORE_RTOL * rs[:, 0].abs().max().item()
     err, clear = check_topk(ref, s, i, rs, ri, tol, "serve shape")
     bound_ms, bound_by = topk_bound_ms(n_q, n, n, d, k, 2)
     result["serve_topk"] = {
         "Q": n_q, "N": n, "d": d, "k": k, "dtype": "bf16", "max_abs_err": err,
-        "tolerance": tol, "clear_slots": clear, "slots": i.numel(),
+        "tolerance": tol, "clear_slots": clear, "slots": i.numel(), "path": "hopper",
         "ms": cuda_ms(lambda: ops.fused_topk(q, p, k), 10),
         "plain_ms": cuda_ms(lambda: ref.topk_scores_ref(q, p, k), 2),
         "library_ms": cuda_ms(lambda: library_topk(q, p, k), 5),
@@ -410,9 +423,15 @@ def phase_serve(torch, topk_ref, bert_cfg, counters):
     def reset():
         for _, wrapper, _, _ in counters:
             wrapper.launches = 0
+            if hasattr(wrapper, "paths"):
+                wrapper.paths = dict.fromkeys(wrapper.paths, 0)
 
     def read():
         return {name: wrapper.launches for name, wrapper, _, _ in counters}
+
+    def read_paths():
+        return {name: dict(wrapper.paths) for name, wrapper, _, _ in counters
+                if hasattr(wrapper, "paths")}
 
     reset()                                           # the index encode starts here
     t0 = time.perf_counter()
@@ -459,6 +478,7 @@ def phase_serve(torch, topk_ref, bert_cfg, counters):
             list(pool.map(one, range(N_REQUESTS)))
         wall = time.perf_counter() - t0
         launches = read()                             # read just after the run
+        paths = read_paths()
         batches = list(server.batch_sizes)
     finally:
         server.stop()
@@ -495,7 +515,7 @@ def phase_serve(torch, topk_ref, bert_cfg, counters):
         "requests": N_REQUESTS, "clients": CLIENTS, "qps": N_REQUESTS / wall,
         "p50_ms": statistics.median(ms), "p99_ms": ms[int(0.99 * (len(ms) - 1))],
         "batches": len(batches), "mean_batch": sum(batches) / len(batches),
-        "launches": launches, "batch_max_abs_err": err, "batch_tolerance": tol,
+        "launches": launches, "paths": paths, "batch_max_abs_err": err, "batch_tolerance": tol,
         "batch_clear_slots": clear, "batch_slots": i.numel(),
         "batch_hits_in_encoded_rows": encoded_hits,
         "fused_search_ms_one_batch": search_ms, "encode_ms_one_batch": encode_ms,
@@ -748,7 +768,7 @@ def phase_train(torch, topk_ops):
         require(np.isfinite(report2.history[0]["loss"]), "resumed step loss not finite")
 
     # Top@k eval through the fused search kernel
-    topk_ops.fused_topk.launches = 0
+    topk_ops.reset_launches()
     t0 = time.perf_counter()
     recalls = evaluate_topk(
         enc, state.params, corpus, ks=(1, 5, 20),
@@ -757,7 +777,10 @@ def phase_train(torch, topk_ops):
     )
     eval_s = time.perf_counter() - t0
     eval_launches = topk_ops.fused_topk.launches
+    eval_paths = dict(topk_ops.fused_topk.paths)
     require(eval_launches > 0, "evaluate_topk did not launch fused_topk")
+    require(eval_paths["hopper"] == eval_launches,
+            f"the eval's searches took {eval_paths}, not all the Hopper kernel")
     require(all(np.isfinite(v) for v in recalls.values()), f"non-finite recall {recalls}")
 
     times = [h["step_time_s"] for h in hist[1:]]
@@ -780,6 +803,7 @@ def phase_train(torch, topk_ops):
         "dense_vs_fused": parity, "infonce_share": share,
         "resumed_from_step": report2.history[0]["step"] - 1,
         "eval": recalls, "eval_s": eval_s, "eval_fused_topk_launches": eval_launches,
+        "eval_fused_topk_paths": eval_paths,
     }
 
 
@@ -869,6 +893,32 @@ def flash_instantiations(torch, log: str):
                 f"the build log has no ptxas report of {name} with the card's {attrs}: {e}")
         out.append({"name": name, "dynamic_smem_bytes": dynamic_smem, **attrs,
                     **{k: v for k, v in e.items() if k not in ("entry", "registers")}})
+    return out
+
+
+def topk_instantiations(log: str):
+    """Every fused_topk kernel (``ops.KERNELS``): its registers and local
+    memory as the card reports them (``ops.kernel_attributes``) beside
+    ptxas's report of it from the build log. Fails unless the log reports
+    every kernel with the card's register count, and on a bf16 kernel with
+    local memory or spills."""
+    from repro_torch.kernels.fused_topk import ops
+
+    ptxas = {}
+    for e in ptxas_report(log):
+        m = re.search(r"(topk_[a-z]+_kernel)(?:ILi(\d+)EE)?", e["entry"])
+        if m:
+            ptxas[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = e
+    out = []
+    for name in ops.KERNELS:
+        attrs, e = ops.kernel_attributes(name), ptxas.get(name)
+        require(e is not None and e.get("registers") == attrs["registers"],
+                f"the build log has no ptxas report of {name} with the card's {attrs}: {e}")
+        row = {"name": name, "bf16": name in ops.BF16_KERNELS, **attrs,
+               **{k: v for k, v in e.items() if k not in ("entry", "registers")}}
+        require(not row["bf16"] or row["spill_store_bytes"] == row["spill_load_bytes"]
+                == row["local_bytes"] == 0, f"a bf16 fused_topk kernel spills: {row}")
+        out.append(row)
     return out
 
 
@@ -1433,6 +1483,7 @@ def main(argv=None) -> int:
     for name, text in logs.items():
         print(f"[{name}] {text}", file=sys.stderr)
     flash_ptxas = flash_instantiations(torch, logs["flash_attention"])
+    topk_ptxas = topk_instantiations(logs["fused_topk"])
     require(all(e["spill_store_bytes"] == e["spill_load_bytes"] == e["local_bytes"] == 0
                 for e in flash_ptxas if e["name"] != "flash_fwd_kernel_fp32"),
             f"a bf16 flash_attention kernel spills: {flash_ptxas}")
@@ -1452,7 +1503,8 @@ def main(argv=None) -> int:
     bag = phase_embedding_bag_kernels(torch)
     bag_launches = bag_ops.embedding_bag.launches
     emit({"phase": "kernels", "fused_topk": kernels, "fused_infonce": infonce,
-          "flash_attention": flash_k, "flash_attention_ptxas": flash_ptxas, "embedding_bag": bag,
+          "flash_attention": flash_k, "flash_attention_ptxas": flash_ptxas,
+          "fused_topk_ptxas": topk_ptxas, "embedding_bag": bag,
           "embedding_bag_launches": bag_launches, "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi})
 
@@ -1462,6 +1514,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serve = phase_serve(torch, ref, BERT_BASE, [("fused_topk", ops.fused_topk, 0, 1),
                                                 ("flash_attention", flash_ops.flash_attention, 0, 0)])
+    require(serve["paths"]["fused_topk"]["hopper"] == serve["launches"]["fused_topk"],
+            f"served batches took {serve['paths']['fused_topk']}, not all the Hopper kernel")
     emit({"phase": "serve", **serve, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     t0 = time.perf_counter()

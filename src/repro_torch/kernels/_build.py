@@ -1,11 +1,12 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (it may
-include headers beside it in ``csrc/``), compiled by ``nvcc`` for ``sm_90a``
-into a shared library under ``<repo>/build/kernels/`` (listed in
-``.gitignore``). The library's name carries a hash of every file under
-``csrc/``, so an edited kernel or header is rebuilt and an unchanged one is
-loaded as built.
+include headers beside it in ``csrc/``, and the headers all kernels share in
+``kernels/include/``, which nvcc gets with ``-I``), compiled by ``nvcc`` for
+``sm_90a`` into a shared library under ``<repo>/build/kernels/`` (listed in
+``.gitignore``). The library's name carries a hash of every file under the
+kernel's ``csrc/`` and under ``kernels/include/``, so an edited kernel or
+header, shared or not, is rebuilt and an unchanged one is loaded as built.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -23,6 +24,8 @@ from typing import Dict, Iterable, List, Optional
 PACKAGE_ROOT = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_ROOT.parents[1] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+#: headers every kernel may include (hopper.cuh: the Hopper primitives)
+INCLUDE_DIR = PACKAGE_ROOT / "kernels" / "include"
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -58,11 +61,12 @@ def _source(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     """The library's path: its name carries a hash of each file under the
-    kernel's ``csrc/`` (path and content)."""
+    kernel's ``csrc/`` and under ``INCLUDE_DIR`` (path and content)."""
     digest = hashlib.sha256()
-    csrc = _csrc(name)
-    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
-        digest.update(f.relative_to(csrc).as_posix().encode() + b"\0" + f.read_bytes() + b"\0")
+    for root, tag in ((_csrc(name), b"csrc/"), (INCLUDE_DIR, b"include/")):
+        for f in sorted(p for p in root.rglob("*") if p.is_file()):
+            digest.update(tag + f.relative_to(root).as_posix().encode() + b"\0"
+                          + f.read_bytes() + b"\0")
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -78,7 +82,7 @@ def _start_build(name: str, nvcc: str) -> Optional[subprocess.Popen]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
-        nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+        nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(INCLUDE_DIR),
         "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_source(name)),
     ]
     proc = subprocess.Popen(

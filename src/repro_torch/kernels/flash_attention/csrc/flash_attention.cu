@@ -81,8 +81,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "hopper.cuh"
 
 namespace {
@@ -422,63 +420,15 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_cons
   }
 }
 
-// Raises a kernel's dynamic shared-memory limit to `bytes` on the current
-// device, once a device for each Tag (one tag a kernel instantiation): one
-// cudaFuncSetAttribute at the first launch, not one on every launch.
-template <class Tag>
-cudaError_t allow_smem_once(const void* kernel, int bytes) {
-  static std::atomic<unsigned long long> done{0};   // bit i: device i
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point query (nothing is
-// linked against libcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Rank-4 bf16 tensor map over (D, H, S, B) with byte strides of the head,
-// row and batch dims; boxes of 64 x 1 x rows x 1, 128-byte swizzled, zero
-// past each edge.
+// Rank-4 bf16 tensor map over (D, H, S, B) with element strides of the
+// head, row and batch dims; boxes of 64 x 1 x rows x 1 (hopper.cuh: 128-byte
+// swizzled, zero past each edge).
 cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int d, int heads, int rows, int batch,
                        long long sh, long long ss, long long sb, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads), cuuint64_t(rows), cuuint64_t(batch)};
   const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2, cuuint64_t(sb) * 2};
   const cuuint32_t box[4] = {64, 1, cuuint32_t(box_rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tensor_map_bf16<4>(map, ptr, dims, strides, box);
 }
 
 template <class P>

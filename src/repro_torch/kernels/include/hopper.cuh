@@ -1,10 +1,18 @@
-// Hopper (sm_90a) primitives of the flash attention kernel, as inline PTX:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and products,
-// named barriers and ex2.
+// Hopper (sm_90a) primitives shared by the port's kernels (flash_attention,
+// fused_topk), one copy for all: on the device, as inline PTX, mbarriers,
+// TMA tile loads, wgmma shared-memory descriptors and products, named
+// barriers and ex2; on the host, bf16 tensor maps for TMA (the driver's
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so nothing
+// links against libcuda) and a kernel's dynamic shared-memory limit raised
+// once a device. _build.py passes this directory to nvcc with -I and hashes
+// it into every kernel library's name, so an edit here rebuilds them all.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -49,8 +57,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
-// one box of a rank-4 tensor map into shared memory; completion is counted
+// one box of a rank-2 tensor map into shared memory; completion is counted
 // in bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// the same for a rank-4 tensor map
 __device__ __forceinline__ void tma_load_4d(const CUtensorMap* map, uint32_t dst, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -376,6 +393,67 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- host: tensor maps and launch attributes ----------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query (null when
+// the driver has none)
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Rank-R bf16 tensor map: dims[0] is the contiguous one (elements), strides
+// are the byte strides of dims 1..R-1 (multiples of 16, as the base's
+// alignment must be), boxes of `box` elements, 128-byte swizzled (box[0] is
+// 64: one 128-byte row), zero past each edge.
+template <int R>
+inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[R],
+                                   const cuuint64_t (&strides)[R - 1],
+                                   const cuuint32_t (&box)[R]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint32_t unit[R];
+  for (int i = 0; i < R; ++i) unit[i] = 1;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Raises a kernel's dynamic shared-memory limit to `bytes` on the current
+// device, once a device for each Tag (one tag a kernel instantiation): one
+// cudaFuncSetAttribute at the first launch, not one on every launch.
+template <class Tag>
+inline cudaError_t allow_smem_once(const void* kernel, int bytes) {
+  static std::atomic<unsigned long long> done{0};   // bit i: device i
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace hopper

@@ -12,6 +12,9 @@ are widened to fp32 before the product on both sides (exact products), so
 the same tolerance holds.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -24,6 +27,7 @@ from repro_torch.core.precision import NEG_INF
 from repro_torch.kernels.fused_topk import ops
 from repro_torch.kernels.fused_topk.ref import topk_mismatch, topk_scores_ref
 
+REPO = pathlib.Path(__file__).resolve().parents[1]
 ATOL, RTOL = 1e-5, 1e-6
 CASES = ["ragged", "masked", "k_exceeds_valid", "ties", "inv_tau"]
 
@@ -163,3 +167,103 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
     rs, ri = topk_scores_ref(q, p, 6)
     assert torch.equal(s, rs) and torch.equal(i, ri)
     assert ops.fused_topk.launches == before
+
+
+@pytest.mark.parametrize("max_splits", [1, 2, 3, 50])
+@pytest.mark.parametrize("n_q,n,sms", [(2048, (1 << 20) - 37, 132), (32, 1 << 20, 132),
+                                       (70, 9000, 132)])
+def test_split_plan_under_a_state_cap_covers_every_column_once(n_q, n, sms, max_splits):
+    splits, cols = ops.split_plan(n_q, n, sms, max_splits)
+    assert cols % ops.BLOCK_N == 0
+    assert (splits - 1) * cols < n <= splits * cols
+    assert splits <= max_splits
+
+
+KERNEL_SOURCE = (REPO / "src" / "repro_torch" / "kernels" / "fused_topk" / "csrc"
+                 / "fused_topk.cu")
+
+
+@pytest.mark.parametrize("d", [8, 24, 64, 96, 256, 512, 768, 1024, ops.HOPPER_D_MAX, 1472])
+def test_scan_plan_fits_the_shared_memory_budget(d):
+    """Every Hopper plan fits the 227 KB a block may use with 2-4 stages in
+    each consumer's ring, spreads at most 32 query rows over the warps,
+    stages a row's whole pool (2 kp keys) for its cuts only up to 512 keys,
+    and takes as many stages as the rest holds (each k and Q of the grid)."""
+    for k in (1, 100, 128, 129, 256, 257, 1000, ops.K_MAX):
+        for n_q in (1, 32, 33, 2048):
+            plan = ops.scan_plan(d, k, n_q)
+            if plan is None:   # only a full query tile can be too wide
+                assert d > ops.HOPPER_D_MAX and n_q > 32, (d, k, n_q)
+                continue
+            spread, stages, stage_keys = plan
+            assert spread == (n_q <= 32)
+            assert 2 <= stages <= ops.MAX_STAGES
+            assert ops.scan_smem_bytes(d, spread, stages, stage_keys) <= ops.SMEM_LIMIT
+            assert stage_keys in (0, 2 * ops.state_pairs(k))
+            assert stage_keys <= ops.STAGE_KEYS_MAX
+            if stages < ops.MAX_STAGES:
+                assert ops.scan_smem_bytes(d, spread, stages + 1, stage_keys) > ops.SMEM_LIMIT
+
+
+def test_scan_plan_at_the_served_width_is_the_one_the_kernel_states():
+    """d = 768 (dpr-bert-base): the plans the kernel's header states, byte
+    for byte, and the constants the Python mirror shares with the source."""
+    src = KERNEL_SOURCE.read_text()
+    assert ops.scan_plan(768, 100, 32) == (True, 4, 256)          # serve_topk
+    assert ops.scan_plan(768, 100, 2048) == (False, 3, 256)       # eval_topk
+    assert ops.scan_plan(768, 1000, 2048) == (False, 3, 0)
+    assert ops.scan_smem_bytes(768, False, 3, 256) == 222_856
+    assert ops.scan_smem_bytes(768, True, 4, 256) == 206_472
+    assert "3 stages a ring, 222,856 bytes" in src and "(spread) 4, 206,472 bytes" in src
+    for name, value in (("HQ", ops.BLOCK_Q), ("HN", ops.BLOCK_N), ("MAX_STAGES", ops.MAX_STAGES),
+                        ("CONSUMERS", ops.CONSUMERS),
+                        ("SMEM_LIMIT", ops.SMEM_LIMIT), ("ALIGN_SLACK", ops.ALIGN_SLACK),
+                        ("STAGE_KEYS_MAX", ops.STAGE_KEYS_MAX),
+                        ("SORT_SMEM_KEYS", ops.SORT_SMEM_KEYS), ("BINS", 256)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert ops.HIST_BYTES == 4 * ops.CONSUMERS * 256 * 4
+    assert ops.BARRIER_BYTES == 8 * (1 + 2 * ops.CONSUMERS * ops.MAX_STAGES)
+
+
+@pytest.mark.parametrize("dtype,d,k,path", [
+    (torch.bfloat16, 768, 100, "hopper"),          # serve_topk and eval_topk
+    (torch.bfloat16, 768, 20, "hopper"),           # the Top@k eval
+    (torch.bfloat16, 768, 1000, "hopper"),
+    (torch.bfloat16, 20, 129, "hopper"),           # padded to 24 columns
+    (torch.bfloat16, 33, 1, "hopper"),             # padded to 40 columns
+    (torch.bfloat16, ops.HOPPER_D_MAX, 100, "hopper"),
+    (torch.bfloat16, ops.HOPPER_D_MAX + 8, 100, "fp32_widened"),
+    (torch.float32, 768, 100, "fp32"),
+])
+def test_path_of_each_shape(dtype, d, k, path):
+    assert ops.path_of(dtype, d, k) == path
+    assert path in ops.PATHS
+
+
+def test_hopper_rows_are_limited_by_the_query_tile():
+    for n_q in (1, 2048):
+        assert ops.scan_plan(ops.HOPPER_D_MAX, 1, n_q) is not None
+        assert ops.scan_plan(ops.HOPPER_D_MAX, ops.K_MAX, n_q) is not None
+    assert ops.scan_plan(ops.HOPPER_D_MAX + 8, 1, 2048) is None
+    assert ops.HOPPER_D_MAX % 64 == 0 and ops.HOPPER_D_MAX >= 768
+
+
+def test_tma_ready_pads_rows_and_aligns_bases():
+    t = torch.randn(5, 20).bfloat16()
+    r = ops._tma_ready(t)
+    assert r.shape == (5, 24) and torch.equal(r[:, :20], t) and not r[:, 20:].any()
+    whole = torch.randn(5, 64).bfloat16()
+    if whole.data_ptr() % 16 == 0:
+        assert ops._tma_ready(whole) is whole
+    shifted = torch.randn(5 * 64 + 1).bfloat16()[1:].view(5, 64)   # 2 bytes off
+    assert shifted.data_ptr() % 16 != 0
+    copy = ops._tma_ready(shifted)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, shifted)
+
+
+def test_reset_launches_clears_every_path():
+    ops.fused_topk.launches = 3
+    ops.fused_topk.paths["hopper"] = 3
+    ops.reset_launches()
+    assert ops.fused_topk.launches == 0
+    assert ops.fused_topk.paths == dict.fromkeys(ops.PATHS, 0)

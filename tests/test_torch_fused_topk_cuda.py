@@ -1,5 +1,8 @@
-"""The hand-written CUDA fused_topk kernel against its plain version, on the
-card. Marked ``cuda``: without a GPU (and nvcc) every test here skips.
+"""The hand-written CUDA fused_topk kernels against their plain version, on
+the card: bf16 through the Hopper kernel (TMA ring, wgmma scores, selection
+from registers; ``ops.fused_topk.paths["hopper"]``), fp32 through the
+CUDA-core kernel. Marked ``cuda``: without a GPU (and nvcc) every test here
+skips.
 
 Run on a machine with the card:
 
@@ -34,12 +37,14 @@ def _rand(shape, dtype, dev, seed):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-def _check(q, p, k, col_valid=None, exact=False):
-    before = ops.fused_topk.launches
-    s, i = ops.fused_topk(q, p, k, col_valid=col_valid)
+def _check(q, p, k, col_valid=None, exact=False, inv_tau=1.0):
+    before, paths = ops.fused_topk.launches, dict(ops.fused_topk.paths)
+    s, i = ops.fused_topk(q, p, k, col_valid=col_valid, inv_tau=inv_tau)
     torch.cuda.synchronize()
     assert ops.fused_topk.launches == before + 1
-    rs, ri = topk_scores_ref(q, p, k + 1, col_valid=col_valid)
+    path = ops.path_of(torch.promote_types(q.dtype, p.dtype), q.shape[1], k)
+    assert ops.fused_topk.paths[path] == paths[path] + 1      # the path it reports took it
+    rs, ri = topk_scores_ref(q, p, k + 1, col_valid=col_valid, inv_tau=inv_tau)
     assert s.dtype == torch.float32 and i.dtype == torch.int32
     assert s.shape == i.shape == (q.shape[0], k)
     if exact:
@@ -201,3 +206,120 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         ops.fused_topk(q, p.T.contiguous().T, 5)
     with pytest.raises(TypeError):
         ops.fused_topk(q.half(), p, 5)
+
+
+# ---- the Hopper kernel (bf16) ----------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n,d,k", [
+    (1, 5121, 768, 100),      # one query; N one past a tile edge; the served width
+    (32, 5119, 768, 100),     # a served batch (spread query tile); N one short of a tile
+    (65, 3000, 768, 100),     # two query tiles, one row in the second; the ring wraps
+    (2047, 3000, 64, 100),    # eval-like ragged Q: 32 query tiles
+    (5, 300_000, 64, 100),    # many column splits merged by the select pass
+    (33, 1000, 20, 10),       # d = 20: rows copied with zero columns to 24
+    (70, 1000, 33, 128),      # d = 33: padded to 40; k at the fp32 path's shared limit
+    (9, 2000, 96, 1),
+    (40, 4000, 768, 256),     # k > 128 at the served width
+])
+def test_hopper_kernel_matches_plain(dev, n_q, n, d, k):
+    q = _rand((n_q, d), torch.bfloat16, dev, 30)
+    p = _rand((n, d), torch.bfloat16, dev, 31)
+    _check(q, p, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [32, 40, 70])
+def test_hopper_kernel_k1000_at_the_served_width_exact(dev, n_q):
+    """k = 1000 at d = 768 on small integers (exact sums): every slot must
+    equal the plain version's (random scores this dense leave too few slots
+    clear of the tolerance to compare ids)."""
+    q = _small_ints((n_q, 768), torch.bfloat16, dev, 45)
+    p = _small_ints((20_000, 768), torch.bfloat16, dev, 46)
+    _check(q, p, 1000, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [32, 100])
+def test_hopper_kernel_masked_columns(dev, n_q):
+    q = _rand((n_q, 768), torch.bfloat16, dev, 32)
+    p = _rand((5000, 768), torch.bfloat16, dev, 33)
+    g = torch.Generator(device=dev).manual_seed(34)
+    valid = torch.rand(5000, generator=g, device=dev) > 0.3
+    _check(q, p, 100, col_valid=valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [100, 128, 129, 1000, 1025])
+@pytest.mark.parametrize("n_q", [7, 40])
+def test_hopper_kernel_exact_ties(dev, k, n_q):
+    """Small integers: exact sums, so ties are real ties; every slot must
+    equal the plain version's (ties to the lowest id), across the pools'
+    cuts (the bar met exactly) and the select pass."""
+    g = torch.Generator(device=dev).manual_seed(35 + k)
+    base = torch.randint(-3, 4, (40, 32), generator=g, device=dev)
+    p = base[torch.randint(0, 40, (6000,), generator=g, device=dev)].to(torch.bfloat16)
+    q = torch.randint(-3, 4, (n_q, 32), generator=g, device=dev).to(torch.bfloat16)
+    _check(q, p, k, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inv_tau", [20.0, 0.05])
+def test_hopper_kernel_inv_tau(dev, inv_tau):
+    q = _rand((33, 768), torch.bfloat16, dev, 36)
+    p = _rand((4000, 768), torch.bfloat16, dev, 37)
+    _check(q, p, 100, inv_tau=inv_tau)
+    # a power of two scales small-integer scores exactly: ties stay ties
+    g = torch.Generator(device=dev).manual_seed(38)
+    qi = torch.randint(-3, 4, (20, 64), generator=g, device=dev).to(torch.bfloat16)
+    pi = torch.randint(-3, 4, (3000, 64), generator=g, device=dev).to(torch.bfloat16)
+    _check(qi, pi, 129, exact=True, inv_tau=0.5)
+
+
+@pytest.mark.cuda
+def test_hopper_kernel_unaligned_base_is_copied(dev):
+    flat = _rand((300 * 64 + 1,), torch.bfloat16, dev, 39)
+    p = flat[1:].view(300, 64)                        # 2 bytes off 16
+    assert p.data_ptr() % 16 != 0
+    _check(_rand((5, 64), torch.bfloat16, dev, 40), p, 20)
+
+
+@pytest.mark.cuda
+def test_wider_bf16_rows_are_widened_to_fp32(dev):
+    d = ops.HOPPER_D_MAX + 64
+    q = _rand((3, d), torch.bfloat16, dev, 41)
+    p = _rand((500, d), torch.bfloat16, dev, 42)
+    before = ops.fused_topk.paths["fp32_widened"]
+    _check(q, p, 10)
+    assert ops.fused_topk.paths["fp32_widened"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,k", [(32, 100), (2048, 100), (32, 1000), (2048, 20)])
+def test_served_width_takes_the_hopper_kernel(dev, n_q, k):
+    """The serve_topk, eval_topk and Top@k eval shapes (d = 768, bf16) take
+    the Hopper kernel, as ops reports its path."""
+    q = _rand((n_q, 768), torch.bfloat16, dev, 43)
+    p = _rand((3000, 768), torch.bfloat16, dev, 44)
+    ops.reset_launches()
+    ops.fused_topk(q, p, k)
+    assert ops.fused_topk.paths == {**dict.fromkeys(ops.PATHS, 0), "hopper": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 64, 768, 1024, ops.HOPPER_D_MAX])
+@pytest.mark.parametrize("n_q", [32, 2048])
+@pytest.mark.parametrize("k", [100, 256, 1000])
+def test_scan_smem_mirror_matches_the_kernel(dev, d, n_q, k):
+    spread, stages, stage_keys = ops.scan_plan(d, k, n_q)
+    lib = ops._library()
+    assert ops.scan_smem_bytes(d, spread, stages, stage_keys) == \
+        lib.fused_topk_scan_smem_bytes(d, int(spread), stages, stage_keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ops.BF16_KERNELS)
+def test_no_bf16_kernel_uses_local_memory(dev, name):
+    """The card reports 0 bytes of local memory (stack and spills) for each
+    bf16 kernel."""
+    assert ops.kernel_attributes(name)["local_bytes"] == 0

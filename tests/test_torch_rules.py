@@ -214,3 +214,62 @@ def test_port_dtype_literals_stay_in_precision():
 
     res = run_reprolint([str(PORT)], root=str(REPO), tests_dir=str(REPO / "tests"))
     assert res.ok, res.format()
+
+
+def test_an_edit_to_the_shared_header_rebuilds_both_kernels_that_include_it(monkeypatch,
+                                                                             tmp_path):
+    """library_path hashes kernels/include/ into each library's name: an
+    edited hopper.cuh gives flash_attention and fused_topk new libraries."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    include = tmp_path / "include"
+    shutil.copytree(_build.INCLUDE_DIR, include)
+    monkeypatch.setattr(_build, "INCLUDE_DIR", include)
+    names = ("flash_attention", "fused_topk")
+    before = {n: _build.library_path(n) for n in names}
+    header = include / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert all(before[n] != after[n] for n in names), (before, after)
+    assert _build.library_path("embedding_bag").name.startswith("libembedding_bag-")
+
+
+def test_the_hopper_primitives_have_one_home():
+    """hopper.cuh lives in kernels/include/ only: no kernel's csrc/ holds a
+    copy (by name, by content, or by defining namespace hopper), and both
+    Hopper kernels include it."""
+    from repro_torch.kernels import _build
+
+    header = _build.INCLUDE_DIR / "hopper.cuh"
+    text = header.read_text()
+    assert "namespace hopper {" in text and "tensor_map_bf16" in text
+    sources = sorted(p for p in (PORT / "kernels").glob("*/csrc/*") if p.is_file())
+    assert sources
+    for src in sources:
+        body = src.read_text()
+        assert src.name != header.name and body != text, src
+        assert "namespace hopper {" not in body and "EncodeTiled" not in body, src
+    for name in ("flash_attention", "fused_topk"):
+        assert '#include "hopper.cuh"' in _build._source(name).read_text(), name
+
+
+def test_build_passes_the_shared_include_directory(monkeypatch, tmp_path):
+    """nvcc gets -I kernels/include (a stand-in nvcc records its arguments)."""
+    from repro_torch.kernels import _build
+
+    args = tmp_path / "args"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f'#!/bin/sh\necho "$@" > {args}\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    ': > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    real_isfile = os.path.isfile
+    monkeypatch.setattr(os.path, "isfile", lambda p: False if str(p) == "/usr/local/cuda/bin/nvcc"
+                        else real_isfile(p))
+    _build.build(["flash_attention"])
+    words = args.read_text().split()
+    assert words[words.index("-I") + 1] == str(_build.INCLUDE_DIR)
