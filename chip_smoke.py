@@ -22,8 +22,13 @@ Phases, one JSON line each:
                shapes of a contaccum_bf16 chunk (M=8 local queries with
                some labels out of range, and M=2048 query-bank rows, against
                N=2064 columns of which the last 1000 are masked; d=768,
-               bf16), an fp32 case and a small ragged case; kernel, plain,
-               library and bound times, forward and backward apart; the
+               bf16), M=2048 again with every column valid, an fp32 case and
+               a small ragged case; kernel, plain, library and bound times,
+               forward and backward apart; dQ at M=8 and dP at both shapes
+               must take the Hopper kernels (ops.fused_infonce_dq.paths,
+               .dp.paths), and every fused_infonce kernel's registers and
+               local memory are held to ptxas's log (a bf16 one that
+               spills, or a Hopper one with local memory, fails the run); the
                flash_attention kernel at the BERT query and passage passes
                (B=8, S=32 and 256, H=12, D=64, bf16, ragged key masks, q, k
                and v the strided splits of one fused qkv tensor), a row with
@@ -61,7 +66,8 @@ Phases, one JSON line each:
                checkpointing to a temporary directory, for TRAIN_STEPS
                steps (the banks wrap). Checks: finite losses, full banks and
                2063 negatives at the end, launches of exactly 2, 1 and 2 x
-               16 x steps (forward, dQ, dP), one step on the dense backend
+               16 x steps (forward, dQ, dP), every dQ and dP launch on the
+               Hopper path, one step on the dense backend
                against the fused one from the same state and batch, a second
                Trainer resuming from the saved step, and a Top@k eval through
                the fused search kernel (every search through the Hopper
@@ -578,10 +584,13 @@ def phase_infonce_kernels(torch):
         return q, p, labels.to(torch.int32), valid, g_lse, g_pos
 
     def check(name, q, p, labels, valid, g_lse, g_pos, timed):
+        ops.reset_launches()
         lse, pos, amax = ops.fused_infonce_fwd(q, p, labels, valid)
         dq = ops.fused_infonce_dq(q, p, labels, valid, lse, g_lse, g_pos)
         dp = ops.fused_infonce_dp(q, p, labels, valid, lse, g_lse, g_pos)
         torch.cuda.synchronize()
+        paths = {"dq": next(k for k, v in ops.fused_infonce_dq.paths.items() if v),
+                 "dp": next(k for k, v in ops.fused_infonce_dp.paths.items() if v)}
         rl, rp, ra = ref.infonce_stats_ref(q, p, labels, valid)
         rdq, rdp = ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos)
         # the tolerance's scale: the largest |logit| of a valid column (a
@@ -602,7 +611,7 @@ def phase_infonce_kernels(torch):
                "stats_max_abs_err": stats_err, "stats_tolerance": stats_tol,
                "dq_max_abs_err": close_err(dq, rdq, grad_rtol, f"{name} dq"),
                "dp_max_abs_err": close_err(dp, rdp, grad_rtol, f"{name} dp"),
-               "grad_rtol_of_max": grad_rtol}
+               "grad_rtol_of_max": grad_rtol, "paths": paths}
         if not timed:
             return out
         m, n, dd = q.shape[0], p.shape[0], q.shape[1]
@@ -646,6 +655,21 @@ def phase_infonce_kernels(torch):
     labels_bank = local * (1 + CONTACCUM_BF16["n_hard"]) + torch.arange(bank, device=dev)
     result["bank_rows"] = check("M=2048", *case(bank, n_path, d, torch.bfloat16, N_BANK_MASKED,
                                                 labels_bank), timed=True)
+    # a passage tile whose columns are all masked is written as zeros without
+    # its products (16 of the 33 above): the train phase after its warm-up
+    # masks none
+    result["bank_rows_all_valid"] = check("M=2048 all valid", *case(
+        bank, n_path, d, torch.bfloat16, 0, labels_bank), timed=True)
+    for shape, kernels in (("local_rows", ("dq", "dp")), ("bank_rows", ("dp",)),
+                           ("bank_rows_all_valid", ("dp",))):
+        for kernel in kernels:
+            require(result[shape]["paths"][kernel] == "hopper",
+                    f"{shape} {kernel} took the {result[shape]['paths'][kernel]} path, not Hopper")
+    ranks, rows = ops.dp_plan(bank)
+    result["dp_plan"] = {"M": bank, "ranks": ranks, "rows_per_rank": rows,
+                         "blocks": ops.hopper_blocks("dp", bank, n_path),
+                         "max_active_clusters": ops.dp_max_clusters(ranks),
+                         "sm_count": torch.cuda.get_device_properties(dev).multi_processor_count}
     result["fp32"] = check("fp32", *case(64, 1000, d, torch.float32, 100,
                                          torch.randint(0, 900, (64,), generator=g, device=dev)),
                            timed=False)
@@ -732,6 +756,7 @@ def phase_train(torch, topk_ops):
         train_s = time.perf_counter() - t0
         launches = {"fwd": ops.fused_infonce_fwd.launches, "dq": ops.fused_infonce_dq.launches,
                     "dp": ops.fused_infonce_dp.launches}      # read just after the run
+        paths = {"dq": dict(ops.fused_infonce_dq.paths), "dp": dict(ops.fused_infonce_dp.paths)}
         peak_bytes = torch.cuda.max_memory_allocated()
         hist = report.history
         require(report.steps_run == TRAIN_STEPS and report.restarts == 0,
@@ -744,6 +769,9 @@ def phase_train(torch, topk_ops):
         require(last["n_negatives"] == n_neg, f"n_negatives {last['n_negatives']} != {n_neg}")
         want = {"fwd": 2 * k * TRAIN_STEPS, "dq": k * TRAIN_STEPS, "dp": 2 * k * TRAIN_STEPS}
         require(launches == want, f"fused_infonce launches {launches} != {want}")
+        for kernel in ("dq", "dp"):
+            require(paths[kernel]["hopper"] == launches[kernel],
+                    f"fused_infonce {kernel} took {paths[kernel]}, not all the Hopper kernels")
 
         # one step from the trained state and a fresh batch on both backends
         parity_batch = next_batch(TRAIN_STEPS)
@@ -799,7 +827,7 @@ def phase_train(torch, topk_ops):
         "first_grad_norm_ratio": hist[0]["grad_norm_ratio"],
         "last_grad_norm_ratio": last["grad_norm_ratio"],
         "bank_fill": [last["bank_fill_q"], last["bank_fill_p"]],
-        "n_negatives": last["n_negatives"], "launches": launches,
+        "n_negatives": last["n_negatives"], "launches": launches, "infonce_paths": paths,
         "dense_vs_fused": parity, "infonce_share": share,
         "resumed_from_step": report2.history[0]["step"] - 1,
         "eval": recalls, "eval_s": eval_s, "eval_fused_topk_launches": eval_launches,
@@ -918,6 +946,37 @@ def topk_instantiations(log: str):
                **{k: v for k, v in e.items() if k not in ("entry", "registers")}}
         require(not row["bf16"] or row["spill_store_bytes"] == row["spill_load_bytes"]
                 == row["local_bytes"] == 0, f"a bf16 fused_topk kernel spills: {row}")
+        out.append(row)
+    return out
+
+
+def infonce_instantiations(log: str):
+    """Every fused_infonce kernel (``ops.KERNELS``): its registers and local
+    memory as the card reports them (``ops.kernel_attributes``) beside
+    ptxas's report of it from the build log. Fails unless the log reports
+    every kernel with the card's register count, on a bf16 kernel that
+    spills, and on a Hopper kernel (``ops.HOPPER_KERNELS``, the train path's
+    dQ and dP) with any local memory."""
+    from repro_torch.kernels.fused_infonce import ops
+
+    types = {"13__nv_bfloat16": "<bf16>", "f": "<fp32>", "Lb1": "<dq>", "Lb0": "<dp>"}
+    ptxas = {}
+    for e in ptxas_report(log):
+        m = re.search(r"(infonce_[a-z_]+_kernel)(?:I(13__nv_bfloat16|f|Lb[01])E)?", e["entry"])
+        if m:
+            ptxas[m.group(1) + types.get(m.group(2), "")] = e
+    out = []
+    for name in ops.KERNELS:
+        attrs, e = ops.kernel_attributes(name), ptxas.get(name)
+        require(e is not None and e.get("registers") == attrs["registers"],
+                f"the build log has no ptxas report of {name} with the card's {attrs}: {e}")
+        row = {"name": name, "bf16": "fp32" not in name and name != "infonce_stats_merge_kernel",
+               "hopper": name in ops.HOPPER_KERNELS, **attrs,
+               **{k: v for k, v in e.items() if k not in ("entry", "registers")}}
+        require(not row["bf16"] or row["spill_store_bytes"] == row["spill_load_bytes"] == 0,
+                f"a bf16 fused_infonce kernel spills: {row}")
+        require(not row["hopper"] or row["local_bytes"] == row["stack_bytes"] == 0,
+                f"a Hopper fused_infonce kernel uses local memory: {row}")
         out.append(row)
     return out
 
@@ -1484,6 +1543,7 @@ def main(argv=None) -> int:
         print(f"[{name}] {text}", file=sys.stderr)
     flash_ptxas = flash_instantiations(torch, logs["flash_attention"])
     topk_ptxas = topk_instantiations(logs["fused_topk"])
+    infonce_ptxas = infonce_instantiations(logs["fused_infonce"])
     require(all(e["spill_store_bytes"] == e["spill_load_bytes"] == e["local_bytes"] == 0
                 for e in flash_ptxas if e["name"] != "flash_fwd_kernel_fp32"),
             f"a bf16 flash_attention kernel spills: {flash_ptxas}")
@@ -1504,7 +1564,8 @@ def main(argv=None) -> int:
     bag_launches = bag_ops.embedding_bag.launches
     emit({"phase": "kernels", "fused_topk": kernels, "fused_infonce": infonce,
           "flash_attention": flash_k, "flash_attention_ptxas": flash_ptxas,
-          "fused_topk_ptxas": topk_ptxas, "embedding_bag": bag,
+          "fused_topk_ptxas": topk_ptxas, "fused_infonce_ptxas": infonce_ptxas,
+          "embedding_bag": bag,
           "embedding_bag_launches": bag_launches, "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi})
 

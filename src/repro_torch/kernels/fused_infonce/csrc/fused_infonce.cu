@@ -3,18 +3,23 @@
 // matrix ever reaching device memory.
 //
 // Replaces the TPU kernels of src/repro/kernels/fused_infonce/fused_infonce.py:
-//   forward  _fwd_kernel -> infonce_fwd_kernel (+ infonce_stats_merge_kernel)
-//   dQ       _dq_kernel  -> infonce_dq_kernel  (+ infonce_grad_reduce_kernel)
-//   dP       _dp_kernel  -> infonce_dp_kernel  (+ infonce_grad_reduce_kernel)
-// Same contract. s = (q . p_n) * inv_tau, products accumulated in fp32; an
-// invalid column (col_valid[n] == 0) has s = -1e30 (finite, never -inf), so
-// a fully masked row gets lse ~ -1e30 and no NaN. Per row: lse over the
-// columns, pos = s at labels[i] (0 when the label is outside [0, N), -1e30
-// when it points at a masked column), amax = the running max. Backward:
-// coeff = exp(s - lse) * g_lse + onehot(label) * g_pos, zero on masked
-// columns, times inv_tau, rounded to the operand type BEFORE its product (as
-// the TPU kernel's coeff.astype(p.dtype)); dQ = coeff . P and dP = coeff^T . Q
-// accumulate in fp32 and are cast to the operand type at the end.
+//   forward  _fwd_kernel (:54) -> infonce_fwd_kernel (+ infonce_stats_merge_kernel)
+//   dQ       _dq_kernel (:205) -> bf16: hp::infonce_small_kernel<true> (+
+//                                 infonce_grad_reduce_kernel); else infonce_dq_kernel
+//   dP       _dp_kernel (:229) -> bf16: hp::infonce_small_kernel<false> at up to 16
+//                                 query rows, hp::infonce_dp_cluster_kernel above;
+//                                 else infonce_dp_kernel (+ infonce_grad_reduce_kernel)
+// ops.py picks the kernel of each call (ops.path_of). Same contract. s = (q .
+// p_n) * inv_tau, products accumulated in fp32; an invalid column
+// (col_valid[n] == 0) has s = -1e30 (finite, never -inf), so a fully masked
+// row gets lse ~ -1e30 and no NaN. Per row: lse over the columns, pos = s
+// at labels[i] (0 when the label is outside [0, N), -1e30 when it points at
+// a masked column), amax = the running max. Backward: coeff = exp(s - lse) *
+// g_lse + onehot(label) * g_pos, zero on masked columns, times inv_tau,
+// rounded to the operand type BEFORE its product (as the TPU kernel's
+// coeff.astype(p.dtype)); dQ = coeff . P and dP = coeff^T . Q accumulate in
+// fp32 and are cast to the operand type at the end. No float atomics and a
+// fixed summation order: two calls on the same inputs give the same bits.
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s HBM), bf16, d=768,
 // at the shapes of a contaccum_bf16 chunk (N = 8 + 8 + 2048 = 2064 columns):
@@ -22,29 +27,53 @@
 //                           the bytes of P (3.2 MB); the products are tiny.
 //   query-bank rows, M=2048: fwd 2*M*N*d = 6.5 GFLOP ~6.6 us and dP
 //                           4*M*N*d = 13 GFLOP ~13 us, set by the tensor cores.
-// At M=8 a single row tile would give one block on 132 SMs, so the long axis
-// is split: (row tile x column split) blocks for fwd and dQ, (column tile x
-// row split) blocks for dP, each walking up to SPLIT_TILES tiles inside the
-// block (the Pallas kernels carry their sums along a sequential grid axis;
-// blocks here run in parallel and carry nothing). A second pass merges the
-// splits: the forward's (max, sum-exp) pairs by the online-softmax combine,
-// the gradients by an fp32 sum of per-split partials held in scratch that
-// the wrapper allocates. No atomics, so results are deterministic. With one
-// split a block writes its result directly and the second pass is skipped.
 //
-// Each block computes 64 x 64 score tiles on the tensor cores (wmma bf16
-// 16x16x16, fp32 accumulate), looping over d in chunks of 64; fp32 inputs
-// take a CUDA-core FMA loop so they are not rounded to TF32. The backward
-// kernels first compute the block's whole coefficient strip (64 x up to 512)
-// into shared memory in the operand type, then take the product with the
-// other operand one d-chunk at a time, so the fp32 accumulator is only
-// 64 x 64 and never leaves registers until it is written out. What it does
-// not do yet: wgmma, TMA or a multi-stage pipeline; loads are synchronous.
+// bf16 dQ and dP (namespace hp): TMA, wgmma, coefficients from registers.
+//  - M <= 16 (dQ and dP of the local queries): one block of one warpgroup
+//    per 64 passages. Thread 0 puts the block's whole P tile and the
+//    queries in flight by TMA, a barrier per d-chunk; S^T = P Q^T runs as
+//    wgmma m64n16 with the queries as N (rows past M are TMA's zeros). The
+//    coefficients are computed in registers. dP: they are the register A
+//    operand of one k-step per d-chunk (dP tile = C^T Q, Q the MN-major B);
+//    the tile is staged in bf16 where P was and written in 16-byte stores.
+//    dQ: C^T goes to shared memory as a K-major B, dQ^T = P^T C^T (P the
+//    MN-major A), one fp32 partial per block, summed in block order by
+//    infonce_grad_reduce_kernel. P is read once; no row is padding except
+//    wgmma's N of 16 for 8 queries. What bounds it: launch and TMA latency
+//    (33 blocks), not bytes.
+//  - M > 16 (dP of the query-bank rows): infonce_dp_cluster_kernel, clusters
+//    of `ranks` blocks on one tile of 64 passages (ops.dp_plan: 3 ranks of
+//    768 rows at M = 2048, 99 blocks, one wave). A producer warp feeds two
+//    consumer warpgroups through an mbarrier ring. Pass 1: each rank's
+//    query rows in tiles of 256, S^T by wgmma m64n128 (the passages as its
+//    64 rows), coefficients in registers, rounded to bf16 and stored in the
+//    rank's strip as the register A operand of the next product. Cluster
+//    barrier. Pass 2: each rank takes a third of d (2 d-chunks per
+//    warpgroup) and accumulates dP += C^T Q over every query row, reading
+//    the other ranks' coefficients through distributed shared memory (one
+//    k-tile ahead); bf16 out, one launch, no fp32 partial in device memory.
+//    What bounds it: each block's stream of Q and P tiles through a ring of
+//    about 100 KB (the strip takes the rest of shared memory); the tensor
+//    cores run at about a quarter of their peak.
+//  - A block whose passages are all masked writes zeros and computes nothing.
+//
+// The forward, the fp32 kernels and the bf16 shapes the Hopper kernels do
+// not take (d not a multiple of 8 or above 1024, dQ above 16 rows, dP above
+// 6144 rows) keep the first design: 64 x 64 score tiles on wmma bf16 16x16x16
+// (fp32 inputs: a CUDA-core FMA loop, no TF32), looping over d in chunks of
+// 64 with synchronous loads; the backward kernels first compute the block's
+// coefficient strip (64 x up to 512) into shared memory, then take the
+// product one d-chunk at a time. At M=8 the long axis is split: (row tile x
+// column split) blocks for fwd and dQ, (column tile x row split) blocks for
+// dP, each walking up to SPLIT_TILES tiles; a second pass merges the
+// splits: the forward's (max, sum-exp) pairs by the online-softmax combine,
+// the gradients by an fp32 sum of per-split partials, in split order.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, each
 // launch returns cudaGetLastError(). Nothing is allocated or synchronised
 // here; ops.py allocates outputs and scratch with torch.empty.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,6 +81,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -691,6 +722,603 @@ cudaError_t grad(const void* q, const void* p, const void* labels,
   return cudaGetLastError();
 }
 
+// ============================================================================
+// bf16 dQ and dP on Hopper: TMA, wgmma, coefficients from registers
+// ============================================================================
+namespace hp {
+
+using namespace hopper;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int PB = 64;            // passages a block: wgmma's 64-row side
+constexpr int BOX = 64 * 128;     // a 64 x 64 bf16 box, 128-byte swizzled (8 KB)
+constexpr int NC_MAX = 16;        // d-chunks of 64: d up to 1024
+
+// ---- dP at many query rows: a cluster of `ranks` blocks on one tile of
+// 64 passages, rank r holding the coefficients of query rows r * rq ..
+constexpr int TQ = 256;           // pass-1 query tile: two consumer warpgroups x 128
+constexpr int RQ_MAX = 768;       // most query rows a rank holds coefficients for
+constexpr int RANKS_MAX = 8;      // the portable cluster size
+constexpr int KT = 64;            // pass-2 k-tile (query rows)
+constexpr int NCH = 4;            // most d-chunks one pass-2 group takes: 2 a warpgroup
+constexpr int S1 = 3, S2 = 3;     // ring stages of pass 1 and pass 2
+constexpr int STAGE1 = BOX + TQ * 128;   // a P chunk, then the Q tile's chunk (40 KB)
+constexpr int STAGE2 = NCH * BOX;        // a Q k-tile: NCH chunks (32 KB)
+constexpr int U1 = S1 * STAGE1, U2 = S2 * STAGE2;
+constexpr int OFF_STRIP = U1 > U2 ? U1 : U2;            // pass 2 reuses pass 1's ring
+constexpr int STRIP = RQ_MAX / 16 * 128 * 16;           // A fragments, 16 bytes a thread a k-step
+constexpr int QV = 128 * 16;                            // a warpgroup's 128 queries: L, G, H, label
+constexpr int OFF_QV = OFF_STRIP + STRIP;
+constexpr int OFF_BAR = OFF_QV + 2 * QV;
+constexpr int N_BARS = 2 * S1 + 2 * S2;
+constexpr int SMEM_CLUSTER = OFF_BAR + 8 * N_BARS + 1024;   // + slack to align the base
+constexpr int CLUSTER_THREADS = 2 * 128 + 32;           // two consumer warpgroups, a producer warp
+static_assert(STAGE1 % 1024 == 0 && STAGE2 % 1024 == 0 && OFF_STRIP % 1024 == 0,
+              "1 KB aligned tiles");
+static_assert(SMEM_CLUSTER <= 232448, "shared memory over the 227 KB a block may use");
+
+// ---- dQ and dP at up to SQ query rows: one block per 64 passages
+constexpr int SQ = 16;            // query rows, wgmma's N (rows past M are TMA's zeros)
+constexpr int QBOX = SQ * 128;    // a 16 x 64 bf16 box (2 KB)
+__host__ __device__ constexpr int small_off_c(int nc) { return nc * (BOX + QBOX); }
+__host__ __device__ constexpr int small_off_qv(int nc) { return small_off_c(nc) + SQ * 128; }
+__host__ __device__ constexpr int small_off_bar(int nc) { return small_off_qv(nc) + 4 * SQ * 4; }
+__host__ __device__ constexpr int small_smem(int nc) { return small_off_bar(nc) + 8 * nc + 1024; }
+static_assert(small_smem(NC_MAX) <= 232448, "shared memory over the 227 KB a block may use");
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// The coefficient of one raw score (see the file's header): 2^(raw k1 - L)
+// G + [label] H with k1 = inv_tau log2(e), L = lse log2(e), G = g_lse
+// inv_tau, H = g_pos inv_tau; 0 where the passage is not valid (a select,
+// so the exponential of a masked column's score never enters).
+__device__ __forceinline__ float coef(float raw, float k1, float L, float G, float H, bool is_label,
+                                      bool valid) {
+  const float c = fmaf(ex2(fmaf(raw, k1, -L)), G, is_label ? H : 0.f);
+  return valid ? c : 0.f;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ bool passage_valid(const uint8_t* col_valid, int n, int N) {
+  return n < N && (col_valid == nullptr || col_valid[n] != 0);
+}
+
+// Per query row m0 + i, i < count: L, G, H and the label at qv[i],
+// qv[count + i], qv[2 count + i], qv[3 count + i]; zeros and -1 past M.
+// Thread `t` of `threads` loads rows t, t + threads, ...
+__device__ __forceinline__ void load_query_values(float* qv, int count, int m0, int M,
+                                                  const int* labels, const float* lse,
+                                                  const float* g_lse, const float* g_pos,
+                                                  float inv_tau, int t, int threads) {
+  const int stride = count;
+  int* lab = reinterpret_cast<int*>(qv + 3 * stride);
+  for (int i = t; i < count; i += threads) {
+    const int m = m0 + i;
+    const bool in = m < M;
+    qv[i] = in ? lse[m] * LOG2E : 0.f;
+    qv[stride + i] = in ? g_lse[m] * inv_tau : 0.f;
+    qv[2 * stride + i] = in ? g_pos[m] * inv_tau : 0.f;
+    lab[i] = in ? labels[m] : -1;
+  }
+}
+
+// dP rows n0.. (up to 64, below N), columns [c0, c1) of d, set to 0: the
+// coefficient of a wholly masked passage tile is 0 everywhere.
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* out, int n0, int N, int d, int c0, int c1,
+                                          int threads) {
+  const int groups = (c1 - c0) / 8;   // d is a multiple of 8
+  for (int x = threadIdx.x; x < PB * groups; x += threads) {
+    const int r = x / groups, c = c0 + (x % groups) * 8;
+    if (n0 + r < N)
+      *reinterpret_cast<uint4*>(out + size_t(n0 + r) * d + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dP, many query rows. Grid: (passage tiles x ranks) blocks, clusters of
+// `ranks` along x. Pass 1: rank r streams its query rows [r rq, (r+1) rq) in
+// tiles of 256 with the tile's P chunks through a ring (S1 stages: a 64 x 64
+// P chunk and a 256 x 64 Q chunk); each consumer warpgroup computes S^T =
+// P Q^T for 128 of the tile's queries (wgmma m64n128, 64 passages as its
+// rows), turns the accumulator into coefficients in registers, rounds them
+// to bf16 as the register A operand of the next product and stores them in
+// its rank's strip in that order. Cluster barrier. Pass 2: rank r takes
+// d-chunks [r nc / ranks, (r+1) nc / ranks), up to NCH at a time, two to a
+// warpgroup; the ring (reusing pass 1's bytes) streams every 64-row Q k-tile
+// of those chunks, each warpgroup reads the k-tile's A fragments from the
+// strip of the rank that holds them (distributed shared memory) and
+// accumulates dP tile += C^T Q over every query row in order (wgmma m64n128
+// or m64n64, Q the MN-major B), then writes its columns in bf16. No fp32
+// partial leaves the registers and no second launch follows.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+infonce_dp_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
+                          const uint8_t* __restrict__ col_valid, const float* __restrict__ lse,
+                          const float* __restrict__ g_lse, const float* __restrict__ g_pos,
+                          __nv_bfloat16* __restrict__ dp, int M, int N, int d, int rq, float k1,
+                          float inv_tau) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int ranks = int(cluster_nctarank());
+  const int rank = int(cluster_ctarank());
+  const int n0 = (blockIdx.x / ranks) * PB;
+  const int nc = (d + 63) / 64;
+  const int q_begin = rank * rq, q_end = min(M, q_begin + rq);
+  const int t1 = (q_end - q_begin + TQ - 1) / TQ;   // pass-1 tiles
+  const int kt = (M + KT - 1) / KT;                 // pass-2 k-tiles: every query row
+  const int c_lo = rank * nc / ranks, c_hi = (rank + 1) * nc / ranks;
+  const int groups = (c_hi - c_lo + NCH - 1) / NCH;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // a wholly masked passage tile: its dP rows are 0 (every rank of the
+  // cluster sees the same tile and leaves here, before any cluster barrier)
+  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {
+    zero_rows(dp, n0, N, d, 64 * c_lo, min(d, 64 * c_hi), CLUSTER_THREADS);
+    return;
+  }
+
+  const uint32_t bar = base + OFF_BAR;
+  auto full1 = [&](int s) { return bar + 8u * s; };
+  auto empty1 = [&](int s) { return bar + 8u * (S1 + s); };
+  auto full2 = [&](int s) { return bar + 8u * (2 * S1 + s); };
+  auto empty2 = [&](int s) { return bar + 8u * (2 * S1 + S2 + s); };
+  if (tid == 0) {
+    for (int s = 0; s < S1; ++s) {
+      mbar_init(full1(s), 1);
+      mbar_init(empty1(s), 8);   // one arrival a consumer warp: both warpgroups read a stage
+    }
+    for (int s = 0; s < S2; ++s) {
+      mbar_init(full2(s), 1);
+      mbar_init(empty2(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // ---- producer warp: lane 0 issues every load
+    cluster_arrive_relaxed();   // phase 1 (strips written): the producer writes none
+    if (lane == 0) {
+      prefetch_tensormap(&tq);
+      prefetch_tensormap(&tp);
+      int it = 0;
+      for (int t = 0; t < t1; ++t)
+        for (int c = 0; c < nc; ++c, ++it) {
+          const int s = it % S1;
+          mbar_wait(empty1(s), ((it / S1) & 1) ^ 1);   // the first round passes at once
+          mbar_expect_tx(full1(s), STAGE1);
+          const uint32_t st = base + s * STAGE1;
+          tma_load_2d(&tp, st, full1(s), 64 * c, n0);
+#pragma unroll
+          for (int h = 0; h < TQ / 64; ++h)
+            tma_load_2d(&tq, st + BOX + h * BOX, full1(s), 64 * c, q_begin + TQ * t + 64 * h);
+        }
+      // pass 2 writes over the ring: every pass-1 stage released first
+      for (int s = 0; s < S1 && s < it; ++s)
+        mbar_wait(empty1(s), ((it - s + S1 - 1) / S1 - 1) & 1);
+      int it2 = 0;
+      for (int gi = 0; gi < groups; ++gi) {
+        const int c0 = c_lo + gi * NCH, cnt = min(NCH, c_hi - c0);
+        for (int j = 0; j < kt; ++j, ++it2) {
+          const int s = it2 % S2;
+          mbar_wait(empty2(s), ((it2 / S2) & 1) ^ 1);
+          mbar_expect_tx(full2(s), cnt * BOX);
+          for (int c = 0; c < cnt; ++c)
+            tma_load_2d(&tq, base + s * STAGE2 + c * BOX, full2(s), 64 * (c0 + c), KT * j);
+        }
+      }
+    }
+    __syncwarp();
+    cluster_wait();
+    cluster_arrive_relaxed();   // phase 2 (strips no longer read)
+    cluster_wait();
+    return;
+  }
+
+  // ---- consumer warpgroup wg; warp v holds passages 16 v + g and + 8
+  const int wg = warp / 4, v = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int pa = n0 + 16 * v + g, pb = pa + 8;
+  const bool va = passage_valid(col_valid, pa, N), vb = passage_valid(col_valid, pb, N);
+  const uint32_t strip = base + OFF_STRIP;
+  auto release = [&](uint32_t b) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(b);
+  };
+  auto wg_sync = [&]() {
+    if (wg == 0)   // barrier 0 is __syncthreads; one id a consumer warpgroup
+      named_bar_sync<1, 128>();
+    else
+      named_bar_sync<2, 128>();
+  };
+
+  float acc[64];
+  {
+    float* qv = reinterpret_cast<float*>(smem + OFF_QV + wg * QV);
+    const int* qlab = reinterpret_cast<const int*>(qv + 3 * 128);
+    int it = 0;
+    for (int t = 0; t < t1; ++t) {
+      const int ql0 = t * TQ + wg * 128;   // local query row of accumulator column 0
+      wg_sync();                           // the last tile's values are read
+      load_query_values(qv, 128, q_begin + ql0, min(M, q_end), labels, lse, g_lse, g_pos,
+                        inv_tau, tid % 128, 128);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int c = 0; c < nc; ++c, ++it) {
+        const int s = it % S1;
+        const uint32_t st = base + s * STAGE1;
+        mbar_wait(full1(s), (it / S1) & 1);
+        fence_regs<64>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n128(acc, desc_sw128(st + kk * 32, 16, 1024),
+                        desc_sw128(st + BOX + wg * 128 * 128 + kk * 32, 16, 1024), (c | kk) != 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<64>(acc);
+        release(empty1(s));
+      }
+      wg_sync();   // this tile's values are written
+      // register 4i + e: passage pa (e < 2) or pb, query ql0 + 8i + 2 t4 + e % 2
+      uint32_t pk[32];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int x = 8 * i + 2 * t4;
+        const float2 L = *reinterpret_cast<const float2*>(qv + x);
+        const float2 G = *reinterpret_cast<const float2*>(qv + 128 + x);
+        const float2 H = *reinterpret_cast<const float2*>(qv + 256 + x);
+        const int2 lab = *reinterpret_cast<const int2*>(qlab + x);
+        pk[2 * i] = pack_bf16(coef(acc[4 * i], k1, L.x, G.x, H.x, lab.x == pa, va),
+                              coef(acc[4 * i + 1], k1, L.y, G.y, H.y, lab.y == pa, va));
+        pk[2 * i + 1] = pack_bf16(coef(acc[4 * i + 2], k1, L.x, G.x, H.x, lab.x == pb, vb),
+                                  coef(acc[4 * i + 3], k1, L.y, G.y, H.y, lab.y == pb, vb));
+      }
+      // k-step kk of this warpgroup's 128 queries: pk[4 kk .. 4 kk + 3]
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int ks = ql0 / 16 + kk;
+        *reinterpret_cast<uint4*>(smem + OFF_STRIP + ((ks * 4 + v) * 32 + lane) * 16) =
+            make_uint4(pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2], pk[4 * kk + 3]);
+      }
+    }
+  }
+  cluster_arrive();   // phase 1: this rank's strip is written
+  cluster_wait();     // and every rank's
+
+  int it2 = 0;
+  for (int gi = 0; gi < groups; ++gi) {
+    const int c0 = c_lo + gi * NCH, cnt = min(NCH, c_hi - c0);
+    const int mine = max(0, min(2, cnt - 2 * wg));   // this warpgroup's chunks: c0 + 2 wg ..
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    // k-tile j's A fragments, from the rank that holds its coefficients;
+    // the next k-tile's are in flight while this one multiplies
+    auto load_frags = [&](uint32_t* dst, int j) {
+      const int owner = KT * j / rq;
+      const int ks0 = (KT * j - owner * rq) / 16;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 f = ld_cluster_v4(strip + (((ks0 + kk) * 4 + v) * 32 + lane) * 16, owner);
+        dst[4 * kk] = f.x;
+        dst[4 * kk + 1] = f.y;
+        dst[4 * kk + 2] = f.z;
+        dst[4 * kk + 3] = f.w;
+      }
+    };
+    uint32_t a[16], next[16];
+    if (mine > 0) load_frags(a, 0);
+    for (int j = 0; j < kt; ++j, ++it2) {
+      const int s = it2 % S2;
+      const uint32_t b = base + s * STAGE2 + 2 * wg * BOX;   // this warpgroup's chunks
+      if (mine > 0 && j + 1 < kt) load_frags(next, j + 1);
+      mbar_wait(full2(s), (it2 / S2) & 1);
+      if (mine > 0) {
+        fence_regs<64>(acc);
+        fence_regs<16>(a);
+        wgmma_fence();
+        // Always both chunks (with one, the second half reads a stale slot
+        // of the stage and is not stored): no branch may merge between a
+        // wgmma and its wait, or the compiler may copy the accumulator
+        // before the product lands in it.
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_n128(acc, &a[4 * kk], desc_sw128(b + kk * 2048, BOX, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<64>(acc);
+        fence_regs<16>(a);
+      }
+      release(empty2(s));
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i] = next[i];
+    }
+    if (gi == groups - 1) cluster_arrive();   // phase 2: no more reads of the strips
+
+    // register 4i + e: passage 16 v + g + 8 (e / 2), column 64 (c0 + 2 wg)
+    // + 8 i + 2 t4 + e % 2
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (i >= 8 * mine) continue;
+      const int col = 64 * (c0 + 2 * wg) + 8 * i + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = pa + 8 * h;
+        if (n < N && col < d)
+          *reinterpret_cast<uint32_t*>(dp + size_t(n) * d + col) =
+              pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      }
+    }
+  }
+  if (groups == 0) cluster_arrive();
+  cluster_wait();   // no rank leaves while another may read its strip
+}
+
+// ---------------------------------------------------------------------------
+// dQ and dP at up to SQ query rows: one block (one warpgroup) per 64
+// passages. Thread 0 loads the whole P tile and the queries by TMA, every
+// d-chunk on its own barrier, so the score product starts on the first
+// chunk while the rest land. S^T = P Q^T (wgmma m64n16, the queries as N;
+// rows past M are TMA's zeros), coefficients in registers, then
+//   dP: the coefficients are the register A operand of one k-step a
+//       d-chunk: dP tile = C^T Q (Q the MN-major B), staged in bf16 where
+//       the P tile was and written out in 16-byte stores;
+//   dQ: C^T goes to shared memory as a K-major B and dQ^T (64 d x 16) =
+//       P^T C^T (P the MN-major A), written as this block's fp32 partial;
+//       the reduce kernel sums the partials in block order.
+// ---------------------------------------------------------------------------
+template <bool DQ>
+__global__ void __launch_bounds__(128, 1)
+infonce_small_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
+                     const uint8_t* __restrict__ col_valid, const float* __restrict__ lse,
+                     const float* __restrict__ g_lse, const float* __restrict__ g_pos,
+                     void* __restrict__ out, int M, int N, int d, float k1, float inv_tau) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int n0 = blockIdx.x * PB;
+  const int nc = (d + 63) / 64;
+  const int tid = threadIdx.x, v = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  float* part = DQ ? static_cast<float*>(out) + size_t(blockIdx.x) * M * d : nullptr;
+  __nv_bfloat16* dp = DQ ? nullptr : static_cast<__nv_bfloat16*>(out);
+
+  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {   // a wholly masked tile: its products are 0
+    if (DQ) {
+      for (int x = tid; x < M * d; x += 128) part[x] = 0.f;
+    } else {
+      zero_rows(dp, n0, N, d, 0, d, 128);
+    }
+    return;
+  }
+
+  float* qv = reinterpret_cast<float*>(smem + small_off_qv(nc));
+  const int* qlab = reinterpret_cast<const int*>(qv + 3 * SQ);
+  load_query_values(qv, SQ, 0, M, labels, lse, g_lse, g_pos, inv_tau, tid, 128);
+  const uint32_t bar = base + small_off_bar(nc);
+  const uint32_t p_s = base, q_s = base + nc * BOX;
+  if (tid == 0) {
+    for (int c = 0; c < nc; ++c) mbar_init(bar + 8u * c, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    prefetch_tensormap(&tq);
+    prefetch_tensormap(&tp);
+    for (int c = 0; c < nc; ++c) {
+      mbar_expect_tx(bar + 8u * c, BOX + QBOX);
+      tma_load_2d(&tp, p_s + c * BOX, bar + 8u * c, 64 * c, n0);
+      tma_load_2d(&tq, q_s + c * QBOX, bar + 8u * c, 64 * c, 0);
+    }
+  }
+
+  // S^T: register 4i + e is passage 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    mbar_wait(bar + 8u * c, 0);
+    fence_regs<8>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n16<0>(acc, desc_sw128(p_s + c * BOX + kk * 32, 16, 1024),
+                      desc_sw128(q_s + c * QBOX + kk * 32, 16, 1024), (c | kk) != 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs<8>(acc);
+
+  const int pl = 16 * v + g;   // this thread's passages: n0 + pl and + 8
+  const bool va = passage_valid(col_valid, n0 + pl, N);
+  const bool vb = passage_valid(col_valid, n0 + pl + 8, N);
+  float cf[8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = 8 * i + 2 * t4 + (e & 1), p = n0 + pl + 8 * (e >> 1);
+      cf[4 * i + e] = coef(acc[4 * i + e], k1, qv[q], qv[SQ + q], qv[2 * SQ + q], qlab[q] == p,
+                           (e >> 1) ? vb : va);
+    }
+
+  if constexpr (!DQ) {
+    // the coefficients as the A operand of one k-step (16 queries)
+    uint32_t a[4] = {pack_bf16(cf[0], cf[1]), pack_bf16(cf[2], cf[3]), pack_bf16(cf[4], cf[5]),
+                     pack_bf16(cf[6], cf[7])};
+    __syncthreads();   // every warp's score products have read the P tile: it stages dP now
+    for (int c0 = 0; c0 < nc; c0 += 2) {
+      float o[2][32];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
+      fence_regs<32>(o[0]);
+      fence_regs<32>(o[1]);
+      fence_regs<4>(a);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)   // past the last chunk: the last again, not stored
+        wgmma_rs_n64(o[h], a, desc_sw128(q_s + min(c0 + h, nc - 1) * QBOX, QBOX, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(o[0]);
+      fence_regs<32>(o[1]);
+      fence_regs<4>(a);
+      // chunk c of the tile into P chunk c's bytes, in the same 128-byte
+      // swizzle (16-byte group i of row r at i ^ (r % 8): no bank conflicts)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (c0 + h >= nc) continue;
+        uint8_t* tile = smem + (c0 + h) * BOX;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = pl + 8 * e;
+            *reinterpret_cast<uint32_t*>(tile + r * 128 + ((i ^ (r & 7)) << 4) + t4 * 4) =
+                pack_bf16(o[h][4 * i + 2 * e], o[h][4 * i + 2 * e + 1]);
+          }
+      }
+    }
+    __syncthreads();
+    // the tile's rows in 16-byte stores, consecutive threads on consecutive bytes
+    const int groups = d / 8;
+    for (int x = tid; x < PB * groups; x += 128) {
+      const int r = x / groups, k = x % groups;
+      if (n0 + r < N)
+        *reinterpret_cast<uint4*>(dp + size_t(n0 + r) * d + 8 * k) = *reinterpret_cast<const uint4*>(
+            smem + (k / 8) * BOX + r * 128 + (((k % 8) ^ (r & 7)) << 4));
+    }
+  } else {
+    // C^T as a K-major B: row q (128 bytes: 64 passages), 128-byte swizzled
+    uint8_t* cs = smem + small_off_c(nc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = 8 * i + 2 * t4 + (e & 1), p = pl + 8 * (e >> 1);
+        const int at = q * 128 + (((p >> 3) ^ (q & 7)) << 4) + (p & 7) * 2;
+        *reinterpret_cast<__nv_bfloat16*>(cs + at) = __float2bfloat16(cf[4 * i + e]);
+      }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t c_s = base + small_off_c(nc);
+    // dQ^T chunk: register 4i + e is d-row 64 c + 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2
+    for (int c0 = 0; c0 < nc; c0 += 4) {
+      float o[4][8];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[h][i] = 0.f;
+        fence_regs<8>(o[h]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 4; ++h)   // past the last chunk: the last again, not stored
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n16<1>(o[h], desc_sw128(p_s + min(c0 + h, nc - 1) * BOX + kk * 2048, BOX, 1024),
+                          desc_sw128(c_s + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        fence_regs<8>(o[h]);
+        if (c0 + h >= nc) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 64 * (c0 + h) + pl + 8 * (e >> 1), q = 8 * i + 2 * t4 + (e & 1);
+            if (q < M && col < d) part[size_t(q) * d + col] = o[h][4 * i + e];
+          }
+      }
+    }
+  }
+}
+
+// Rank-2 bf16 tensor map over a row-major (rows, cols) matrix, boxes of
+// 64 columns x box_rows (hopper.cuh: 128-byte swizzled, zero past each edge)
+cudaError_t map2d(CUtensorMap* map, const void* ptr, int cols, int rows, int box_rows) {
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * 2};
+  const cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
+  return tensor_map_bf16<2>(map, ptr, dims, strides, box);
+}
+
+struct ClusterTag {};
+template <bool DQ> struct SmallTag {};
+
+cudaLaunchConfig_t cluster_config(int col_tiles, int ranks, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(col_tiles * ranks));
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = SMEM_CLUSTER;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(ranks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t dp_cluster(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
+                   const float* lse, const float* g_lse, const float* g_pos, void* out, int M, int N,
+                   int d, int ranks, int rq, float inv_tau, cudaStream_t st) {
+  if (ranks < 1 || ranks > RANKS_MAX || rq % TQ || rq > RQ_MAX || ranks * rq < M ||
+      (ranks - 1) * rq >= M || d > 64 * NC_MAX)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tp;
+  cudaError_t err;
+  if ((err = map2d(&tq, q, d, M, KT)) != cudaSuccess ||
+      (err = map2d(&tp, p, d, N, PB)) != cudaSuccess)
+    return err;
+  if ((err = allow_smem_once<ClusterTag>(reinterpret_cast<const void*>(infonce_dp_cluster_kernel),
+                                         SMEM_CLUSTER)) != cudaSuccess)
+    return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config((N + PB - 1) / PB, ranks, st, attr);
+  err = cudaLaunchKernelEx(&cfg, infonce_dp_cluster_kernel, tq, tp, labels, col_valid, lse, g_lse,
+                           g_pos, static_cast<__nv_bfloat16*>(out), M, N, d, rq, inv_tau * LOG2E,
+                           inv_tau);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool DQ>
+cudaError_t small(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
+                  const float* lse, const float* g_lse, const float* g_pos, void* out, int M,
+                  int N, int d, float inv_tau, cudaStream_t st) {
+  if (M > SQ || d > 64 * NC_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tq, tp;
+  cudaError_t err;
+  if ((err = map2d(&tq, q, d, M, SQ)) != cudaSuccess ||
+      (err = map2d(&tp, p, d, N, PB)) != cudaSuccess)
+    return err;
+  const auto kernel = infonce_small_kernel<DQ>;
+  if ((err = allow_smem_once<SmallTag<DQ>>(reinterpret_cast<const void*>(kernel),
+                                           small_smem(NC_MAX))) != cudaSuccess)
+    return err;
+  const int smem = small_smem((d + 63) / 64);
+  infonce_small_kernel<DQ><<<(N + PB - 1) / PB, 128, smem, st>>>(
+      tq, tp, labels, col_valid, lse, g_lse, g_pos, out, M, N, d, inv_tau * LOG2E, inv_tau);
+  return cudaGetLastError();
+}
+
+}  // namespace hp
+
 }  // namespace
 
 extern "C" {
@@ -755,6 +1383,89 @@ int fused_infonce_dp_launch(const void* q, const void* p, const void* labels,
                              partial, M, N, d, splits, tiles_per_split, inv_tau,
                              vec, st);
   return int(cudaErrorInvalidValue);
+}
+
+// The Hopper kernels, bf16 only (q and p row-major, 16-byte aligned bases, d
+// a multiple of 8 up to 1024). dP: M up to 16 takes the small kernel
+// (ranks and rq unused), else infonce_dp_cluster_kernel in clusters of
+// `ranks` blocks,
+// rank r holding the coefficients of query rows [r rq, (r + 1) rq) (rq a
+// multiple of TQ (256), at most RQ_MAX (768), ranks at most 8; ops.dp_plan).
+// out: dp (N, d) bf16.
+int fused_infonce_dp_hopper_launch(const void* q, const void* p, const void* labels,
+                                   const void* col_valid, const void* lse, const void* g_lse,
+                                   const void* g_pos, void* out, int M, int N, int d, int ranks,
+                                   int rq, float inv_tau, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto lab = static_cast<const int*>(labels);
+  const auto valid = static_cast<const uint8_t*>(col_valid);
+  const auto l = static_cast<const float*>(lse), gl = static_cast<const float*>(g_lse),
+             gp = static_cast<const float*>(g_pos);
+  if (M <= hp::SQ)
+    return int(hp::small<false>(q, p, lab, valid, l, gl, gp, out, M, N, d, inv_tau, st));
+  return int(hp::dp_cluster(q, p, lab, valid, l, gl, gp, out, M, N, d, ranks, rq, inv_tau, st));
+}
+
+// dQ at M up to 16: the small kernel writes one fp32 partial (M, d) per 64
+// passages into `partial` ((N + 63) / 64, M, d), then the reduce kernel sums
+// them in block order into out (M, d) bf16.
+int fused_infonce_dq_hopper_launch(const void* q, const void* p, const void* labels,
+                                   const void* col_valid, const void* lse, const void* g_lse,
+                                   const void* g_pos, void* out, void* partial, int M, int N,
+                                   int d, float inv_tau, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = hp::small<true>(
+      q, p, static_cast<const int*>(labels), static_cast<const uint8_t*>(col_valid),
+      static_cast<const float*>(lse), static_cast<const float*>(g_lse),
+      static_cast<const float*>(g_pos), partial, M, N, d, inv_tau, st);
+  if (err != cudaSuccess) return int(err);
+  const size_t total = size_t(M) * d;
+  infonce_grad_reduce_kernel<__nv_bfloat16><<<reduce_blocks(total), THREADS, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out), total,
+      (N + hp::PB - 1) / hp::PB);
+  return int(cudaGetLastError());
+}
+
+// The most clusters of `ranks` infonce_dp_cluster_kernel blocks the current
+// device runs at once (negative: a CUDA error code).
+int fused_infonce_dp_max_clusters(int ranks) {
+  cudaError_t err =
+      hopper::allow_smem_once<hp::ClusterTag>(
+          reinterpret_cast<const void*>(hp::infonce_dp_cluster_kernel), hp::SMEM_CLUSTER);
+  if (err != cudaSuccess) return -int(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = hp::cluster_config(1, ranks, nullptr, attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(hp::infonce_dp_cluster_kernel), &cfg);
+  return err == cudaSuccess ? n : -int(err);
+}
+
+// Registers a thread and local memory a thread (stack frame and spills) of
+// kernel `which`, in ops.KERNELS' order.
+int fused_infonce_kernel_attributes(int which, int* regs, int* local) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(infonce_fwd_kernel<__nv_bfloat16>),
+      reinterpret_cast<const void*>(infonce_fwd_kernel<float>),
+      reinterpret_cast<const void*>(infonce_stats_merge_kernel),
+      reinterpret_cast<const void*>(infonce_dq_kernel<__nv_bfloat16>),
+      reinterpret_cast<const void*>(infonce_dq_kernel<float>),
+      reinterpret_cast<const void*>(infonce_dp_kernel<__nv_bfloat16>),
+      reinterpret_cast<const void*>(infonce_dp_kernel<float>),
+      reinterpret_cast<const void*>(infonce_grad_reduce_kernel<__nv_bfloat16>),
+      reinterpret_cast<const void*>(infonce_grad_reduce_kernel<float>),
+      reinterpret_cast<const void*>(hp::infonce_dp_cluster_kernel),
+      reinterpret_cast<const void*>(hp::infonce_small_kernel<true>),
+      reinterpret_cast<const void*>(hp::infonce_small_kernel<false>),
+  };
+  if (which < 0 || which >= int(sizeof(kernels) / sizeof(kernels[0])))
+    return int(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernels[which]);
+  if (err != cudaSuccess) return int(err);
+  *regs = a.numRegs;
+  *local = int(a.localSizeBytes);
+  return 0;
 }
 
 const char* fused_infonce_error_string(int err) {

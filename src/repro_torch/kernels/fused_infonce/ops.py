@@ -8,11 +8,41 @@ metrics-only (marked non-differentiable; its cotangent is dropped, as the
 JAX ``_stats_bwd`` drops it). The (M, N) score matrix never reaches device
 memory in either direction.
 
-Three entry points, one per kernel, each with a launch count:
+Three entry points, one per TPU kernel, each with a launch count:
 ``fused_infonce_fwd.launches``, ``fused_infonce_dq.launches``,
 ``fused_infonce_dp.launches``. On CPU tensors they are the plain version
 (ref.py); on CUDA tensors they launch their kernel or raise. Each kernel is
 built from source at its first launch.
+
+dQ and dP (the TPU kernels ``_dq_kernel`` and ``_dp_kernel``) count the
+path of each call in ``fused_infonce_dq.paths`` and ``fused_infonce_dp.paths``
+(``path_of``):
+
+- ``"hopper"``: bf16 operands with d a multiple of 8 up to ``HOPPER_D_MAX``
+  (TMA reads rows of a multiple of 16 bytes; a base that is not 16-byte
+  aligned is copied first). dQ and dP at up to ``SMALL_M`` query rows (a
+  contaccum chunk's 8 local queries) take one block per 64 passages: the
+  block's P tile is read once by TMA, every d-chunk in flight, scores and
+  both products on ``wgmma`` with the queries as its N side; dQ's 33 fp32
+  partials are summed in block order by a second, small kernel. dP at more
+  rows (the 2048 query-bank rows) takes clusters of ``dp_plan(m)[0]``
+  blocks on one tile of 64 passages: each rank turns the scores of its
+  query rows into bf16 coefficients in registers and keeps them in shared
+  memory, then computes its share of d for every query row, reading the
+  other ranks' coefficients through distributed shared memory; one launch,
+  no fp32 partial in device memory. On an H100 the bounds are the bytes of
+  P at the local rows (1-2 us) and the tensor cores at the bank rows (13
+  us); the local-row kernels are held back by latency (33 blocks), the
+  bank-row kernel by each block's stream of Q and P through a ring of about
+  100 KB (PERF.md).
+- ``"wmma"``: other bf16 shapes (d not a multiple of 8 or above
+  ``HOPPER_D_MAX``, dQ above ``SMALL_M`` rows, dP above ``MAX_RANKS *
+  RANK_ROWS`` rows): the first kernels (``wmma`` tiles, synchronous loads,
+  fp32 partials and a reduce kernel when the long axis is split).
+- ``"fp32"``: fp32 operands (or bf16 with fp32): CUDA-core FMAs, no TF32.
+
+A block whose 64 passages are all masked writes zeros without computing:
+that is what the coefficient gives there.
 
 ``merge_row_stats``, ``fused_infonce_rows`` and ``fused_infonce_loss`` are
 plain tensor code over the stats, as in ``repro.kernels.fused_infonce.ops``.
@@ -38,6 +68,29 @@ BLOCK_N = 64
 #: most tiles one block walks along the split axis (its coefficient strip)
 SPLIT_TILES = 8
 
+# The Hopper kernels' plan (csrc/fused_infonce.cu, namespace hp):
+#: query rows up to which dQ and dP take the small kernel (wgmma's N side)
+SMALL_M = 16
+#: passages a Hopper block takes (wgmma's 64-row side)
+PASSAGE_TILE = 64
+#: the cluster kernel's pass-1 query tile (its two consumer warpgroups x
+#: 128), and the most query rows one rank of a cluster keeps coefficients for
+PASS1_TILE, RANK_ROWS = 256, 768
+#: the portable cluster size
+MAX_RANKS = 8
+#: the widest bf16 row the Hopper kernels take (16 d-chunks of 64)
+HOPPER_D_MAX = 1024
+PATHS = ("hopper", "wmma", "fp32")
+#: every kernel of the library, in fused_infonce_kernel_attributes' order
+KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stats_merge_kernel",
+           "infonce_dq_kernel<bf16>", "infonce_dq_kernel<fp32>", "infonce_dp_kernel<bf16>",
+           "infonce_dp_kernel<fp32>", "infonce_grad_reduce_kernel<bf16>",
+           "infonce_grad_reduce_kernel<fp32>", "infonce_dp_cluster_kernel",
+           "infonce_small_kernel<dq>", "infonce_small_kernel<dp>")
+#: the kernels the train path's dQ and dP run (bf16, Hopper path)
+HOPPER_KERNELS = ("infonce_dp_cluster_kernel", "infonce_small_kernel<dq>",
+                  "infonce_small_kernel<dp>", "infonce_grad_reduce_kernel<bf16>")
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -50,8 +103,15 @@ def _library() -> ctypes.CDLL:
     )
     for fn in (lib.fused_infonce_dq_launch, lib.fused_infonce_dp_launch):
         fn.argtypes = [ptr] * 9 + [i32] * 5 + [ctypes.c_float, i32, i32, ptr]
+    lib.fused_infonce_dp_hopper_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_float, ptr]
+    lib.fused_infonce_dq_hopper_launch.argtypes = [ptr] * 9 + [i32] * 3 + [ctypes.c_float, ptr]
     for fn in (lib.fused_infonce_fwd_launch, lib.fused_infonce_dq_launch,
-               lib.fused_infonce_dp_launch):
+               lib.fused_infonce_dp_launch, lib.fused_infonce_dp_hopper_launch,
+               lib.fused_infonce_dq_hopper_launch):
+        fn.restype = ctypes.c_int
+    lib.fused_infonce_dp_max_clusters.argtypes = [i32]
+    lib.fused_infonce_kernel_attributes.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    for fn in (lib.fused_infonce_dp_max_clusters, lib.fused_infonce_kernel_attributes):
         fn.restype = ctypes.c_int
     lib.fused_infonce_error_string.argtypes = [ctypes.c_int]
     lib.fused_infonce_error_string.restype = ctypes.c_char_p
@@ -70,6 +130,68 @@ def split_plan(n_tiles: int, other_tiles: int, sm_count: int) -> Tuple[int, int]
     want = max(1, min(n_tiles, -(-sm_count // other_tiles)))
     per = min(SPLIT_TILES, -(-n_tiles // want))
     return -(-n_tiles // per), per
+
+
+def dp_plan(m: int) -> Tuple[int, int]:
+    """(ranks, rq) of the cluster kernel at m query rows: clusters of
+    ``ranks`` blocks, rank r holding the coefficients of rows [r rq,
+    (r + 1) rq), rq a multiple of PASS1_TILE up to RANK_ROWS, every rank
+    with at least one row. At m = 2048: 3 ranks of 768 rows, so the 33
+    passage tiles of a contaccum_bf16 chunk give 33 clusters of 3 blocks:
+    an H100 SXM runs 39 such clusters at once, but only 30 of 4
+    (cudaOccupancyMaxActiveClusters; ``dp_max_clusters``), so 4 ranks of
+    512 rows would take two waves."""
+    if not SMALL_M < m <= MAX_RANKS * RANK_ROWS:
+        raise ValueError(f"the cluster dP kernel takes {SMALL_M} < M <= {MAX_RANKS * RANK_ROWS}")
+    ranks = -(-m // RANK_ROWS)
+    rq = -(-(-(-m // ranks)) // PASS1_TILE) * PASS1_TILE
+    return -(-m // rq), rq
+
+
+def hopper_blocks(kind: str, m: int, n: int) -> int:
+    """Blocks of the Hopper kernel that a dQ (kind "dq") or dP ("dp") call
+    of m query rows and n passages launches (dQ's reduce kernel aside)."""
+    tiles = -(-n // PASSAGE_TILE)
+    return tiles if kind == "dq" or m <= SMALL_M else tiles * dp_plan(m)[0]
+
+
+def path_of(kind: str, dtype: torch.dtype, m: int, d: int) -> str:
+    """The path (``PATHS``) a CUDA dQ (kind "dq") or dP ("dp") call takes
+    with operands of this common dtype, m query rows and rows of d."""
+    if dtype != torch.bfloat16:
+        return "fp32"
+    if d % 8 or d > HOPPER_D_MAX:
+        return "wmma"
+    if kind == "dq":
+        return "hopper" if m <= SMALL_M else "wmma"
+    return "hopper" if m <= MAX_RANKS * RANK_ROWS else "wmma"
+
+
+def kernel_attributes(name: str) -> dict:
+    """Registers a thread and local memory a thread (stack frame and spills:
+    0 when ptxas spilled nothing) of one of ``KERNELS``, as the card reports
+    them for the built library."""
+    lib, regs, local = _library(), ctypes.c_int(), ctypes.c_int()
+    err = lib.fused_infonce_kernel_attributes(KERNELS.index(name), ctypes.byref(regs),
+                                              ctypes.byref(local))
+    _raise_on(err, f"attributes of {name}", lib)
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def dp_max_clusters(ranks: int) -> int:
+    """The most clusters of ``ranks`` cluster-kernel blocks the current device
+    runs at once (cudaOccupancyMaxActiveClusters)."""
+    lib = _library()
+    n = lib.fused_infonce_dp_max_clusters(ranks)
+    if n < 0:
+        _raise_on(-n, "cudaOccupancyMaxActiveClusters", lib)
+    return n
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """t itself when TMA can read it in place (a 16-byte aligned base; the
+    Hopper path takes only rows of a multiple of 16 bytes), else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(q, p, labels, col_valid):
@@ -124,7 +246,8 @@ def _operands(q, p):
 
 def _raise_on(err: int, what: str, lib) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.fused_infonce_error_string(err).decode()}")
+        raise RuntimeError(
+            f"{what} launch failed: {lib.fused_infonce_error_string(err).decode()} ({err})")
 
 
 def _stream(dev):
@@ -167,33 +290,53 @@ def fused_infonce_fwd(
 
 
 def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau):
+    """(gradient in the operand type, the path it took)."""
     lib = _library()
     q, p, ct, vec = _operands(q, p)
     m, d = q.shape
     n = p.shape[0]
     dev = q.device
+    rows = m if which == "dq" else n
+    out = torch.empty((rows, d), dtype=ct, device=dev)
+    path = path_of(which, ct, m, d)
+    mask = None if col_valid is None else col_valid.data_ptr()
+    stats = (lse.data_ptr(), g_lse.data_ptr(), g_pos.data_ptr())
+    if path == "hopper":
+        q, p = _tma_ready(q), _tma_ready(p)
+        with torch.cuda.device(dev):
+            if which == "dq":
+                partial = torch.empty((-(-n // PASSAGE_TILE), m, d), dtype=STATS_DTYPE, device=dev)
+                err = lib.fused_infonce_dq_hopper_launch(
+                    q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask, *stats,
+                    out.data_ptr(), partial.data_ptr(), m, n, d, float(inv_tau), _stream(dev),
+                )
+            else:
+                ranks, rq = dp_plan(m) if m > SMALL_M else (1, 0)
+                err = lib.fused_infonce_dp_hopper_launch(
+                    q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask, *stats,
+                    out.data_ptr(), m, n, d, ranks, rq, float(inv_tau), _stream(dev),
+                )
+        _raise_on(err, f"fused_infonce {which} (Hopper)", lib)
+        return out, path
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     m_tiles, n_tiles = -(-m // BLOCK_M), -(-n // BLOCK_N)
     if which == "dq":
         splits, per = split_plan(n_tiles, m_tiles, sms)
-        rows, launch = m, lib.fused_infonce_dq_launch
+        launch = lib.fused_infonce_dq_launch
     else:
         splits, per = split_plan(m_tiles, n_tiles, sms)
-        rows, launch = n, lib.fused_infonce_dp_launch
-    out = torch.empty((rows, d), dtype=ct, device=dev)
+        launch = lib.fused_infonce_dp_launch
     partial = torch.empty(
         (splits, rows, d) if splits > 1 else (1,), dtype=STATS_DTYPE, device=dev
     )
     with torch.cuda.device(dev):
         err = launch(
-            q.data_ptr(), p.data_ptr(), labels.data_ptr(),
-            None if col_valid is None else col_valid.data_ptr(),
-            lse.data_ptr(), g_lse.data_ptr(), g_pos.data_ptr(),
+            q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask, *stats,
             out.data_ptr(), partial.data_ptr(),
             m, n, d, splits, per, float(inv_tau), _DTYPE_CODES[ct], vec, _stream(dev),
         )
     _raise_on(err, f"fused_infonce {which}", lib)
-    return out
+    return out, path
 
 
 def fused_infonce_dq(q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau=1.0) -> torch.Tensor:
@@ -203,8 +346,9 @@ def fused_infonce_dq(q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau=1.0) ->
     _check_rows(q, lse=lse, g_lse=g_lse, g_pos=g_pos)
     if q.device.type == "cpu":
         return infonce_stats_vjp_ref(q, p, labels, col_valid, g_lse, g_pos, inv_tau=inv_tau)[0]
-    out = _grad("dq", q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau)
+    out, path = _grad("dq", q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau)
     fused_infonce_dq.launches += 1
+    fused_infonce_dq.paths[path] += 1
     return out.to(q.dtype)
 
 
@@ -214,19 +358,24 @@ def fused_infonce_dp(q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau=1.0) ->
     _check_rows(q, lse=lse, g_lse=g_lse, g_pos=g_pos)
     if q.device.type == "cpu":
         return infonce_stats_vjp_ref(q, p, labels, col_valid, g_lse, g_pos, inv_tau=inv_tau)[1]
-    out = _grad("dp", q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau)
+    out, path = _grad("dp", q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau)
     fused_infonce_dp.launches += 1
+    fused_infonce_dp.paths[path] += 1
     return out.to(p.dtype)
 
 
 fused_infonce_fwd.launches = 0
 fused_infonce_dq.launches = 0
 fused_infonce_dp.launches = 0
+fused_infonce_dq.paths = dict.fromkeys(PATHS, 0)
+fused_infonce_dp.paths = dict.fromkeys(PATHS, 0)
 
 
 def reset_launches() -> None:
-    """Set the three launch counts to 0."""
+    """Set the three launch counts and dQ's and dP's path counts to 0."""
     fused_infonce_fwd.launches = fused_infonce_dq.launches = fused_infonce_dp.launches = 0
+    fused_infonce_dq.paths = dict.fromkeys(PATHS, 0)
+    fused_infonce_dp.paths = dict.fromkeys(PATHS, 0)
 
 
 class _FusedInfoNCEStats(torch.autograd.Function):

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the port's kernels (flash_attention,
-// fused_topk), one copy for all: on the device, as inline PTX, mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and products, named
-// barriers and ex2; on the host, bf16 tensor maps for TMA (the driver's
+// fused_topk, fused_infonce), one copy for all: on the device, as inline
+// PTX, mbarriers, TMA tile loads, wgmma shared-memory descriptors and
+// products, named barriers, cluster barriers and distributed shared-memory
+// loads, and ex2; on the host, bf16 tensor maps for TMA (libcuda's
 // cuTensorMapEncodeTiled through the runtime's entry-point query, so nothing
 // links against libcuda) and a kernel's dynamic shared-memory limit raised
 // once a device. _build.py passes this directory to nvcc with -I and hashes
@@ -83,6 +84,49 @@ template <int ID, int THREADS>
 __device__ __forceinline__ void named_bar_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
 }
+// makes this thread's shared-memory writes visible to the async proxy
+// (wgmma operands written by plain stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread block clusters ------------------------------------------------
+// (a launch without a cluster is a cluster of one block)
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// The cluster barrier: every thread of every block of the cluster arrives
+// once a phase, then waits. arrive releases this thread's shared-memory
+// writes to the other blocks and wait acquires theirs; arrive_relaxed
+// orders nothing (for a thread that wrote nothing the others read).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// 16 bytes at this block's shared address `addr`, read from the same
+// address in block `rank` of the cluster (distributed shared memory)
+__device__ __forceinline__ uint4 ld_cluster_v4(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
 
 // ---- wgmma ------------------------------------------------------------------
 __device__ __forceinline__ void wgmma_fence() {
@@ -124,6 +168,21 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo, uin
 // % 4) + e % 2); the register A operand holds 4 x 2 bf16 (rows lane / 4 and
 // + 8, columns 2 (lane % 4) and + 8), the accumulator's layout, so a score
 // tile's registers are the value product's A operand as they stand.
+// D (64 x 16, fp32) {+}= A (64 x 16, smem) * B (16 x 16, smem, K-major).
+// TRANS_A = 0: A K-major; 1: A MN-major (its 64 rows contiguous, the
+// layout of a K-major tile read transposed)
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_A));
+}
+
 // D (64 x 64, fp32) {+}= A (64 x 16, smem) * B (16 x 64, smem, K-major)
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
@@ -431,6 +490,13 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* ptr, const cuui
                                    const cuuint32_t (&box)[R]) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  // a libcuda call: the device's primary context must be current on this
+  // thread, which a thread whose first CUDA call this is (an autograd
+  // worker, say) does not have yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return err;
   cuuint32_t unit[R];
   for (int i = 0; i < R; ++i) unit[i] = 1;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(ptr), dims,

@@ -234,3 +234,82 @@ def test_masked_columns_never_affect_loss_or_grads(m, n, n_garbage, d, seed):
     np.testing.assert_allclose(_np(gq1), _np(gq2), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(_np(gp1), _np(gp2[:n]), rtol=1e-6, atol=1e-6)
     assert not gp2[n:].any()
+
+
+# ---- the Hopper kernels' host-side plan (ops.py mirrors csrc/fused_infonce.cu)
+
+PATH_N, PATH_D = 2064, 768      # a contaccum_bf16 chunk: 8 + 8 + 2048 columns, d = 768
+
+
+@pytest.mark.parametrize("m", [17, 37, 130, 255, 256, 257, 767, 768, 769, 1000, 2048, 2049,
+                               3000, 6144])
+def test_dp_plan_gives_every_query_row_to_one_rank(m):
+    """Each rank of a cluster holds the coefficients of rq consecutive rows
+    (a multiple of the pass-1 tile, at most RANK_ROWS); together they hold
+    rows 0..m-1 once, and every rank holds at least one."""
+    ranks, rq = ops.dp_plan(m)
+    assert 1 <= ranks <= ops.MAX_RANKS
+    assert rq % ops.PASS1_TILE == 0 and 0 < rq <= ops.RANK_ROWS
+    owned = [row for r in range(ranks) for row in range(r * rq, min(m, (r + 1) * rq))]
+    assert owned == list(range(m))
+    assert all(r * rq < m for r in range(ranks))
+
+
+@pytest.mark.parametrize("m,n", [(17, 1), (2048, PATH_N), (130, 70), (6144, 4100), (37, 301)])
+def test_dp_blocks_cover_every_passage_tile_and_query_row_once(m, n):
+    """Block b of the cluster dP kernel is rank b % ranks of passage tile
+    b // ranks: every (passage tile, query row) pair belongs to one block."""
+    ranks, rq = ops.dp_plan(m)
+    blocks = ops.hopper_blocks("dp", m, n)
+    pairs = [(b // ranks, row) for b in range(blocks)
+             for row in range((b % ranks) * rq, min(m, (b % ranks + 1) * rq))]
+    tiles = -(-n // ops.PASSAGE_TILE)
+    assert sorted(pairs) == [(t, row) for t in range(tiles) for row in range(m)]
+
+
+@pytest.mark.parametrize("m", [0, 16, 6145])
+def test_dp_plan_refuses_rows_outside_the_large_kernel(m):
+    with pytest.raises(ValueError):
+        ops.dp_plan(m)
+
+
+@pytest.mark.parametrize("kind,m", [("dq", 8), ("dp", 8), ("dp", 2048)])
+def test_path_shapes_fit_one_wave_of_an_h100(kind, m):
+    """At a contaccum_bf16 chunk's shapes a Hopper launch has at most one
+    block per SM of an H100 SXM (132): 33 passage tiles, and 3 ranks each
+    for the 2048 bank rows (33 clusters of 3; the card runs 39 at once)."""
+    blocks = ops.hopper_blocks(kind, m, PATH_N)
+    assert blocks <= 132
+    assert blocks == (99 if m == 2048 else 33)
+    if m == 2048:
+        assert ops.dp_plan(m) == (3, 768)
+
+
+@pytest.mark.parametrize("kind,dtype,m,d,path", [
+    ("dq", torch.bfloat16, 8, 768, "hopper"),       # the train path's local rows
+    ("dp", torch.bfloat16, 8, 768, "hopper"),
+    ("dp", torch.bfloat16, 2048, 768, "hopper"),    # the query-bank rows
+    ("dq", torch.bfloat16, 16, 8, "hopper"),
+    ("dq", torch.bfloat16, 17, 768, "wmma"),        # dQ of many rows: no caller
+    ("dq", torch.bfloat16, 2048, 768, "wmma"),
+    ("dp", torch.bfloat16, 37, 96, "hopper"),
+    ("dp", torch.bfloat16, 6144, 1024, "hopper"),
+    ("dp", torch.bfloat16, 6145, 768, "wmma"),      # more rows than 8 ranks hold
+    ("dp", torch.bfloat16, 8, 1032, "wmma"),        # wider than the resident tile
+    ("dq", torch.bfloat16, 8, 20, "wmma"),          # rows of 40 bytes: no TMA
+    ("dp", torch.bfloat16, 2048, 36, "wmma"),
+    ("dq", torch.float32, 8, 768, "fp32"),
+    ("dp", torch.float32, 2048, 768, "fp32"),
+])
+def test_path_of_each_shape(kind, dtype, m, d, path):
+    assert ops.path_of(kind, dtype, m, d) == path
+
+
+def test_reset_launches_clears_every_path():
+    ops.fused_infonce_dq.paths["hopper"] += 3
+    ops.fused_infonce_dp.paths["wmma"] += 1
+    ops.fused_infonce_dp.launches += 1
+    ops.reset_launches()
+    assert ops.fused_infonce_dq.paths == dict.fromkeys(ops.PATHS, 0)
+    assert ops.fused_infonce_dp.paths == dict.fromkeys(ops.PATHS, 0)
+    assert ops.fused_infonce_dp.launches == 0

@@ -89,31 +89,162 @@ def _check(q, p, labels, valid, inv_tau=1.0, grads=True):
     return lse, pos, amax
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [8, 2048])
-def test_path_shapes_bf16(dev, m):
-    """A contaccum_bf16 chunk: local queries (M=8, some labels out of range)
-    and the query-bank rows (M=2048), the last 1000 bank columns invalid."""
+def _grads(q, p, labels, valid, g_lse, g_pos, inv_tau=1.0):
+    """dQ and dP straight from the two kernels, for the forward's lse."""
+    lse = ops.fused_infonce_fwd(q, p, labels, valid, inv_tau)[0]
+    args = (q, p, labels, valid, lse, g_lse, g_pos, inv_tau)
+    return ops.fused_infonce_dq(*args), ops.fused_infonce_dp(*args)
+
+
+def _cotangents(m, dev, seed=99):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(m, generator=g, device=dev), -torch.rand(m, generator=g, device=dev)
+
+
+def _check_grads(q, p, labels, valid, g_lse, g_pos, inv_tau=1.0):
+    dq, dp = _grads(q, p, labels, valid, g_lse, g_pos, inv_tau)
+    torch.cuda.synchronize()
+    rdq, rdp = infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, inv_tau=inv_tau)
+    _close(dq, rdq, 1e-2, "dq")
+    _close(dp, rdp, 1e-2, "dp")
+    return dq, dp
+
+
+def _path_case(m, dev, n_masked=1000):
     q = _rand((m, D), torch.bfloat16, dev, 0)
     p = _rand((N_PATH, D), torch.bfloat16, dev, 1)
     valid = torch.ones(N_PATH, dtype=torch.bool, device=dev)
-    valid[-1000:] = False
+    if n_masked:
+        valid[-n_masked:] = False
     if m == 8:
         labels = torch.arange(m, dtype=torch.int32, device=dev)
         labels[5], labels[6] = -3, N_PATH + 7            # out of range: pos = 0
     else:
         labels = (16 + torch.arange(m, device=dev) % 2048).to(torch.int32)
-    lse, pos, _ = _check(q, p, labels, valid)
-    if m == 8:
-        assert pos[5].item() == 0.0 and pos[6].item() == 0.0
+    return q, p, labels, valid
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,d", [(37, 301, 96), (130, 70, 768), (1, 1, 8), (65, 4100, 40)])
+@pytest.mark.parametrize("m", [8, 2048])
+def test_path_shapes_bf16(dev, m):
+    """A contaccum_bf16 chunk: local queries (M=8, some labels out of range)
+    and the query-bank rows (M=2048), the last 1000 bank columns invalid.
+    dP (and dQ at M=8) run on the Hopper path."""
+    q, p, labels, valid = _path_case(m, dev)
+    ops.reset_launches()
+    lse, pos, _ = _check(q, p, labels, valid)
+    if m == 8:
+        assert pos[5].item() == 0.0 and pos[6].item() == 0.0
+    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_dq.paths == (
+        {"hopper": 1, "wmma": 0, "fp32": 0} if m == 8 else {"hopper": 0, "wmma": 1, "fp32": 0})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 2048])
+def test_path_shapes_every_column_valid(dev, m):
+    """The train phase's case after warm-up: no masked passage tile to skip."""
+    q, p, labels, _ = _path_case(m, dev, n_masked=0)
+    _check_grads(q, p, labels, None, *_cotangents(m, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 2048])
+def test_two_calls_are_bit_identical(dev, m):
+    """No float atomics and a fixed summation order: the same inputs give
+    the same bits."""
+    q, p, labels, valid = _path_case(m, dev)
+    g_lse, g_pos = _cotangents(m, dev)
+    first = _grads(q, p, labels, valid, g_lse, g_pos)
+    for _ in range(2):
+        again = _grads(q, p, labels, valid, g_lse, g_pos)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 100])
+def test_fully_masked_passage_tile(dev, m):
+    """Passages 64..127 (one whole tile) and 250..299 masked: their dP rows
+    are exactly 0 and the rest match the reference."""
+    q = _rand((m, 256), torch.bfloat16, dev, 20)
+    p = _rand((300, 256), torch.bfloat16, dev, 21)
+    valid = torch.ones(300, dtype=torch.bool, device=dev)
+    valid[64:128] = False
+    valid[250:] = False
+    labels = torch.arange(m, dtype=torch.int32, device=dev) % 64
+    dq, dp = _check_grads(q, p, labels, valid, *_cotangents(m, dev))
+    assert not dp[~valid].float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+@pytest.mark.parametrize("which", ["g_lse", "g_pos"])
+def test_one_cotangent_alone(dev, m, which):
+    """Only the softmax term (g_pos = 0) or only the one-hot term (g_lse =
+    0) of the coefficient."""
+    q = _rand((m, D), torch.bfloat16, dev, 22)
+    p = _rand((N_PATH, D), torch.bfloat16, dev, 23)
+    labels = torch.arange(m, dtype=torch.int32, device=dev) * 3
+    g_lse, g_pos = _cotangents(m, dev)
+    if which == "g_lse":
+        g_pos = torch.zeros_like(g_pos)
+    else:
+        g_lse = torch.zeros_like(g_lse)
+    dq, dp = _check_grads(q, p, labels, None, g_lse, g_pos)
+    if which == "g_pos":   # only the labelled passages get a gradient
+        hit = torch.zeros(N_PATH, dtype=torch.bool, device=dev)
+        hit[labels.long()] = True
+        assert not dp[~hit].float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+def test_label_on_a_masked_passage(dev, m):
+    """A label that points at a masked column adds no one-hot term there."""
+    q = _rand((m, 128), torch.bfloat16, dev, 24)
+    p = _rand((200, 128), torch.bfloat16, dev, 25)
+    valid = torch.ones(200, dtype=torch.bool, device=dev)
+    valid[150:] = False
+    labels = torch.arange(m, dtype=torch.int32, device=dev) % 200
+    labels[0] = 170
+    _check_grads(q, p, labels, valid, *_cotangents(m, dev))
+
+
+@pytest.mark.cuda
+def test_unaligned_base_is_copied_for_tma(dev):
+    q = _rand((8, D), torch.bfloat16, dev, 26)
+    big = _rand((N_PATH * D + 1,), torch.bfloat16, dev, 27)
+    p = big[1:].view(N_PATH, D)                 # a base 2 bytes past alignment
+    assert p.data_ptr() % 16
+    labels = torch.arange(8, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    _check_grads(q, p, labels, None, *_cotangents(8, dev))
+    assert ops.fused_infonce_dp.paths["hopper"] == 1
+
+
+@pytest.mark.cuda
+def test_hopper_kernels_keep_to_registers(dev):
+    """No local memory (spills or stack) in the kernels of the train path's
+    dQ and dP, as the card reports them."""
+    for name in ops.HOPPER_KERNELS:
+        attrs = ops.kernel_attributes(name)
+        assert attrs["local_bytes"] == 0, (name, attrs)
+        assert 0 < attrs["registers"] <= 255
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(37, 301, 96), (130, 70, 768), (1, 1, 8), (65, 4100, 40),
+                                   (16, 129, 64), (17, 2064, 768), (1000, 500, 200),
+                                   (100, 300, 192), (1000, 300, 64), (2048, 300, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ragged_shapes(dev, m, n, d, dtype):
     """M and N not multiples of any tile; d=40 takes the scalar loads; N=4100
-    splits the columns and M=130 three row tiles."""
+    splits the columns and M=130 three row tiles. Under bf16 dP runs on the
+    Hopper path (M=1 and 16 the small kernel, M=1000 two cluster ranks) and
+    dQ on it up to M=16. The last three reach the cluster kernel's uneven
+    d-chunk splits: d=192 gives one rank 3 chunks (a warpgroup with one);
+    d=64 over 2 ranks and d=128 over 3 leave a rank with no chunk (its own
+    cluster-barrier path) beside ranks whose warpgroup has one."""
     q = _rand((m, d), dtype, dev, 2)
     p = _rand((n, d), dtype, dev, 3)
     g = torch.Generator(device=dev).manual_seed(4)
