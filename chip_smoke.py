@@ -24,9 +24,10 @@ Phases, one JSON line each:
                N=2064 columns of which the last 1000 are masked; d=768,
                bf16), M=2048 again with every column valid, an fp32 case and
                a small ragged case; kernel, plain, library and bound times,
-               forward and backward apart; dQ at M=8 and dP at both shapes
-               must take the Hopper kernels (ops.fused_infonce_dq.paths,
-               .dp.paths), and every fused_infonce kernel's registers and
+               forward and backward apart; the forward and dP at both
+               shapes (and all valid) and dQ at M=8 must take the Hopper
+               kernels (ops.fused_infonce_fwd.paths, .dq.paths, .dp.paths),
+               and every fused_infonce kernel's registers and
                local memory are held to ptxas's log (a bf16 one that
                spills, or a Hopper one with local memory, fails the run); the
                flash_attention kernel at the BERT query and passage passes
@@ -66,8 +67,8 @@ Phases, one JSON line each:
                checkpointing to a temporary directory, for TRAIN_STEPS
                steps (the banks wrap). Checks: finite losses, full banks and
                2063 negatives at the end, launches of exactly 2, 1 and 2 x
-               16 x steps (forward, dQ, dP), every dQ and dP launch on the
-               Hopper path, one step on the dense backend
+               16 x steps (forward, dQ, dP), every forward, dQ and dP
+               launch on the Hopper path, one step on the dense backend
                against the fused one from the same state and batch, a second
                Trainer resuming from the saved step, and a Top@k eval through
                the fused search kernel (every search through the Hopper
@@ -589,8 +590,8 @@ def phase_infonce_kernels(torch):
         dq = ops.fused_infonce_dq(q, p, labels, valid, lse, g_lse, g_pos)
         dp = ops.fused_infonce_dp(q, p, labels, valid, lse, g_lse, g_pos)
         torch.cuda.synchronize()
-        paths = {"dq": next(k for k, v in ops.fused_infonce_dq.paths.items() if v),
-                 "dp": next(k for k, v in ops.fused_infonce_dp.paths.items() if v)}
+        paths = {kernel: next(k for k, v in getattr(ops, f"fused_infonce_{kernel}").paths.items()
+                              if v) for kernel in ("fwd", "dq", "dp")}
         rl, rp, ra = ref.infonce_stats_ref(q, p, labels, valid)
         rdq, rdp = ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos)
         # the tolerance's scale: the largest |logit| of a valid column (a
@@ -660,8 +661,8 @@ def phase_infonce_kernels(torch):
     # masks none
     result["bank_rows_all_valid"] = check("M=2048 all valid", *case(
         bank, n_path, d, torch.bfloat16, 0, labels_bank), timed=True)
-    for shape, kernels in (("local_rows", ("dq", "dp")), ("bank_rows", ("dp",)),
-                           ("bank_rows_all_valid", ("dp",))):
+    for shape, kernels in (("local_rows", ("fwd", "dq", "dp")), ("bank_rows", ("fwd", "dp")),
+                           ("bank_rows_all_valid", ("fwd", "dp"))):
         for kernel in kernels:
             require(result[shape]["paths"][kernel] == "hopper",
                     f"{shape} {kernel} took the {result[shape]['paths'][kernel]} path, not Hopper")
@@ -670,6 +671,10 @@ def phase_infonce_kernels(torch):
                          "blocks": ops.hopper_blocks("dp", bank, n_path),
                          "max_active_clusters": ops.dp_max_clusters(ranks),
                          "sm_count": torch.cuda.get_device_properties(dev).multi_processor_count}
+    sms = result["dp_plan"]["sm_count"]
+    result["fwd_plan"] = {"M": bank, "rows_per_block": ops.fwd_plan(bank, n_path, sms),
+                          "blocks": ops.hopper_blocks("fwd", bank, n_path, sms),
+                          "blocks_local_rows": ops.hopper_blocks("fwd", local, n_path, sms)}
     result["fp32"] = check("fp32", *case(64, 1000, d, torch.float32, 100,
                                          torch.randint(0, 900, (64,), generator=g, device=dev)),
                            timed=False)
@@ -756,7 +761,8 @@ def phase_train(torch, topk_ops):
         train_s = time.perf_counter() - t0
         launches = {"fwd": ops.fused_infonce_fwd.launches, "dq": ops.fused_infonce_dq.launches,
                     "dp": ops.fused_infonce_dp.launches}      # read just after the run
-        paths = {"dq": dict(ops.fused_infonce_dq.paths), "dp": dict(ops.fused_infonce_dp.paths)}
+        paths = {kernel: dict(getattr(ops, f"fused_infonce_{kernel}").paths)
+                 for kernel in ("fwd", "dq", "dp")}
         peak_bytes = torch.cuda.max_memory_allocated()
         hist = report.history
         require(report.steps_run == TRAIN_STEPS and report.restarts == 0,
@@ -769,7 +775,7 @@ def phase_train(torch, topk_ops):
         require(last["n_negatives"] == n_neg, f"n_negatives {last['n_negatives']} != {n_neg}")
         want = {"fwd": 2 * k * TRAIN_STEPS, "dq": k * TRAIN_STEPS, "dp": 2 * k * TRAIN_STEPS}
         require(launches == want, f"fused_infonce launches {launches} != {want}")
-        for kernel in ("dq", "dp"):
+        for kernel in ("fwd", "dq", "dp"):
             require(paths[kernel]["hopper"] == launches[kernel],
                     f"fused_infonce {kernel} took {paths[kernel]}, not all the Hopper kernels")
 
@@ -956,7 +962,7 @@ def infonce_instantiations(log: str):
     ptxas's report of it from the build log. Fails unless the log reports
     every kernel with the card's register count, on a bf16 kernel that
     spills, and on a Hopper kernel (``ops.HOPPER_KERNELS``, the train path's
-    dQ and dP) with any local memory."""
+    forward, dQ and dP) with any local memory."""
     from repro_torch.kernels.fused_infonce import ops
 
     types = {"13__nv_bfloat16": "<bf16>", "f": "<fp32>", "Lb1": "<dq>", "Lb0": "<dp>"}

@@ -4,19 +4,28 @@ against N = 2064 columns (8 positives, 8 hard negatives, 2048 bank rows) of
 d = 768; bf16 with the last 1000 bank columns masked (``chip_smoke.py``'s
 kernels case), bf16 with every column valid (the train phase after its
 warm-up), and fp32 with the mask. For each shape and each of the forward,
-dQ and dP: the kernel's device time, its kernels' times by name, the dense
-loss backend on the same inputs (``DenseLossBackend.chunk_stats`` and
-autograd: the yardstick), TFLOP/s over the valid columns, and the path each
-call took where ``ops`` counts them. One JSON line per shape and kernel,
-then the card's name and power limit.
+dQ and dP: the kernel's device time, its kernels' times by name, the plain
+version (ref.py, and autograd through it), the dense loss backend on the
+same inputs (``DenseLossBackend.chunk_stats`` and autograd: the
+yardstick), TFLOP/s over the valid columns, the path each call took where
+``ops`` counts them, and the bound: the least time an H100 SXM could take
+(inputs read once and outputs written once over 3.35 TB/s, or the
+operations over the valid columns over the operand type's peak: 989
+TFLOP/s bf16, 67 fp32 without tensor cores). One JSON line per shape and
+kernel, then the card's name and power limit.
 
     PYTHONPATH=src python -m repro_torch.kernels.fused_infonce.bench [--reps 20]
 
 ``ms`` is the device time of a call (``_timing.device_ms``: the calls
 queued behind a sleep kernel); ``kernels_ms`` sums each kernel's device time
 under ``torch.profiler`` over ``--reps`` calls, by name, divided by the
-calls. It uses only ``ops`` and the dense backend, so it also runs in an
-older tree of the port with this file copied into it (paths are then null).
+calls (the Hopper forward's tile kernel, ``infonce_fwd_small_kernel`` or
+``infonce_fwd_rows_kernel``, and its merge, which is launched before the
+tiles end and so counts some of its wait for them). ``paths`` is the path
+each call took (``ops.fused_infonce_fwd.paths``, ``.dq.paths``,
+``.dp.paths``). It uses only ``ops``, ``ref`` and the dense backend, so it
+also runs in an older tree of the port with this file copied into it
+(paths are then null where that tree counts none).
 
 Needs a CUDA device; builds the kernels at first use like any caller.
 """
@@ -30,9 +39,13 @@ import torch
 
 from repro_torch.core.loss import DenseLossBackend
 from repro_torch.kernels._timing import card, device_ms
-from repro_torch.kernels.fused_infonce import ops
+from repro_torch.kernels.fused_infonce import ops, ref
 
 N_PATH, D, N_MASKED = 2064, 768, 1000
+#: an H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, and the
+#: dense operations/s of each operand type (fp32 on the CUDA cores)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: (name, M, dtype, masked columns)
 SHAPES = (("local_rows", 8, torch.bfloat16, N_MASKED),
           ("bank_rows", 2048, torch.bfloat16, N_MASKED),
@@ -58,6 +71,20 @@ def profile_kernels(fn, reps: int) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def bound_ms(kernel: str, m: int, n: int, n_valid: int, d: int, dtype) -> tuple:
+    """(bound_ms, bound_by) of one call: q, p, labels, col_valid (and the
+    backward's lse, g_lse, g_pos) read once and the outputs written once,
+    against 2 m n_valid d operations for the forward and 4 m n_valid d for
+    dQ or dP (the scores again, then the product)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    moved = (m + n) * d * item + 4 * m + n + 3 * 4 * m
+    if kernel != "fwd":
+        moved += (m if kernel == "dq" else n) * d * item
+    flop = (2.0 if kernel == "fwd" else 4.0) * m * n_valid * d
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, flop / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def _case(m, dtype, n_masked, dev, g):
     q = (torch.randn((m, D), generator=g, device=dev) * 0.2).to(dtype)
     p = (torch.randn((N_PATH, D), generator=g, device=dev) * 0.2).to(dtype)
@@ -70,10 +97,12 @@ def _case(m, dtype, n_masked, dev, g):
     return q, p, labels.to(torch.int32), valid, g_lse, g_pos
 
 
-def _dense_bwd(dense, which, q, p, labels, valid, g_lse, g_pos):
+def _bwd(stats, which, q, p, g_lse, g_pos):
+    """A call of the gradient of ``stats(q, p)``'s (lse, pos) w.r.t. q
+    (``which`` "dq") or p for the cotangents, by autograd."""
     qf = q.detach().requires_grad_(which == "dq")
     pf = p.detach().requires_grad_(which == "dp")
-    sl, sp, _ = dense.chunk_stats(qf, pf, labels, valid, temperature=1.0)
+    sl, sp, _ = stats(qf, pf)
     wrt = qf if which == "dq" else pf
     return lambda: torch.autograd.grad((sl, sp), wrt, (g_lse, g_pos), retain_graph=True)
 
@@ -101,13 +130,21 @@ def main(argv=None):
         lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
         args_ = (q, p, labels, valid, lse, g_lse, g_pos)
         n_valid = int(valid.sum().item())
-        for kernel, fn, library, flop in (
+        def plain(a, b):
+            return ref.infonce_stats_ref(a, b, labels, valid)
+
+        def library(a, b):
+            return dense.chunk_stats(a, b, labels, valid, temperature=1.0)
+
+        for kernel, fn, plain_fn, library_fn, flop in (
             ("fwd", lambda: ops.fused_infonce_fwd(q, p, labels, valid),
-             lambda: dense.chunk_stats(q, p, labels, valid, temperature=1.0), 2.0),
+             lambda: plain(q, p), lambda: library(q, p), 2.0),
             ("dq", lambda: ops.fused_infonce_dq(*args_),
-             _dense_bwd(dense, "dq", q, p, labels, valid, g_lse, g_pos), 4.0),
+             _bwd(plain, "dq", q.float(), p.float(), g_lse, g_pos),
+             _bwd(library, "dq", q, p, g_lse, g_pos), 4.0),
             ("dp", lambda: ops.fused_infonce_dp(*args_),
-             _dense_bwd(dense, "dp", q, p, labels, valid, g_lse, g_pos), 4.0),
+             _bwd(plain, "dp", q.float(), p.float(), g_lse, g_pos),
+             _bwd(library, "dp", q, p, g_lse, g_pos), 4.0),
         ):
             counter = getattr(ops, f"fused_infonce_{kernel}")
             before = dict(getattr(counter, "paths", {}))
@@ -115,13 +152,15 @@ def main(argv=None):
             torch.cuda.synchronize()
             took = _took(counter, before)
             ms = device_ms(fn, args.reps)
+            bound, bound_by = bound_ms(kernel, m, N_PATH, n_valid, D, dtype)
             print(json.dumps({
                 "shape": name, "kernel": kernel, "M": m, "N": N_PATH, "n_valid": n_valid, "d": D,
                 "dtype": str(dtype).removeprefix("torch."), "ms": ms,
                 "tflops": flop * m * n_valid * D / ms / 1e9,
                 "kernels_ms": profile_kernels(fn, args.reps),
-                "library_ms": device_ms(library, max(5, args.reps // 4)),
-                "paths": took, "nvidia_smi": smi,
+                "plain_ms": device_ms(plain_fn, max(5, args.reps // 4)),
+                "library_ms": device_ms(library_fn, max(5, args.reps // 4)),
+                "paths": took, "bound_ms": bound, "bound_by": bound_by, "nvidia_smi": smi,
             }), flush=True)
     print(smi, flush=True)
 

@@ -3,7 +3,9 @@
 // matrix ever reaching device memory.
 //
 // Replaces the TPU kernels of src/repro/kernels/fused_infonce/fused_infonce.py:
-//   forward  _fwd_kernel (:54) -> infonce_fwd_kernel (+ infonce_stats_merge_kernel)
+//   forward  _fwd_kernel (:54) -> bf16: hp::infonce_fwd_small_kernel at up to 16
+//                                 query rows, hp::infonce_fwd_rows_kernel above (+
+//                                 infonce_stats_merge_kernel); else infonce_fwd_kernel
 //   dQ       _dq_kernel (:205) -> bf16: hp::infonce_small_kernel<true> (+
 //                                 infonce_grad_reduce_kernel); else infonce_dq_kernel
 //   dP       _dp_kernel (:229) -> bf16: hp::infonce_small_kernel<false> at up to 16
@@ -28,40 +30,63 @@
 //   query-bank rows, M=2048: fwd 2*M*N*d = 6.5 GFLOP ~6.6 us and dP
 //                           4*M*N*d = 13 GFLOP ~13 us, set by the tensor cores.
 //
-// bf16 dQ and dP (namespace hp): TMA, wgmma, coefficients from registers.
-//  - M <= 16 (dQ and dP of the local queries): one block of one warpgroup
-//    per 64 passages. Thread 0 puts the block's whole P tile and the
-//    queries in flight by TMA, a barrier per d-chunk; S^T = P Q^T runs as
-//    wgmma m64n16 with the queries as N (rows past M are TMA's zeros). The
-//    coefficients are computed in registers. dP: they are the register A
-//    operand of one k-step per d-chunk (dP tile = C^T Q, Q the MN-major B);
-//    the tile is staged in bf16 where P was and written in 16-byte stores.
-//    dQ: C^T goes to shared memory as a K-major B, dQ^T = P^T C^T (P the
-//    MN-major A), one fp32 partial per block, summed in block order by
+// bf16 on Hopper (namespace hp): TMA, wgmma, statistics and coefficients
+// from the registers that hold the scores.
+//  - The forward: each block owns one tile of 64 passages (wgmma's 64 rows)
+//    and a range of query rows, and writes for each row that tile's partial
+//    (max, sum-exp, pos) to part (3, M, tiles); infonce_stats_merge_kernel
+//    combines each row's partials (a warp a row, a fixed order), launched
+//    as a programmatic dependent so its launch overlaps the tiles. A
+//    tile's statistics come from its score registers: the two passage rows
+//    a thread holds, a reduce-scatter over lane bits 2-4, the 4 warps
+//    through 2 KB of shared memory per 128 queries.
+//    M <= 16: infonce_fwd_small_kernel, the scores as in the small dQ/dP
+//    kernel below (33 blocks at N = 2064); what bounds it: launch and TMA
+//    latency. M > 16: infonce_fwd_rows_kernel, a block per (passage tile,
+//    group of ops.fwd_plan rows: 4 of 512 at M = 2048, 132 blocks, one
+//    wave); a producer warp streams (P chunk, 256-row Q chunk) stages
+//    through a 5-stage ring to two consumer warpgroups (m64n128 each), the
+//    dP cluster kernel's pass 1 without the cluster. What bounds it: each
+//    SM's stream of Q and P from L2 (about 1 MB a block), not the tensor
+//    cores. Three warps share an SM sub-partition, so a thread has at most
+//    168 registers: the statistics make each value just before its first
+//    shuffle. A tile whose passages are all masked computes nothing and
+//    writes what computing it gives (max -1e30, sum-exp its in-range
+//    columns, pos -1e30 where the label lies in it).
+//  - dQ and dP at M <= 16: one block of one warpgroup per 64 passages.
+//    Thread 0 puts the block's whole P tile and the queries in flight by
+//    TMA, a barrier per d-chunk; S^T = P Q^T runs as wgmma m64n16 with the
+//    queries as N (rows past M are TMA's zeros). The coefficients are
+//    computed in registers. dP: they are the register A operand of one
+//    k-step per d-chunk (dP tile = C^T Q, Q the MN-major B); the tile is
+//    staged in bf16 where P was and written in 16-byte stores. dQ: C^T
+//    goes to shared memory as a K-major B, dQ^T = P^T C^T (P the MN-major
+//    A), one fp32 partial per block, summed in block order by
 //    infonce_grad_reduce_kernel. P is read once; no row is padding except
 //    wgmma's N of 16 for 8 queries. What bounds it: launch and TMA latency
 //    (33 blocks), not bytes.
-//  - M > 16 (dP of the query-bank rows): infonce_dp_cluster_kernel, clusters
-//    of `ranks` blocks on one tile of 64 passages (ops.dp_plan: 3 ranks of
-//    768 rows at M = 2048, 99 blocks, one wave). A producer warp feeds two
-//    consumer warpgroups through an mbarrier ring. Pass 1: each rank's
-//    query rows in tiles of 256, S^T by wgmma m64n128 (the passages as its
-//    64 rows), coefficients in registers, rounded to bf16 and stored in the
-//    rank's strip as the register A operand of the next product. Cluster
-//    barrier. Pass 2: each rank takes a third of d (2 d-chunks per
-//    warpgroup) and accumulates dP += C^T Q over every query row, reading
-//    the other ranks' coefficients through distributed shared memory (one
-//    k-tile ahead); bf16 out, one launch, no fp32 partial in device memory.
-//    What bounds it: each block's stream of Q and P tiles through a ring of
-//    about 100 KB (the strip takes the rest of shared memory); the tensor
-//    cores run at about a quarter of their peak.
-//  - A block whose passages are all masked writes zeros and computes nothing.
+//  - dP at M > 16: infonce_dp_cluster_kernel, clusters of `ranks` blocks on
+//    one tile of 64 passages (ops.dp_plan: 3 ranks of 768 rows at M = 2048,
+//    99 blocks, one wave). A producer warp feeds two consumer warpgroups
+//    through an mbarrier ring. Pass 1: each rank's query rows in tiles of
+//    256, S^T by wgmma m64n128 (the passages as its 64 rows), coefficients
+//    in registers, rounded to bf16 and stored in the rank's strip as the
+//    register A operand of the next product. Cluster barrier. Pass 2: each
+//    rank takes a third of d (2 d-chunks per warpgroup) and accumulates dP
+//    += C^T Q over every query row, reading the other ranks' coefficients
+//    through distributed shared memory (one k-tile ahead); bf16 out, one
+//    launch, no fp32 partial in device memory. What bounds it: each block's
+//    stream of Q and P tiles through a ring of about 100 KB (the strip takes
+//    the rest of shared memory); the tensor cores run at about a quarter of
+//    their peak.
+//  - A dQ or dP block whose passages are all masked writes zeros and
+//    computes nothing.
 //
-// The forward, the fp32 kernels and the bf16 shapes the Hopper kernels do
-// not take (d not a multiple of 8 or above 1024, dQ above 16 rows, dP above
-// 6144 rows) keep the first design: 64 x 64 score tiles on wmma bf16 16x16x16
-// (fp32 inputs: a CUDA-core FMA loop, no TF32), looping over d in chunks of
-// 64 with synchronous loads; the backward kernels first compute the block's
+// The fp32 kernels and the bf16 shapes the Hopper kernels do not take (d
+// not a multiple of 8 or above 1024, dQ above 16 rows, dP above 6144 rows)
+// keep the first design: 64 x 64 score tiles on wmma bf16 16x16x16 (fp32
+// inputs: a CUDA-core FMA loop, no TF32), looping over d in chunks of 64
+// with synchronous loads; the backward kernels first compute the block's
 // coefficient strip (64 x up to 512) into shared memory, then take the
 // product one d-chunk at a time. At M=8 the long axis is split: (row tile x
 // column split) blocks for fwd and dQ, (column tile x row split) blocks for
@@ -146,6 +171,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Programmatic dependent launch: a grid launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of the grid before it has called grid_dependents_launch (any one
+// thread of it) or exited, and its grid_dependency_wait returns once that
+// grid has finished and its writes are visible. Both are no-ops otherwise.
+// The Hopper forward's blocks call it after their last scores, so the
+// merge's launch overlaps their statistics and little of its wait counts
+// as its time in a profile.
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // A 64 x BK chunk of a row-major (rows_total, d) matrix into shared memory,
@@ -487,27 +527,37 @@ infonce_fwd_kernel(const T* __restrict__ q, const T* __restrict__ p,
   }
 }
 
-// One thread per row: the online-softmax combine of the splits' (max,
-// sum-exp) pairs; pos is the owning split's value (the others hold 0).
+// One warp per row: the online-softmax combine of the row's splits' (max,
+// sum-exp) pairs, part (3, M, splits); pos is the owning split's value (the
+// others hold 0). Lane i takes splits i, i + 32, ..., the lanes combine by
+// butterflies: a fixed order, and the row's loads in parallel. Waits for
+// the grid before it (griddepcontrol.wait: a no-op unless launched as a
+// programmatic dependent, as the Hopper forward launches it).
 __global__ void __launch_bounds__(THREADS)
 infonce_stats_merge_kernel(const float* __restrict__ part, float* __restrict__ lse,
                            float* __restrict__ pos, float* __restrict__ amax,
                            int M, int splits) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  if (r >= M) return;
+  grid_dependency_wait();
+  const int r = blockIdx.x * WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= M) return;   // the row's whole warp
   const float* pm = part + size_t(r) * splits;
   const float* pl = pm + size_t(M) * splits;
   const float* pp = pl + size_t(M) * splits;
   float m = NEG_INF;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, pm[s]);
+  for (int s = lane; s < splits; s += 32) m = fmaxf(m, pm[s]);
+  m = warp_max(m);
   float l = 0.f, ps = 0.f;
-  for (int s = 0; s < splits; ++s) {
+  for (int s = lane; s < splits; s += 32) {
     l += pl[s] * expf(pm[s] - m);
     ps += pp[s];
   }
-  lse[r] = m + logf(l);
-  pos[r] = ps;
-  amax[r] = m;
+  l = warp_sum(l);
+  ps = warp_sum(ps);
+  if (lane == 0) {
+    lse[r] = m + logf(l);
+    pos[r] = ps;
+    amax[r] = m;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -691,7 +741,7 @@ cudaError_t fwd(const void* q, const void* p, const void* labels,
       tiles_per_split, inv_tau, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  infonce_stats_merge_kernel<<<(M + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+  infonce_stats_merge_kernel<<<(M + WARPS - 1) / WARPS, THREADS, 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(lse),
       static_cast<float*>(pos), static_cast<float*>(amax), M, splits);
   return cudaGetLastError();
@@ -766,6 +816,17 @@ __host__ __device__ constexpr int small_off_bar(int nc) { return small_off_qv(nc
 __host__ __device__ constexpr int small_smem(int nc) { return small_off_bar(nc) + 8 * nc + 1024; }
 static_assert(small_smem(NC_MAX) <= 232448, "shared memory over the 227 KB a block may use");
 
+// ---- the forward: per query row and passage tile a partial (max, sum-exp,
+// pos) in part (3, M, tiles); infonce_stats_merge_kernel merges each row's
+// partials in a fixed order
+constexpr int SF = 5;                     // ring stages of the forward at many rows
+constexpr int FSTATS = 7 * 128 * 4;       // a warpgroup's statistics scratch (tile_partials)
+constexpr int OFF_FSTATS = SF * STAGE1;
+constexpr int OFF_FBAR = OFF_FSTATS + 2 * FSTATS;
+constexpr int SMEM_FWD = OFF_FBAR + 8 * 2 * SF + 1024;   // + slack to align the base
+static_assert(SMEM_FWD <= 232448, "shared memory over the 227 KB a block may use");
+static_assert(7 * SQ * 4 <= SQ * 128, "the small forward's scratch fits the coefficient area");
+
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
 }
@@ -818,6 +879,64 @@ __device__ __forceinline__ void zero_rows(__nv_bfloat16* out, int n0, int N, int
     if (n0 + r < N)
       *reinterpret_cast<uint4*>(out + size_t(n0 + r) * d + c) = make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// ---- the pass-1 ring (dP at many rows, and the forward at many rows):
+// stage s at base + s STAGE1 holds P chunk c of passages n0.. (64 x 64)
+// and then chunk c of a tile of TQ query rows (4 boxes of 64 rows); full
+// barrier s at full0 + 8 s (one arrival and the bytes), empty barrier s at
+// empty0 + 8 s (one arrival a consumer warp of both warpgroups).
+
+// Producer (one thread): every d-chunk of query tiles 0 .. t1 - 1 (rows
+// q_begin + TQ t ..; rows past the tensor are TMA's zeros). Returns the
+// stages issued.
+template <int S>
+__device__ __forceinline__ int ring_load(const CUtensorMap* tq, const CUtensorMap* tp,
+                                         uint32_t base, uint32_t full0, uint32_t empty0, int n0,
+                                         int q_begin, int t1, int nc) {
+  int it = 0;
+  for (int t = 0; t < t1; ++t)
+    for (int c = 0; c < nc; ++c, ++it) {
+      const int s = it % S;
+      mbar_wait(empty0 + 8u * s, ((it / S) & 1) ^ 1);   // the first round passes at once
+      mbar_expect_tx(full0 + 8u * s, STAGE1);
+      const uint32_t st = base + s * STAGE1;
+      tma_load_2d(tp, st, full0 + 8u * s, 64 * c, n0);
+#pragma unroll
+      for (int h = 0; h < TQ / 64; ++h)
+        tma_load_2d(tq, st + BOX + h * BOX, full0 + 8u * s, 64 * c, q_begin + TQ * t + 64 * h);
+    }
+  return it;
+}
+
+// Consumer warpgroup wg: S^T = P Q^T over the nc stages from `it` on for
+// its 128 of the tile's queries (wgmma m64n128, the 64 passages as its
+// rows), each stage released (by lane 0 of each warp) once its product has
+// landed. Register 4i + e of acc: passage 16 v + g + 8 (e / 2), query 128
+// wg + 8 i + 2 t4 + e % 2 of the tile (v the warp in the warpgroup, g =
+// lane / 4, t4 = lane % 4). Returns the next stage's count.
+template <int S>
+__device__ __forceinline__ int ring_scores(float (&acc)[64], uint32_t base, uint32_t full0,
+                                           uint32_t empty0, int wg, int lane, int nc, int it) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < nc; ++c, ++it) {
+    const int s = it % S;
+    const uint32_t st = base + s * STAGE1;
+    mbar_wait(full0 + 8u * s, (it / S) & 1);
+    fence_regs<64>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n128(acc, desc_sw128(st + kk * 32, 16, 1024),
+                    desc_sw128(st + BOX + wg * 128 * 128 + kk * 32, 16, 1024), (c | kk) != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<64>(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8u * s);
+  }
+  return it;
 }
 
 // ---------------------------------------------------------------------------
@@ -890,18 +1009,7 @@ infonce_dp_cluster_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       prefetch_tensormap(&tq);
       prefetch_tensormap(&tp);
-      int it = 0;
-      for (int t = 0; t < t1; ++t)
-        for (int c = 0; c < nc; ++c, ++it) {
-          const int s = it % S1;
-          mbar_wait(empty1(s), ((it / S1) & 1) ^ 1);   // the first round passes at once
-          mbar_expect_tx(full1(s), STAGE1);
-          const uint32_t st = base + s * STAGE1;
-          tma_load_2d(&tp, st, full1(s), 64 * c, n0);
-#pragma unroll
-          for (int h = 0; h < TQ / 64; ++h)
-            tma_load_2d(&tq, st + BOX + h * BOX, full1(s), 64 * c, q_begin + TQ * t + 64 * h);
-        }
+      const int it = ring_load<S1>(&tq, &tp, base, full1(0), empty1(0), n0, q_begin, t1, nc);
       // pass 2 writes over the ring: every pass-1 stage released first
       for (int s = 0; s < S1 && s < it; ++s)
         mbar_wait(empty1(s), ((it - s + S1 - 1) / S1 - 1) & 1);
@@ -950,23 +1058,7 @@ infonce_dp_cluster_kernel(const __grid_constant__ CUtensorMap tq,
       wg_sync();                           // the last tile's values are read
       load_query_values(qv, 128, q_begin + ql0, min(M, q_end), labels, lse, g_lse, g_pos,
                         inv_tau, tid % 128, 128);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-      for (int c = 0; c < nc; ++c, ++it) {
-        const int s = it % S1;
-        const uint32_t st = base + s * STAGE1;
-        mbar_wait(full1(s), (it / S1) & 1);
-        fence_regs<64>(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n128(acc, desc_sw128(st + kk * 32, 16, 1024),
-                        desc_sw128(st + BOX + wg * 128 * 128 + kk * 32, 16, 1024), (c | kk) != 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs<64>(acc);
-        release(empty1(s));
-      }
+      it = ring_scores<S1>(acc, base, full1(0), empty1(0), wg, lane, nc, it);
       wg_sync();   // this tile's values are written
       // register 4i + e: passage pa (e < 2) or pb, query ql0 + 8i + 2 t4 + e % 2
       uint32_t pk[32];
@@ -1062,6 +1154,47 @@ infonce_dp_cluster_kernel(const __grid_constant__ CUtensorMap tq,
   cluster_wait();   // no rank leaves while another may read its strip
 }
 
+// The small kernels' scores: thread 0 puts the P tile of passages n0..
+// (64) and the query rows 0..15 in flight by TMA, every d-chunk on its own
+// barrier, and the warpgroup accumulates S^T = P Q^T (wgmma m64n16, the
+// queries as N; rows past M are TMA's zeros) as each chunk lands. Register
+// 4i + e of acc: passage 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2.
+// Opens with a block barrier, which also orders the caller's earlier
+// shared-memory writes.
+__device__ __forceinline__ void small_scores(const CUtensorMap* tq, const CUtensorMap* tp,
+                                             uint32_t base, int nc, int n0, float (&acc)[8]) {
+  const uint32_t bar = base + small_off_bar(nc);
+  const uint32_t p_s = base, q_s = base + nc * BOX;
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < nc; ++c) mbar_init(bar + 8u * c, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    prefetch_tensormap(tq);
+    prefetch_tensormap(tp);
+    for (int c = 0; c < nc; ++c) {
+      mbar_expect_tx(bar + 8u * c, BOX + QBOX);
+      tma_load_2d(tp, p_s + c * BOX, bar + 8u * c, 64 * c, n0);
+      tma_load_2d(tq, q_s + c * QBOX, bar + 8u * c, 64 * c, 0);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    mbar_wait(bar + 8u * c, 0);
+    fence_regs<8>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n16<0>(acc, desc_sw128(p_s + c * BOX + kk * 32, 16, 1024),
+                      desc_sw128(q_s + c * QBOX + kk * 32, 16, 1024), (c | kk) != 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs<8>(acc);
+}
+
 // ---------------------------------------------------------------------------
 // dQ and dP at up to SQ query rows: one block (one warpgroup) per 64
 // passages. Thread 0 loads the whole P tile and the queries by TMA, every
@@ -1104,39 +1237,10 @@ infonce_small_kernel(const __grid_constant__ CUtensorMap tq,
   float* qv = reinterpret_cast<float*>(smem + small_off_qv(nc));
   const int* qlab = reinterpret_cast<const int*>(qv + 3 * SQ);
   load_query_values(qv, SQ, 0, M, labels, lse, g_lse, g_pos, inv_tau, tid, 128);
-  const uint32_t bar = base + small_off_bar(nc);
   const uint32_t p_s = base, q_s = base + nc * BOX;
-  if (tid == 0) {
-    for (int c = 0; c < nc; ++c) mbar_init(bar + 8u * c, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    prefetch_tensormap(&tq);
-    prefetch_tensormap(&tp);
-    for (int c = 0; c < nc; ++c) {
-      mbar_expect_tx(bar + 8u * c, BOX + QBOX);
-      tma_load_2d(&tp, p_s + c * BOX, bar + 8u * c, 64 * c, n0);
-      tma_load_2d(&tq, q_s + c * QBOX, bar + 8u * c, 64 * c, 0);
-    }
-  }
-
   // S^T: register 4i + e is passage 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2
   float acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    mbar_wait(bar + 8u * c, 0);
-    fence_regs<8>(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n16<0>(acc, desc_sw128(p_s + c * BOX + kk * 32, 16, 1024),
-                      desc_sw128(q_s + c * QBOX + kk * 32, 16, 1024), (c | kk) != 0);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-  fence_regs<8>(acc);
+  small_scores(&tq, &tp, base, nc, n0, acc);
 
   const int pl = 16 * v + g;   // this thread's passages: n0 + pl and + 8
   const bool va = passage_valid(col_valid, n0 + pl, N);
@@ -1247,6 +1351,256 @@ infonce_small_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward (bf16). Each block owns one tile of 64 passages and a range of
+// query rows, and writes for each of its rows that tile's partial: max of
+// the valid columns' s = raw inv_tau, sum over the valid columns of
+// exp(s - max) (ex2 with log2(e) folded into the scores: 2^(raw k1 - max
+// log2(e)), k1 = inv_tau log2(e)), and pos = s at the label when the label
+// lies in the tile (-1e30 on a masked column), else 0. A tile whose 64
+// columns are all masked computes nothing and writes what computing it
+// gives: max -1e30, sum-exp the count of its in-range columns (each
+// exp(-1e30 - (-1e30)) = 1, so a fully masked row keeps the finite lse
+// -1e30 + log N), pos -1e30 where the label lies in it. The statistics of
+// a score tile come from the registers that hold it (tile_partials).
+// ---------------------------------------------------------------------------
+struct MaxOp {
+  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+struct AddOp {
+  __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
+};
+
+// One step of a reduce-scatter over lane bit `off`: this lane keeps the
+// upper HALF of v when its bit is set, sends the other half to its partner
+// and combines what comes back into v[0 .. HALF).
+template <int HALF, class Op>
+__device__ __forceinline__ void scatter_step(float* v, bool hi, int off, Op op) {
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const float send = hi ? v[k] : v[HALF + k];
+    const float keep = hi ? v[HALF + k] : v[k];
+    v[k] = op(keep, __shfl_xor_sync(0xffffffffu, send, off));
+  }
+}
+
+// Combines value(j), j < J, over the 8 lanes that share lane % 4 (lane bits
+// 2-4: the passage rows g of a wgmma accumulator). J >= 8: a reduce-scatter
+// (J / 2 + J / 4 + J / 8 shuffles), lane g left with j in [g J / 8, (g + 1)
+// J / 8) in v[0 .. J / 8); each value is made just before its first
+// shuffle, so no more than J / 2 of them are live at once. J < 8: a
+// butterfly (3 J shuffles), every lane with every j in v.
+template <int J, class F, class Op>
+__device__ __forceinline__ void reduce_rows(float (&v)[J], int lane, F value, Op op) {
+  if constexpr (J >= 8) {
+    const bool hi = lane & 16;
+#pragma unroll
+    for (int k = 0; k < J / 2; ++k) {
+      const float lo_v = value(k), hi_v = value(J / 2 + k);
+      v[k] = op(hi ? hi_v : lo_v, __shfl_xor_sync(0xffffffffu, hi ? lo_v : hi_v, 16));
+    }
+    scatter_step<J / 4>(v, lane & 8, 8, op);
+    scatter_step<J / 8>(v, lane & 4, 4, op);
+  } else {
+#pragma unroll
+    for (int k = 0; k < J; ++k) v[k] = value(k);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+      for (int k = 0; k < J; ++k) v[k] = op(v[k], __shfl_xor_sync(0xffffffffu, v[k], off));
+  }
+}
+
+// This lane's share of v (reduce_rows) as warp v_idx's value of each query
+// column: red[v_idx Q + column]. Value j of a thread is column 8 (j / 2) +
+// 2 t4 + j % 2 of the accumulator.
+template <int J>
+__device__ __forceinline__ void store_rows(float* red, const float (&v)[J], int v_idx, int lane) {
+  constexpr int Q = 4 * J;
+  const int g = lane / 4, t4 = lane % 4;
+  if constexpr (J >= 8) {
+#pragma unroll
+    for (int k = 0; k < J / 8; ++k) {
+      const int j = g * (J / 8) + k;
+      red[v_idx * Q + 8 * (j >> 1) + 2 * t4 + (j & 1)] = v[k];
+    }
+  } else {
+    if (g == 0)
+#pragma unroll
+      for (int j = 0; j < J; ++j) red[v_idx * Q + 8 * (j >> 1) + 2 * t4 + (j & 1)] = v[j];
+  }
+}
+
+// The partials of one warpgroup's score tile: acc holds S^T (64 passages x
+// Q = 8 NI query columns, register 4i + e: passage pa + 8 (e / 2), column
+// 8 i + 2 t4 + e % 2). Columns are query rows qbase + column (below q_end).
+// scratch (7 Q words): the columns' labels (filled by the caller before
+// its first `sync`), then pos, row max and the 4 warps' values of each
+// column. t is the thread in the warpgroup; `sync` a barrier of the
+// warpgroup. Leaves with the scratch still read by threads t < Q.
+template <int NI, class Sync>
+__device__ __forceinline__ void tile_partials(const float (&acc)[4 * NI], float* scratch, int t,
+                                              int qbase, int q_end, int n0, int N,
+                                              const uint8_t* __restrict__ col_valid,
+                                              float inv_tau, float k1, float* __restrict__ part,
+                                              int tiles, int tile, int M, Sync sync) {
+  constexpr int Q = 8 * NI, J = 2 * NI;
+  const int v = t / 32, lane = t % 32, g = lane / 4, t4 = lane % 4;
+  const int* lab = reinterpret_cast<const int*>(scratch);
+  float* posv = scratch + Q;
+  float* mrow = scratch + 2 * Q;
+  float* red = scratch + 3 * Q;
+  const int pa = n0 + 16 * v + g, pb = pa + 8;
+  const bool va = passage_valid(col_valid, pa, N), vb = passage_valid(col_valid, pb, N);
+
+  // the tile's max of each column (a block computes only tiles with a
+  // valid column, so the max is a valid column's); value j of this thread
+  // is column 8 (j / 2) + 2 t4 + j % 2, its registers 4 (j / 2) + j % 2 (+ 2)
+  float x[J];
+  reduce_rows(x, lane, [&](int j) {
+    const int r = 4 * (j >> 1) + (j & 1);
+    return fmaxf(va ? acc[r] * inv_tau : NEG_INF, vb ? acc[r + 2] * inv_tau : NEG_INF);
+  }, MaxOp{});
+  store_rows(red, x, v, lane);
+  sync();   // also orders the caller's labels
+  if (t < Q) mrow[t] = fmaxf(fmaxf(red[t], red[Q + t]), fmaxf(red[2 * Q + t], red[3 * Q + t]));
+  sync();
+  // sum-exp of each column over the valid passages; pos from the thread
+  // that holds the label's score
+  reduce_rows(x, lane, [&](int j) {
+    const int r = 4 * (j >> 1) + (j & 1), col = 8 * (j >> 1) + 2 * t4 + (j & 1);
+    const float sa = acc[r] * inv_tau, sb = acc[r + 2] * inv_tau;
+    const int l = lab[col];
+    if (l == pa) posv[col] = va ? sa : NEG_INF;
+    if (l == pb) posv[col] = vb ? sb : NEG_INF;
+    const float ml = mrow[col] * LOG2E;
+    const float ea = ex2(fmaf(acc[r], k1, -ml)), eb = ex2(fmaf(acc[r + 2], k1, -ml));
+    return (va ? ea : 0.f) + (vb ? eb : 0.f);
+  }, AddOp{});
+  store_rows(red, x, v, lane);
+  sync();
+  if (t < Q && qbase + t < q_end) {
+    const int l = lab[t];
+    const size_t at = size_t(qbase + t) * tiles + tile, plane = size_t(tiles) * M;
+    part[at] = mrow[t];
+    part[plane + at] = ((red[t] + red[Q + t]) + red[2 * Q + t]) + red[3 * Q + t];
+    part[2 * plane + at] = l >= n0 && l < min(n0 + PB, N) ? posv[t] : 0.f;
+  }
+}
+
+// The partials of a wholly masked passage tile for query rows [q0, q1).
+__device__ __forceinline__ void masked_partials(float* __restrict__ part,
+                                                const int* __restrict__ labels, int tiles,
+                                                int tile, int n0, int N, int M, int q0, int q1,
+                                                int threads) {
+  const int n1 = min(n0 + PB, N);
+  const size_t plane = size_t(tiles) * M;
+  for (int q = q0 + int(threadIdx.x); q < q1; q += threads) {
+    const int l = labels[q];
+    const size_t at = size_t(q) * tiles + tile;
+    part[at] = NEG_INF;
+    part[plane + at] = float(n1 - n0);
+    part[2 * plane + at] = l >= n0 && l < n1 ? NEG_INF : 0.f;
+  }
+}
+
+// The forward at up to SQ query rows: one block (one warpgroup) per 64
+// passages, the scores as in the small dQ/dP kernel (small_scores).
+__global__ void __launch_bounds__(128, 1)
+infonce_fwd_small_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
+                         const uint8_t* __restrict__ col_valid, float* __restrict__ part, int M,
+                         int N, int d, float inv_tau, float k1) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int n0 = blockIdx.x * PB, tiles = gridDim.x;
+  const int nc = (d + 63) / 64;
+  const int tid = threadIdx.x;
+
+  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {
+    masked_partials(part, labels, tiles, blockIdx.x, n0, N, M, 0, M, 128);
+    return;
+  }
+  float* scratch = reinterpret_cast<float*>(smem + small_off_c(nc));
+  if (tid < SQ) reinterpret_cast<int*>(scratch)[tid] = tid < M ? labels[tid] : -1;
+  float acc[8];
+  small_scores(&tq, &tp, base, nc, n0, acc);
+  grid_dependents_launch();   // the merge may start now: it waits for this grid's end
+  tile_partials<2>(acc, scratch, tid, 0, M, n0, N, col_valid, inv_tau, k1, part, tiles,
+                   blockIdx.x, M, [] { __syncthreads(); });
+}
+
+// The forward at more query rows. Grid: passage tiles x row groups of rq
+// rows (a multiple of TQ; ops.fwd_plan), block b on tile b / groups. A
+// producer warp feeds two consumer warpgroups through an SF-stage ring
+// (ring_load: a P chunk and a 256-row Q chunk a stage, as the dP cluster
+// kernel's pass 1); each warpgroup takes 128 of a tile's rows, its scores
+// by wgmma m64n128 (ring_scores) and their partials from its registers
+// (tile_partials).
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+infonce_fwd_rows_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
+                        const uint8_t* __restrict__ col_valid, float* __restrict__ part, int M,
+                        int N, int d, int rq, float inv_tau, float k1) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int groups = (M + rq - 1) / rq;
+  const int tile = blockIdx.x / groups, tiles = gridDim.x / groups;
+  const int n0 = tile * PB;
+  const int q_begin = (blockIdx.x % groups) * rq, q_end = min(M, q_begin + rq);
+  const int t1 = (q_end - q_begin + TQ - 1) / TQ;
+  const int nc = (d + 63) / 64;
+  const int tid = threadIdx.x, warp = tid / 32;
+
+  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {
+    masked_partials(part, labels, tiles, tile, n0, N, M, q_begin, q_end, CLUSTER_THREADS);
+    return;
+  }
+
+  const uint32_t full0 = base + OFF_FBAR, empty0 = full0 + 8u * SF;
+  if (tid == 0) {
+    for (int s = 0; s < SF; ++s) {
+      mbar_init(full0 + 8u * s, 1);
+      mbar_init(empty0 + 8u * s, 8);   // one arrival a consumer warp: both warpgroups read a stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {   // producer warp: lane 0 issues every load
+    if (tid % 32 == 0) {
+      prefetch_tensormap(&tq);
+      prefetch_tensormap(&tp);
+      ring_load<SF>(&tq, &tp, base, full0, empty0, n0, q_begin, t1, nc);
+    }
+    return;
+  }
+
+  const int wg = warp / 4, t = tid % 128;
+  float* scratch = reinterpret_cast<float*>(smem + OFF_FSTATS + wg * FSTATS);
+  auto wg_sync = [wg]() {
+    if (wg == 0)   // barrier 0 is __syncthreads; one id a consumer warpgroup
+      named_bar_sync<1, 128>();
+    else
+      named_bar_sync<2, 128>();
+  };
+  float acc[64];
+  int it = 0;
+  for (int ti = 0; ti < t1; ++ti) {
+    const int qbase = q_begin + ti * TQ + wg * 128;
+    wg_sync();   // the last tile's scratch is read
+    reinterpret_cast<int*>(scratch)[t] = qbase + t < q_end ? labels[qbase + t] : -1;
+    it = ring_scores<SF>(acc, base, full0, empty0, wg, tid % 32, nc, it);
+    if (ti == t1 - 1) grid_dependents_launch();   // the merge may start: it waits for the end
+    tile_partials<16>(acc, scratch, t, qbase, q_end, n0, N, col_valid, inv_tau, k1, part, tiles,
+                      tile, M, wg_sync);
+  }
+}
+
 // Rank-2 bf16 tensor map over a row-major (rows, cols) matrix, boxes of
 // 64 columns x box_rows (hopper.cuh: 128-byte swizzled, zero past each edge)
 cudaError_t map2d(CUtensorMap* map, const void* ptr, int cols, int rows, int box_rows) {
@@ -1317,6 +1671,52 @@ cudaError_t small(const void* q, const void* p, const int* labels, const uint8_t
   return cudaGetLastError();
 }
 
+struct FwdSmallTag {};
+struct FwdRowsTag {};
+
+// The forward's Hopper kernel, then the merge of each row's tile partials
+// (part: (3, M, tiles) fp32).
+cudaError_t fwd_tiles(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
+                      float* lse, float* pos, float* amax, float* part, int M, int N, int d, int rq,
+                      float inv_tau, cudaStream_t st) {
+  if (d > 64 * NC_MAX || (M > SQ && (rq < TQ || rq % TQ))) return cudaErrorInvalidValue;
+  CUtensorMap tq, tp;
+  cudaError_t err;
+  if ((err = map2d(&tq, q, d, M, M <= SQ ? SQ : 64)) != cudaSuccess ||
+      (err = map2d(&tp, p, d, N, PB)) != cudaSuccess)
+    return err;
+  const int tiles = (N + PB - 1) / PB;
+  const float k1 = inv_tau * LOG2E;
+  if (M <= SQ) {
+    if ((err = allow_smem_once<FwdSmallTag>(reinterpret_cast<const void*>(infonce_fwd_small_kernel),
+                                            small_smem(NC_MAX))) != cudaSuccess)
+      return err;
+    infonce_fwd_small_kernel<<<tiles, 128, small_smem((d + 63) / 64), st>>>(
+        tq, tp, labels, col_valid, part, M, N, d, inv_tau, k1);
+  } else {
+    if ((err = allow_smem_once<FwdRowsTag>(reinterpret_cast<const void*>(infonce_fwd_rows_kernel),
+                                           SMEM_FWD)) != cudaSuccess)
+      return err;
+    infonce_fwd_rows_kernel<<<tiles * ((M + rq - 1) / rq), CLUSTER_THREADS, SMEM_FWD, st>>>(
+        tq, tp, labels, col_valid, part, M, N, d, rq, inv_tau, k1);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // the merge as a programmatic dependent: launched while the tiles run,
+  // it waits in griddepcontrol.wait for their partials
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned((M + WARPS - 1) / WARPS));
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, infonce_stats_merge_kernel, static_cast<const float*>(part), lse,
+                           pos, amax, M, tiles);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace hp
 
 }  // namespace
@@ -1343,6 +1743,21 @@ int fused_infonce_fwd_launch(const void* q, const void* p, const void* labels,
     return fwd<float>(q, p, labels, col_valid, lse, pos, amax, part, M, N, d,
                       splits, tiles_per_split, inv_tau, vec, st);
   return int(cudaErrorInvalidValue);
+}
+
+// The bf16 forward on Hopper (q and p row-major, 16-byte aligned bases, d a
+// multiple of 8 up to 1024): M up to 16 takes infonce_fwd_small_kernel (rq
+// unused), else infonce_fwd_rows_kernel in row groups of rq rows (a
+// multiple of 256; ops.fwd_plan). part: fp32 (3, M, (N + 63) / 64) scratch.
+int fused_infonce_fwd_hopper_launch(const void* q, const void* p, const void* labels,
+                                    const void* col_valid, void* lse, void* pos, void* amax,
+                                    void* part, int M, int N, int d, int rq, float inv_tau,
+                                    void* stream) {
+  return int(hp::fwd_tiles(q, p, static_cast<const int*>(labels),
+                           static_cast<const uint8_t*>(col_valid), static_cast<float*>(lse),
+                           static_cast<float*>(pos), static_cast<float*>(amax),
+                           static_cast<float*>(part), M, N, d, rq, inv_tau,
+                           static_cast<cudaStream_t>(stream)));
 }
 
 // out: dq (M, d) in the operand type. partial: fp32 (splits, M, d) scratch,
@@ -1457,6 +1872,8 @@ int fused_infonce_kernel_attributes(int which, int* regs, int* local) {
       reinterpret_cast<const void*>(hp::infonce_dp_cluster_kernel),
       reinterpret_cast<const void*>(hp::infonce_small_kernel<true>),
       reinterpret_cast<const void*>(hp::infonce_small_kernel<false>),
+      reinterpret_cast<const void*>(hp::infonce_fwd_small_kernel),
+      reinterpret_cast<const void*>(hp::infonce_fwd_rows_kernel),
   };
   if (which < 0 || which >= int(sizeof(kernels) / sizeof(kernels[0])))
     return int(cudaErrorInvalidValue);

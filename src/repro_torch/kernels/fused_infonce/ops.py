@@ -14,35 +14,46 @@ Three entry points, one per TPU kernel, each with a launch count:
 (ref.py); on CUDA tensors they launch their kernel or raise. Each kernel is
 built from source at its first launch.
 
-dQ and dP (the TPU kernels ``_dq_kernel`` and ``_dp_kernel``) count the
-path of each call in ``fused_infonce_dq.paths`` and ``fused_infonce_dp.paths``
-(``path_of``):
+The three count the path of each call in ``fused_infonce_fwd.paths``,
+``fused_infonce_dq.paths`` and ``fused_infonce_dp.paths`` (``path_of``):
 
 - ``"hopper"``: bf16 operands with d a multiple of 8 up to ``HOPPER_D_MAX``
   (TMA reads rows of a multiple of 16 bytes; a base that is not 16-byte
-  aligned is copied first). dQ and dP at up to ``SMALL_M`` query rows (a
-  contaccum chunk's 8 local queries) take one block per 64 passages: the
-  block's P tile is read once by TMA, every d-chunk in flight, scores and
-  both products on ``wgmma`` with the queries as its N side; dQ's 33 fp32
-  partials are summed in block order by a second, small kernel. dP at more
-  rows (the 2048 query-bank rows) takes clusters of ``dp_plan(m)[0]``
-  blocks on one tile of 64 passages: each rank turns the scores of its
-  query rows into bf16 coefficients in registers and keeps them in shared
-  memory, then computes its share of d for every query row, reading the
-  other ranks' coefficients through distributed shared memory; one launch,
-  no fp32 partial in device memory. On an H100 the bounds are the bytes of
-  P at the local rows (1-2 us) and the tensor cores at the bank rows (13
-  us); the local-row kernels are held back by latency (33 blocks), the
-  bank-row kernel by each block's stream of Q and P through a ring of about
-  100 KB (PERF.md).
+  aligned is copied first). The forward, at any M: each block takes one
+  tile of 64 passages and writes each of its query rows' partial (max,
+  sum-exp, pos) over that tile, taken from the score registers; a second
+  kernel merges each row's partials (launched as a programmatic dependent,
+  so its launch overlaps the first). Up to ``SMALL_M`` rows one block per
+  tile reads its P tile once by TMA, the scores on ``wgmma`` with the
+  queries as its N side; above, ``fwd_plan`` splits the rows into groups
+  so that (passage tiles x groups) blocks fill the card once (4 groups of
+  512 at the 2048 query-bank rows: 132 blocks), each streaming P and Q
+  chunks through a ring to two ``wgmma`` warpgroups. dQ and dP at up to
+  ``SMALL_M`` query rows (a contaccum chunk's 8 local queries) take one
+  block per 64 passages: the block's P tile is read once by TMA, every
+  d-chunk in flight, scores and both products on ``wgmma`` with the queries
+  as its N side; dQ's 33 fp32 partials are summed in block order by a
+  second, small kernel. dP at more rows (the 2048 query-bank rows) takes
+  clusters of ``dp_plan(m)[0]`` blocks on one tile of 64 passages: each rank
+  turns the scores of its query rows into bf16 coefficients in registers
+  and keeps them in shared memory, then computes its share of d for every
+  query row, reading the other ranks' coefficients through distributed
+  shared memory; one launch, no fp32 partial in device memory. On an H100
+  the bounds are the bytes of P at the local rows (1-2 us) and the tensor
+  cores at the bank rows (6.6 us forward, 13 us dP); the local-row kernels
+  are held back by latency (33 blocks), the bank-row kernels by each
+  block's stream of Q and P from L2 (PERF.md).
 - ``"wmma"``: other bf16 shapes (d not a multiple of 8 or above
   ``HOPPER_D_MAX``, dQ above ``SMALL_M`` rows, dP above ``MAX_RANKS *
   RANK_ROWS`` rows): the first kernels (``wmma`` tiles, synchronous loads,
-  fp32 partials and a reduce kernel when the long axis is split).
+  fp32 partials and a merge or reduce kernel when the long axis is split).
 - ``"fp32"``: fp32 operands (or bf16 with fp32): CUDA-core FMAs, no TF32.
 
-A block whose 64 passages are all masked writes zeros without computing:
-that is what the coefficient gives there.
+A block whose 64 passages are all masked computes nothing: dQ and dP write
+zeros (what the coefficient gives there); the forward writes the partial
+that computing the tile would give (max -1e30, sum-exp the count of its
+in-range columns, pos -1e30 where the label lies in it), so a fully masked
+row keeps the finite lse ~ -1e30.
 
 ``merge_row_stats``, ``fused_infonce_rows`` and ``fused_infonce_loss`` are
 plain tensor code over the stats, as in ``repro.kernels.fused_infonce.ops``.
@@ -86,10 +97,15 @@ KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stat
            "infonce_dq_kernel<bf16>", "infonce_dq_kernel<fp32>", "infonce_dp_kernel<bf16>",
            "infonce_dp_kernel<fp32>", "infonce_grad_reduce_kernel<bf16>",
            "infonce_grad_reduce_kernel<fp32>", "infonce_dp_cluster_kernel",
-           "infonce_small_kernel<dq>", "infonce_small_kernel<dp>")
-#: the kernels the train path's dQ and dP run (bf16, Hopper path)
-HOPPER_KERNELS = ("infonce_dp_cluster_kernel", "infonce_small_kernel<dq>",
-                  "infonce_small_kernel<dp>", "infonce_grad_reduce_kernel<bf16>")
+           "infonce_small_kernel<dq>", "infonce_small_kernel<dp>", "infonce_fwd_small_kernel",
+           "infonce_fwd_rows_kernel")
+#: the kernels the train path's forward, dQ and dP run (bf16, Hopper path)
+HOPPER_KERNELS = ("infonce_fwd_small_kernel", "infonce_fwd_rows_kernel",
+                  "infonce_stats_merge_kernel", "infonce_dp_cluster_kernel",
+                  "infonce_small_kernel<dq>", "infonce_small_kernel<dp>",
+                  "infonce_grad_reduce_kernel<bf16>")
+#: SMs of an H100 SXM: the card the forward's default row plan fills
+H100_SMS = 132
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -105,9 +121,10 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ptr] * 9 + [i32] * 5 + [ctypes.c_float, i32, i32, ptr]
     lib.fused_infonce_dp_hopper_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_float, ptr]
     lib.fused_infonce_dq_hopper_launch.argtypes = [ptr] * 9 + [i32] * 3 + [ctypes.c_float, ptr]
+    lib.fused_infonce_fwd_hopper_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ctypes.c_float, ptr]
     for fn in (lib.fused_infonce_fwd_launch, lib.fused_infonce_dq_launch,
                lib.fused_infonce_dp_launch, lib.fused_infonce_dp_hopper_launch,
-               lib.fused_infonce_dq_hopper_launch):
+               lib.fused_infonce_dq_hopper_launch, lib.fused_infonce_fwd_hopper_launch):
         fn.restype = ctypes.c_int
     lib.fused_infonce_dp_max_clusters.argtypes = [i32]
     lib.fused_infonce_kernel_attributes.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
@@ -148,20 +165,42 @@ def dp_plan(m: int) -> Tuple[int, int]:
     return -(-m // rq), rq
 
 
-def hopper_blocks(kind: str, m: int, n: int) -> int:
-    """Blocks of the Hopper kernel that a dQ (kind "dq") or dP ("dp") call
-    of m query rows and n passages launches (dQ's reduce kernel aside)."""
+def fwd_plan(m: int, n: int, sm_count: int = H100_SMS) -> int:
+    """Query rows a block of the forward's many-row kernel takes (m >
+    SMALL_M): a multiple of PASS1_TILE, the rows split into as many groups
+    as let (passage tiles x groups) blocks fill the SMs once, and no more
+    groups than tiles of PASS1_TILE rows. At a contaccum_bf16 chunk's bank
+    rows (m = 2048, 33 passage tiles): 4 groups of 512 rows, 132 blocks."""
+    if m <= SMALL_M:
+        raise ValueError(f"the many-row forward takes M > {SMALL_M}")
+    q_tiles = -(-m // PASS1_TILE)
+    groups = max(1, min(q_tiles, sm_count // -(-n // PASSAGE_TILE)))
+    return -(-q_tiles // groups) * PASS1_TILE
+
+
+def hopper_blocks(kind: str, m: int, n: int, sm_count: int = H100_SMS) -> int:
+    """Blocks of the Hopper kernel that a forward (kind "fwd"), dQ ("dq")
+    or dP ("dp") call of m query rows and n passages launches (the merge
+    and reduce kernels aside); the forward's row groups as on a card of
+    ``sm_count`` SMs."""
     tiles = -(-n // PASSAGE_TILE)
-    return tiles if kind == "dq" or m <= SMALL_M else tiles * dp_plan(m)[0]
+    if kind == "dq" or m <= SMALL_M:
+        return tiles
+    if kind == "fwd":
+        return tiles * -(-m // fwd_plan(m, n, sm_count))
+    return tiles * dp_plan(m)[0]
 
 
 def path_of(kind: str, dtype: torch.dtype, m: int, d: int) -> str:
-    """The path (``PATHS``) a CUDA dQ (kind "dq") or dP ("dp") call takes
-    with operands of this common dtype, m query rows and rows of d."""
+    """The path (``PATHS``) a CUDA forward (kind "fwd"), dQ ("dq") or dP
+    ("dp") call takes with operands of this common dtype, m query rows and
+    rows of d."""
     if dtype != torch.bfloat16:
         return "fp32"
     if d % 8 or d > HOPPER_D_MAX:
         return "wmma"
+    if kind == "fwd":
+        return "hopper"
     if kind == "dq":
         return "hopper" if m <= SMALL_M else "wmma"
     return "hopper" if m <= MAX_RANKS * RANK_ROWS else "wmma"
@@ -273,19 +312,30 @@ def fused_infonce_fwd(
     n = p.shape[0]
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    m_tiles = -(-m // BLOCK_M)
-    splits, per = split_plan(-(-n // BLOCK_N), m_tiles, sms)
+    path = path_of("fwd", ct, m, d)
+    mask = None if col_valid is None else col_valid.data_ptr()
     lse, pos, amax = (torch.empty((m,), dtype=STATS_DTYPE, device=dev) for _ in range(3))
-    part = torch.empty((3, m, splits) if splits > 1 else (1,), dtype=STATS_DTYPE, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.fused_infonce_fwd_launch(
-            q.data_ptr(), p.data_ptr(), labels.data_ptr(),
-            None if col_valid is None else col_valid.data_ptr(),
-            lse.data_ptr(), pos.data_ptr(), amax.data_ptr(), part.data_ptr(),
-            m, n, d, splits, per, float(inv_tau), _DTYPE_CODES[ct], vec, _stream(dev),
-        )
-    _raise_on(err, "fused_infonce forward", lib)
+    if path == "hopper":
+        q, p = _tma_ready(q), _tma_ready(p)
+        part = torch.empty((3, m, -(-n // PASSAGE_TILE)), dtype=STATS_DTYPE, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.fused_infonce_fwd_hopper_launch(
+                q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask,
+                lse.data_ptr(), pos.data_ptr(), amax.data_ptr(), part.data_ptr(),
+                m, n, d, fwd_plan(m, n, sms) if m > SMALL_M else 0, float(inv_tau), _stream(dev),
+            )
+    else:
+        splits, per = split_plan(-(-n // BLOCK_N), -(-m // BLOCK_M), sms)
+        part = torch.empty((3, m, splits) if splits > 1 else (1,), dtype=STATS_DTYPE, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.fused_infonce_fwd_launch(
+                q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask,
+                lse.data_ptr(), pos.data_ptr(), amax.data_ptr(), part.data_ptr(),
+                m, n, d, splits, per, float(inv_tau), _DTYPE_CODES[ct], vec, _stream(dev),
+            )
+    _raise_on(err, f"fused_infonce forward ({path})", lib)
     fused_infonce_fwd.launches += 1
+    fused_infonce_fwd.paths[path] += 1
     return lse, pos, amax
 
 
@@ -367,13 +417,15 @@ def fused_infonce_dp(q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau=1.0) ->
 fused_infonce_fwd.launches = 0
 fused_infonce_dq.launches = 0
 fused_infonce_dp.launches = 0
+fused_infonce_fwd.paths = dict.fromkeys(PATHS, 0)
 fused_infonce_dq.paths = dict.fromkeys(PATHS, 0)
 fused_infonce_dp.paths = dict.fromkeys(PATHS, 0)
 
 
 def reset_launches() -> None:
-    """Set the three launch counts and dQ's and dP's path counts to 0."""
+    """Set the three launch counts and their path counts to 0."""
     fused_infonce_fwd.launches = fused_infonce_dq.launches = fused_infonce_dp.launches = 0
+    fused_infonce_fwd.paths = dict.fromkeys(PATHS, 0)
     fused_infonce_dq.paths = dict.fromkeys(PATHS, 0)
     fused_infonce_dp.paths = dict.fromkeys(PATHS, 0)
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.fused_infonce.fused_infonce import fused_infonce_fwd as jax_fwd
 from repro.kernels.fused_infonce.ops import fused_infonce_stats as jax_stats
 from repro.kernels.fused_infonce.ops import merge_row_stats as jax_merge
 from repro.kernels.fused_infonce.ref import infonce_stats_ref as jax_stats_ref
@@ -236,6 +237,90 @@ def test_masked_columns_never_affect_loss_or_grads(m, n, n_garbage, d, seed):
     assert not gp2[n:].any()
 
 
+# ---- the Hopper forward's arithmetic: per-tile partials, then their merge
+
+
+def _tile_partials_merged(q, p, labels, valid, inv_tau):
+    """The Hopper forward (csrc/fused_infonce.cu, hp::tile_partials and
+    masked_partials, then infonce_stats_merge_kernel) in fp32 torch: per
+    tile of ops.PASSAGE_TILE columns each row's partial (max of the valid
+    columns' s, sum of exp(s - max) over them, s at the label when it lies
+    in the tile (-1e30 on a masked column) else 0); a wholly masked tile's
+    partial without its scores: (-1e30, its in-range columns, -1e30 where
+    the label lies in it); then the online-softmax merge of the partials."""
+    s = (q.float() @ p.float().T) * inv_tau
+    m, n = s.shape
+    neg = torch.full((m,), NEG_INF)
+    lab = labels.long()
+    parts = []
+    for n0 in range(0, n, ops.PASSAGE_TILE):
+        n1 = min(n0 + ops.PASSAGE_TILE, n)
+        v = valid[n0:n1]
+        own = (lab >= n0) & (lab < n1)
+        if not v.any():
+            parts.append((neg, torch.full((m,), float(n1 - n0)),
+                          torch.where(own, neg, torch.zeros(m))))
+            continue
+        st = s[:, n0:n1]
+        mx = torch.where(v, st, NEG_INF).max(dim=1).values
+        se = torch.where(v, torch.exp(st - mx[:, None]), 0.0).sum(dim=1)
+        at = (lab - n0).clamp(0, n1 - n0 - 1)
+        at_label = torch.where(v[at], st.gather(1, at[:, None])[:, 0], neg)
+        parts.append((mx, se, torch.where(own, at_label, torch.zeros(m))))
+    pm, pl, pp = (torch.stack(x, dim=1) for x in zip(*parts))
+    amax = pm.max(dim=1).values
+    lse = amax + torch.log((pl * torch.exp(pm - amax[:, None])).sum(dim=1))
+    return lse, pp.sum(dim=1), amax
+
+
+TILE_CASES = {
+    # name: (m, n, d, inv_tau); the mask and labels are set in the test
+    "masked_tile": (9, 150, 16, 1.0),      # columns 64..127 all masked, ragged last tile
+    "all_masked": (5, 70, 8, 1.0),         # every column masked: fully masked rows
+    "all_valid": (6, 133, 12, 2.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_tile_partials_merge_to_the_row_stats(name):
+    """The forward's tile scheme, a wholly masked tile's partial set
+    without its scores, equals the port's plain version (ref.py) and JAX's
+    forward (the Pallas kernel in interpret mode) on the same inputs: a
+    label on a masked column, labels outside [0, N) (past the JAX kernel's
+    column padding) and fully masked rows included. fp32 at 1e-5."""
+    m, n, d, inv_tau = TILE_CASES[name]
+    q, p, labels, valid, _, _ = _problem(20 + sorted(TILE_CASES).index(name), m, n, d, 0.2)
+    if name == "masked_tile":
+        valid[64:128] = False
+        labels[0] = 70                         # in the wholly masked tile
+        valid[5] = False
+        labels[1] = 5                          # a masked column of a computed tile
+    elif name == "all_masked":
+        valid[:] = False
+    else:
+        valid[:] = True
+    labels[2], labels[3] = -1, n + 100         # outside [0, N): pos = 0
+    got = _tile_partials_merged(_t(q), _t(p), torch.from_numpy(labels),
+                                torch.from_numpy(valid), inv_tau)
+    want_port = infonce_stats_ref(_t(q), _t(p), torch.from_numpy(labels),
+                                  torch.from_numpy(valid), inv_tau=inv_tau)
+    want_jax = jax_fwd(jnp.asarray(q), jnp.asarray(p), jnp.asarray(labels),
+                       col_valid=jnp.asarray(valid), inv_tau=inv_tau, block_m=8, block_n=16,
+                       interpret=True)
+    for want in (want_port, want_jax):
+        for g, w, what in zip(got, want, ("lse", "pos", "amax")):
+            np.testing.assert_allclose(_np(g), np.asarray(w, np.float32), rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{name} {what}")
+    lse, pos, amax = (_np(x) for x in got)
+    assert np.isfinite(lse).all()
+    assert pos[2] == 0.0 and pos[3] == 0.0
+    if name == "all_masked":
+        assert (lse < NEG_INF / 2).all() and (amax == np.float32(NEG_INF)).all()
+        assert (pos[[0, 1, 4]] == np.float32(NEG_INF)).all()
+    if name == "masked_tile":
+        assert pos[0] == np.float32(NEG_INF) and pos[1] == np.float32(NEG_INF)
+
+
 # ---- the Hopper kernels' host-side plan (ops.py mirrors csrc/fused_infonce.cu)
 
 PATH_N, PATH_D = 2064, 768      # a contaccum_bf16 chunk: 8 + 8 + 2048 columns, d = 768
@@ -273,16 +358,43 @@ def test_dp_plan_refuses_rows_outside_the_large_kernel(m):
         ops.dp_plan(m)
 
 
-@pytest.mark.parametrize("kind,m", [("dq", 8), ("dp", 8), ("dp", 2048)])
+@pytest.mark.parametrize("kind,m", [("dq", 8), ("dp", 8), ("dp", 2048), ("fwd", 8),
+                                    ("fwd", 2048)])
 def test_path_shapes_fit_one_wave_of_an_h100(kind, m):
     """At a contaccum_bf16 chunk's shapes a Hopper launch has at most one
     block per SM of an H100 SXM (132): 33 passage tiles, and 3 ranks each
-    for the 2048 bank rows (33 clusters of 3; the card runs 39 at once)."""
+    for dP's 2048 bank rows (33 clusters of 3; the card runs 39 at once),
+    4 row groups of 512 each for the forward's."""
     blocks = ops.hopper_blocks(kind, m, PATH_N)
-    assert blocks <= 132
-    assert blocks == (99 if m == 2048 else 33)
-    if m == 2048:
+    assert blocks <= ops.H100_SMS
+    assert blocks == {("dp", 2048): 99, ("fwd", 2048): 132}.get((kind, m), 33)
+    if kind == "dp" and m == 2048:
         assert ops.dp_plan(m) == (3, 768)
+    if kind == "fwd" and m == 2048:
+        assert ops.fwd_plan(m, PATH_N) == 512
+
+
+@pytest.mark.parametrize("m,n,sms", [(17, 2064, 132), (2048, 2064, 132), (2048, 2064, 114),
+                                     (5000, 700, 132), (300, 100000, 132), (257, 64, 132),
+                                     (6144, 1, 8)])
+def test_fwd_plan_gives_every_query_row_to_one_block_per_tile(m, n, sms):
+    """The many-row forward's row groups: rq a multiple of the 256-row
+    query tile; groups of rq rows cover rows 0..m-1 once, each with at
+    least one row; tiles x groups blocks fill no more than the SMs unless
+    one group of all rows already exceeds them."""
+    rq = ops.fwd_plan(m, n, sms)
+    assert rq % ops.PASS1_TILE == 0 and rq > 0
+    groups = -(-m // rq)
+    owned = [row for gi in range(groups) for row in range(gi * rq, min(m, (gi + 1) * rq))]
+    assert owned == list(range(m))
+    tiles = -(-n // ops.PASSAGE_TILE)
+    assert ops.hopper_blocks("fwd", m, n, sms) == tiles * groups
+    assert tiles * groups <= max(sms, tiles)
+
+
+def test_fwd_plan_refuses_the_small_kernels_rows():
+    with pytest.raises(ValueError):
+        ops.fwd_plan(ops.SMALL_M, PATH_N)
 
 
 @pytest.mark.parametrize("kind,dtype,m,d,path", [
@@ -300,16 +412,25 @@ def test_path_shapes_fit_one_wave_of_an_h100(kind, m):
     ("dp", torch.bfloat16, 2048, 36, "wmma"),
     ("dq", torch.float32, 8, 768, "fp32"),
     ("dp", torch.float32, 2048, 768, "fp32"),
+    ("fwd", torch.bfloat16, 8, 768, "hopper"),      # the train path's two forward shapes
+    ("fwd", torch.bfloat16, 2048, 768, "hopper"),
+    ("fwd", torch.bfloat16, 17, 96, "hopper"),
+    ("fwd", torch.bfloat16, 9000, 1024, "hopper"),  # any M
+    ("fwd", torch.bfloat16, 8, 1032, "wmma"),       # wider than HOPPER_D_MAX
+    ("fwd", torch.bfloat16, 2048, 36, "wmma"),      # rows of 72 bytes: no TMA
+    ("fwd", torch.float32, 2048, 768, "fp32"),
 ])
 def test_path_of_each_shape(kind, dtype, m, d, path):
     assert ops.path_of(kind, dtype, m, d) == path
 
 
 def test_reset_launches_clears_every_path():
+    ops.fused_infonce_fwd.paths["hopper"] += 2
     ops.fused_infonce_dq.paths["hopper"] += 3
     ops.fused_infonce_dp.paths["wmma"] += 1
     ops.fused_infonce_dp.launches += 1
     ops.reset_launches()
+    assert ops.fused_infonce_fwd.paths == dict.fromkeys(ops.PATHS, 0)
     assert ops.fused_infonce_dq.paths == dict.fromkeys(ops.PATHS, 0)
     assert ops.fused_infonce_dp.paths == dict.fromkeys(ops.PATHS, 0)
     assert ops.fused_infonce_dp.launches == 0

@@ -135,6 +135,7 @@ def test_path_shapes_bf16(dev, m):
     lse, pos, _ = _check(q, p, labels, valid)
     if m == 8:
         assert pos[5].item() == 0.0 and pos[6].item() == 0.0
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
     assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
     assert ops.fused_infonce_dq.paths == (
         {"hopper": 1, "wmma": 0, "fp32": 0} if m == 8 else {"hopper": 0, "wmma": 1, "fp32": 0})
@@ -159,6 +160,65 @@ def test_two_calls_are_bit_identical(dev, m):
     for _ in range(2):
         again = _grads(q, p, labels, valid, g_lse, g_pos)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_masked", [1000, 0])
+@pytest.mark.parametrize("m", [8, 2048])
+def test_forward_two_calls_are_bit_identical(dev, m, n_masked):
+    """The forward's tile partials merge in a fixed order: the same inputs
+    give the same bits, on the Hopper path at both chunk shapes."""
+    q, p, labels, valid = _path_case(m, dev, n_masked)
+    ops.reset_launches()
+    first = ops.fused_infonce_fwd(q, p, labels, valid)
+    for _ in range(2):
+        again = ops.fused_infonce_fwd(q, p, labels, valid)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert ops.fused_infonce_fwd.paths == {"hopper": 3, "wmma": 0, "fp32": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(8, N_PATH, D), (2048, N_PATH, D), (37, 301, 96),
+                                   (2048, 300, 96), (16, 129, 64), (17, 4100, 40), (1, 1, 8)])
+def test_forward_path_counts(dev, m, n, d):
+    """Every bf16 forward with rows of a multiple of 16 bytes up to
+    HOPPER_D_MAX takes the Hopper path (the small kernel up to 16 rows, the
+    many-row kernel above), ragged N and d = 96 included, and matches the
+    reference."""
+    q = _rand((m, d), torch.bfloat16, dev, 30)
+    p = _rand((n, d), torch.bfloat16, dev, 31)
+    g = torch.Generator(device=dev).manual_seed(32)
+    valid = torch.rand(n, generator=g, device=dev) > 0.3
+    labels = torch.randint(-2, n + 2, (m,), generator=g, device=dev).to(torch.int32)
+    ops.reset_launches()
+    _check(q, p, labels, valid, inv_tau=1.5, grads=False)
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 100])
+def test_forward_wholly_masked_tiles_and_rows(dev, m):
+    """A passage tile whose columns are all masked is skipped and still
+    counts its in-range columns: with labels in it pos is -1e30; with every
+    column masked each row's lse is the finite -1e30 + log N of ref.py,
+    bit for bit, and amax is -1e30."""
+    q = _rand((m, 256), torch.bfloat16, dev, 33)
+    p = _rand((300, 256), torch.bfloat16, dev, 34)
+    valid = torch.ones(300, dtype=torch.bool, device=dev)
+    valid[64:128] = False
+    valid[250:] = False
+    labels = torch.arange(m, dtype=torch.int32, device=dev) * 3
+    labels[0], labels[1] = 70, 260           # in the masked tile; in the masked tail
+    ops.reset_launches()
+    _, pos, _ = _check(q, p, labels, valid, grads=False)
+    assert (pos[:2] == NEG_INF).all()
+    none = torch.zeros(300, dtype=torch.bool, device=dev)
+    lse, pos, amax = ops.fused_infonce_fwd(q, p, labels, none)
+    rl, rp, ra = infonce_stats_ref(q, p, labels, none)
+    assert torch.isfinite(lse).all() and torch.equal(lse, rl)
+    assert torch.equal(amax, ra) and (amax == NEG_INF).all()
+    assert torch.equal(pos, rp)
+    assert ops.fused_infonce_fwd.paths == {"hopper": 2, "wmma": 0, "fp32": 0}
 
 
 @pytest.mark.cuda
@@ -225,7 +285,7 @@ def test_unaligned_base_is_copied_for_tma(dev):
 @pytest.mark.cuda
 def test_hopper_kernels_keep_to_registers(dev):
     """No local memory (spills or stack) in the kernels of the train path's
-    dQ and dP, as the card reports them."""
+    forward, dQ and dP, as the card reports them."""
     for name in ops.HOPPER_KERNELS:
         attrs = ops.kernel_attributes(name)
         assert attrs["local_bytes"] == 0, (name, attrs)
