@@ -22,10 +22,12 @@ Phases, one JSON line each:
                shapes of a contaccum_bf16 chunk (M=8 local queries with
                some labels out of range, and M=2048 query-bank rows, against
                N=2064 columns of which the last 1000 are masked; d=768,
-               bf16), M=2048 again with every column valid, an fp32 case and
-               a small ragged case; kernel, plain, library and bound times,
-               forward and backward apart; the forward and dP at both
-               shapes (and all valid) and dQ at M=8 must take the Hopper
+               bf16), M=2048 again with every column valid, the same three
+               at a contaccum_mined chunk's N=2096 (4 mined columns a
+               query), an fp32 case and a small ragged case; kernel, plain,
+               library and bound times, forward and backward apart; the
+               forward and dP at every M=2048 case and all three at every
+               M=8 case must take the Hopper
                kernels (ops.fused_infonce_fwd.paths, .dq.paths, .dp.paths),
                and every fused_infonce kernel's registers and
                local memory are held to ptxas's log (a bf16 one that
@@ -73,7 +75,34 @@ Phases, one JSON line each:
                Trainer resuming from the saved step, and a Top@k eval through
                the fused search kernel (every search through the Hopper
                kernel).
-  6. flash   - the same towers with attention_impl="pallas" (the attention
+  6. mine    - the contaccum_mined cell at its full shape (16 chunks of 8,
+               dual banks of 2048, 1 hard + 4 mined columns a query: 2096
+               columns a chunk) with contaccum_bf16's precision and loss
+               kernels, and a HardNegativeMiner over 32768 passages (top 32
+               through fused_topk, band [1, 32), a refresh every 4 steps):
+               an async turn (the loop on a high-priority stream, the
+               refresh on the miner's stream, its encodes as CUDA graphs),
+               checkpointed and resumed with a new miner, then a sync turn,
+               from the same seeded state with the train phase's full banks,
+               14 steps each. Each turn's train_s (until its last refresh
+               lands), step times and which steps had a refresh in flight,
+               each refresh's encode, search and filter times, losses,
+               launches by path, peak memory. Checks: finite losses, full
+               banks and 2095 negatives at every step, every fused_infonce
+               launch and every miner search (128 a refresh) on the Hopper
+               path, gold never mined, the two turns' first tables (mined
+               from the same params) identical, one mined step on the dense
+               backend against the fused one from the same state and batch,
+               the resumed miner holding a table the run published, one of
+               the miner's searches against ref.py (scores, and ids at the
+               clear slots) and its shape on seeded random rows; that
+               search shape (Q=256, N=32768, k=32) timed alone with plain,
+               library and bound beside it; the overlap: train_s saved
+               against the sync turn's refresh time, in all and per
+               refresh the async turn did, and the steps with a refresh in
+               flight against the others (MINE_SAVED_SHARE,
+               MINE_STEP_RATIO).
+  7. flash   - the same towers with attention_impl="pallas" (the attention
                of every layer through the flash_attention kernel): their
                passage reps are held against the plain-attention towers on
                the same params, the serve phase runs again on them (12
@@ -85,7 +114,7 @@ Phases, one JSON line each:
                one step with flash towers is held against plain towers from
                the same state and batch; a profiled step must show the
                kernel's time and launches.
-  7. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
+  8. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
                its train_batch cell (B=65536, every published width), with
                each field's vocabulary capped at RECSYS_ROW_CAP rows, for
                RECSYS_STEPS steps on ClickLogGenerator batches: step time,
@@ -99,7 +128,8 @@ Then the kernels line, the nvidia-smi line, and the final
     python3 chip_smoke.py --serve-turns     # builds, then only serves
 
 runs the serve phase with plain and flash towers in turns (plain, flash,
-flash, plain, ...), one line a run, and the nvidia-smi line; no final line. Any failed check raises and the script
+flash, plain, ...), one line a run, and the nvidia-smi line; no final line.
+Any failed check raises and the script
 exits non-zero before the final line. Without a CUDA device, or without the
 repo's ``src/repro_torch`` beside it, it exits non-zero at once.
 """
@@ -191,6 +221,30 @@ FLASH_LM_SHAPES = {"internlm2_prefill": (1, 4096, 16, 8, 128),
 FLASH_TRAIN_STEPS = 5
 # passages whose reps are held against the plain-attention towers
 FLASH_PARITY_PASSAGES = 256
+
+# The mine phase: the contaccum_mined cell at its full shape (128 pairs as
+# 16 chunks of 8, dual banks of 2048, q_len 32, p_len 256, 1 hard + 4 mined
+# columns a query: 8 + 40 + 2048 = 2096 columns a chunk) on the train
+# phase's towers, with contaccum_bf16's precision and loss kernels (the JAX
+# cell runs fp32 and the dense loss); a miner over a MINE_CORPUS-passage
+# corpus (its queries are the loader's), top MINE_TOPK through fused_topk
+# (256 queries a search), the band MINE_BAND, a refresh every MINE_EVERY
+# steps: MINE_STEPS gives refreshes after steps 3, 7 and 11 and two steps
+# after the last. One async and one sync turn from the same seeded state,
+# both with the train phase's last banks (full: 2048 each), so every chunk
+# has the cell's 2096 columns from the first step.
+MINE_CORPUS = 32768
+MINE_STEPS = 14
+MINE_EVERY = 4
+MINE_TOPK = 32
+MINE_BAND = (1, 32)
+# the overlap this phase requires: the async turn's train_s below the sync
+# turn's by at least MINE_SAVED_SHARE of the sync turn's summed refresh time
+# (and of the sync time of the refreshes the async turn did), and its
+# median step with a refresh in flight at most MINE_STEP_RATIO times its
+# median step without
+MINE_SAVED_SHARE = 0.25
+MINE_STEP_RATIO = 1.5
 
 # fused_topk at k > 128 (row states in global memory): the k values held
 # against the plain version at the eval_topk and serve_topk shapes
@@ -560,7 +614,7 @@ def phase_infonce_kernels(torch):
     """fused_infonce forward, dQ and dP against the plain version and
     against the dense backend (the yardstick), at the path shapes and at an
     fp32 and a small ragged case."""
-    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16, CONTACCUM_MINED
     from repro_torch.core.loss import DenseLossBackend
     from repro_torch.core.precision import NEG_INF
     from repro_torch.kernels.fused_infonce import ops, ref
@@ -572,6 +626,8 @@ def phase_infonce_kernels(torch):
     local = CONTACCUM_BF16["global_batch"] // CONTACCUM_BF16["accum_steps"]     # 8
     bank = CONTACCUM_BF16["bank_size"]                                          # 2048
     n_path = local * (1 + CONTACCUM_BF16["n_hard"]) + bank                       # 2064
+    n_own_mined = local * (1 + CONTACCUM_MINED["n_hard"] + CONTACCUM_MINED["mined_negatives"])
+    n_mined = n_own_mined + bank                                                 # 2096
     dense = DenseLossBackend()
 
     def case(m, n, dd, dtype, n_masked, labels, scale=0.2):
@@ -661,8 +717,23 @@ def phase_infonce_kernels(torch):
     # masks none
     result["bank_rows_all_valid"] = check("M=2048 all valid", *case(
         bank, n_path, d, torch.bfloat16, 0, labels_bank), timed=True)
+    # the contaccum_mined chunk: 48 columns of its own, the banks' 2048
+    labels_mined = torch.arange(local, device=dev)
+    labels_mined[local - 1] = -1
+    for suffix, n_masked in (("_mined", N_BANK_MASKED), ("_mined_all_valid", 0)):
+        result["local_rows" + suffix] = check(
+            f"M=8 N={n_mined}{suffix}",
+            *case(local, n_mined, d, torch.bfloat16, n_masked, labels_mined), timed=True)
+        result["bank_rows" + suffix] = check(
+            f"M=2048 N={n_mined}{suffix}",
+            *case(bank, n_mined, d, torch.bfloat16, n_masked,
+                  n_own_mined + torch.arange(bank, device=dev)), timed=True)
     for shape, kernels in (("local_rows", ("fwd", "dq", "dp")), ("bank_rows", ("fwd", "dp")),
-                           ("bank_rows_all_valid", ("fwd", "dp"))):
+                           ("bank_rows_all_valid", ("fwd", "dp")),
+                           ("local_rows_mined", ("fwd", "dq", "dp")),
+                           ("local_rows_mined_all_valid", ("fwd", "dq", "dp")),
+                           ("bank_rows_mined", ("fwd", "dp")),
+                           ("bank_rows_mined_all_valid", ("fwd", "dp"))):
         for kernel in kernels:
             require(result[shape]["paths"][kernel] == "hopper",
                     f"{shape} {kernel} took the {result[shape]['paths'][kernel]} path, not Hopper")
@@ -773,6 +844,7 @@ def phase_train(torch, topk_ops):
                 f"banks not full: {last['bank_fill_q']}, {last['bank_fill_p']}")
         n_neg = batch // k * (1 + cell["n_hard"]) + cell["bank_size"] - 1
         require(last["n_negatives"] == n_neg, f"n_negatives {last['n_negatives']} != {n_neg}")
+        banks = tuple(type(b)(*(t.clone() for t in b)) for b in (state.bank_q, state.bank_p))
         want = {"fwd": 2 * k * TRAIN_STEPS, "dq": k * TRAIN_STEPS, "dp": 2 * k * TRAIN_STEPS}
         require(launches == want, f"fused_infonce launches {launches} != {want}")
         for kernel in ("fwd", "dq", "dp"):
@@ -838,7 +910,7 @@ def phase_train(torch, topk_ops):
         "resumed_from_step": report2.history[0]["step"] - 1,
         "eval": recalls, "eval_s": eval_s, "eval_fused_topk_launches": eval_launches,
         "eval_fused_topk_paths": eval_paths,
-    }
+    }, banks
 
 
 def profile_step_share(torch, update, state, batch):
@@ -872,6 +944,317 @@ def profile_step_share(torch, update, state, batch):
                                                         if "flash_fwd_kernel" in key),
             "kernel_launches": sum(c for _, _, c in kernels),
             "top_kernels": [{"name": key[:80], "ms": ms, "count": c} for key, ms, c in top]}
+
+
+def mine_corpus():
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_MINED
+    from repro_torch.data.retrieval import SyntheticRetrievalCorpus
+
+    cell = CONTACCUM_MINED
+    return SyntheticRetrievalCorpus(
+        n_passages=MINE_CORPUS, vocab_size=BERT_BASE.vocab_size, q_len=cell["q_len"],
+        p_len=cell["p_len"], n_hard=cell["n_hard"], seed=SEED,
+    )
+
+
+def mine_turn(torch, corpus, banks, *, sync, ckpt_dir=None, resume=False):
+    """One run of the mine phase from the seeded initial state with
+    ``banks`` (bank_q, bank_p) already full: a Trainer with the miner's
+    refresh hook (``sync``: the loop waits for each refresh), its loop on a
+    high-priority stream. ``train_s`` runs until the
+    last refresh has landed (an async refresh requested while one is in
+    flight is skipped, as the miner's contract says, and counted); steps
+    are timed by the Trainer on the loop's stream (no device-wide sync,
+    which would wait for the miner). ``outside_steps_s`` is what training
+    spent outside its steps: refreshes waited for, the last refresh's
+    drain, snapshots and the checkpoint. With ``ckpt_dir`` the run checkpoints at its
+    end (inside ``train_s``); with ``resume`` too, a second Trainer with a
+    new miner then resumes from it for one step.
+    The result keeps the miner (key "miner") and each published table by
+    version ("tables") for the caller."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16, CONTACCUM_MINED
+    from repro_torch.core.memory_bank import BankState
+    from repro_torch.core.methods import build_step_program
+    from repro_torch.core.types import RetrievalBatch
+    from repro_torch.data.loader import MinedNegativeInjector, ShardedLoader
+    from repro_torch.kernels.fused_infonce import ops as infonce_ops
+    from repro_torch.kernels.fused_topk import ops as topk_ops
+    from repro_torch.mining import HardNegativeMiner, MinerConfig
+    from repro_torch.runtime.trainer import PeriodicHook, Trainer, TrainerConfig, priority_stream
+
+    # contaccum_mined is contaccum_bf16's geometry plus the mined columns:
+    # the train phase's encoder, config, optimizer and seeded state
+    cell = CONTACCUM_MINED
+    require({key: v for key, v in CONTACCUM_BF16.items() if key not in ("precision", "loss_impl")}
+            == {key: v for key, v in cell.items() if key != "mined_negatives"},
+            "contaccum_mined is not contaccum_bf16's geometry")
+    k, batch = cell["accum_steps"], cell["global_batch"]
+    # the caching allocator keeps freed blocks with the stream that used
+    # them, and every turn runs on new streams: release the earlier ones
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = contaccum_setup(torch, BERT_BASE, MINE_STEPS)
+    enc, update = run.enc, run.update
+    state = run.state._replace(**{name: BankState(*(t.clone() for t in bank))
+                                  for name, bank in zip(("bank_q", "bank_p"), banks)})
+    precision = run.cfg.precision
+    mcfg = MinerConfig(
+        refresh_every=MINE_EVERY, top_k=MINE_TOPK, n_negatives=cell["mined_negatives"],
+        depth_lo=MINE_BAND[0], depth_hi=MINE_BAND[1], sync=sync, search_impl="fused",
+        precision=precision,
+    )
+
+    def make_run(steps):
+        """A miner, loader, injector and Trainer over ``corpus``."""
+        miner = HardNegativeMiner(enc, mcfg, queries=corpus.queries, passages=corpus.passages,
+                                  device=DEVICE)
+        loader = ShardedLoader(MINE_CORPUS, batch, seed=SEED)
+        injector = MinedNegativeInjector(miner.buffer.read, MINE_CORPUS, seed=SEED,
+                                         state=loader.state, on_step=miner.note_step)
+        in_flight, tables = [], {}
+
+        def next_batch(step):
+            in_flight.append(miner.in_flight())
+            table = miner.buffer.read()
+            tables.setdefault(table.version, table)
+            idx = loader.next_indices()
+            b = corpus.batch(idx)
+            mined = corpus.passages[injector.mined_ids(idx, gold=idx, step=step)]
+            hard = np.concatenate([b["passage_hard"], mined], axis=1)
+            return RetrievalBatch(*(torch.from_numpy(np.asarray(x, np.int64)).to(DEVICE)
+                                    for x in (b["query"], b["passage_pos"], hard)))
+
+        tcfg = TrainerConfig(total_steps=steps, checkpoint_dir=ckpt_dir,
+                             checkpoint_every=1 << 30, keep_checkpoints=1, log_every=4)
+        hook = PeriodicHook(every=MINE_EVERY, fn=miner.refresh_hook, prefix="mine/",
+                            name="mine", advisory=False)
+        trainer = Trainer(tcfg, update, next_batch, loader_state=loader.state, hooks=[hook],
+                          aux_state=miner)
+        return miner, trainer, in_flight, tables, next_batch
+
+    miner, trainer, in_flight, tables, next_batch = make_run(MINE_STEPS)
+    setup_s = time.perf_counter() - t0
+    infonce_ops.reset_launches()
+    topk_ops.reset_launches()                      # the mine path's run starts here
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with priority_stream(DEVICE):
+        state, report = trainer.run(state)
+        miner.wait()                               # the last refresh lands (or raises)
+    torch.cuda.current_stream().synchronize()      # the loop's stream, not the miner's
+    train_s = time.perf_counter() - t0
+    launches = {"fwd": infonce_ops.fused_infonce_fwd.launches,
+                "dq": infonce_ops.fused_infonce_dq.launches,
+                "dp": infonce_ops.fused_infonce_dp.launches}
+    paths = {kernel: dict(getattr(infonce_ops, f"fused_infonce_{kernel}").paths)
+             for kernel in ("fwd", "dq", "dp")}
+    topk_launches, topk_paths = topk_ops.fused_topk.launches, dict(topk_ops.fused_topk.paths)
+    peak = torch.cuda.max_memory_allocated()       # read just after the run
+
+    hist = report.history
+    require(report.steps_run == MINE_STEPS and report.restarts == 0,
+            f"mine: ran {report.steps_run} steps with {report.restarts} restarts")
+    require(all(np.isfinite(h["loss"]) for h in hist), "mine: non-finite training loss")
+    # every chunk of every step: 8 x (1 + 1 + 4) columns of its own (the
+    # mined ones included) and two full banks of 2048: 2096 columns
+    n_neg = batch // k * (1 + cell["n_hard"] + cell["mined_negatives"]) + cell["bank_size"] - 1
+    negatives = [h["n_negatives"] for h in hist]
+    require(all(n == n_neg for n in negatives),
+            f"mine: n_negatives {negatives}, not {n_neg} at every step")
+    require(all(h["bank_fill_q"] == h["bank_fill_p"] == cell["bank_size"] for h in hist),
+            "mine: a bank was not full")
+    want = {"fwd": 2 * k * MINE_STEPS, "dq": k * MINE_STEPS, "dp": 2 * k * MINE_STEPS}
+    require(launches == want, f"mine: fused_infonce launches {launches} != {want}")
+    for kernel in ("fwd", "dq", "dp"):
+        require(paths[kernel]["hopper"] == launches[kernel],
+                f"mine: fused_infonce {kernel} took {paths[kernel]}, not all the Hopper kernels")
+    searches = -(-MINE_CORPUS // mcfg.query_batch)
+    require(miner.refreshes >= 1 and topk_launches == searches * miner.refreshes,
+            f"mine: {topk_launches} fused_topk launches for {miner.refreshes} refreshes")
+    require(topk_paths["hopper"] == topk_launches,
+            f"mine: the miner's searches took {topk_paths}, not all the Hopper kernel")
+    table = miner.buffer.read()
+    tables.setdefault(table.version, table)
+    require(table.version == miner.refreshes and (table.ids >= 0).mean() > 0.5,
+            f"mine: table version {table.version}, {(table.ids >= 0).mean():.3f} filled")
+    require(not (table.ids == np.arange(MINE_CORPUS)[:, None]).any(), "mine: gold was mined")
+
+    times = [h["step_time_s"] for h in hist]
+    flying = [t for t, f in zip(times[1:], in_flight[1:]) if f]
+    grounded = [t for t, f in zip(times[1:], in_flight[1:]) if not f]
+    med_in = statistics.median(flying) if flying else None
+    med_out = statistics.median(grounded) if grounded else None
+    out = {
+        "sync": sync, "setup_s": setup_s, "train_s": train_s, "outside_steps_s": train_s - sum(times),
+        "first_step_s": times[0],
+        "step_times_s": times, "in_flight_at_step_start": in_flight[: len(times)],
+        "median_step_s_refresh_in_flight": med_in, "median_step_s_no_refresh": med_out,
+        "in_flight_over_no_refresh": (med_in / med_out) if flying and grounded else None,
+        "refreshes": miner.refreshes, "skipped": miner.skipped,
+        "refresh_s_total": sum(r["wall_s"] for r in miner.refresh_log),
+        "refresh_log": miner.refresh_log,
+        "staleness_at_hooks": [h["mine/table_staleness"] for h in hist
+                               if "mine/table_staleness" in h],
+        "losses": [h["loss"] for h in hist], "n_negatives": n_neg,
+        "launches": launches, "infonce_paths": paths,
+        "fused_topk_launches": topk_launches, "fused_topk_paths": topk_paths,
+        "max_memory_allocated": peak, "miner": miner, "tables": tables,
+    }
+    if sync:
+        # one step from the trained state and a mined batch on both loss
+        # backends (no refresh in flight)
+        parity_batch = next_batch(MINE_STEPS)
+        dense_update = build_step_program(
+            enc, run.tx, dataclasses.replace(run.cfg, loss_impl="dense")).update
+        _, m_fused = update(state, parity_batch)
+        _, m_dense = dense_update(state, parity_batch)
+        parity = {key: (float(getattr(m_fused, key)), float(getattr(m_dense, key)))
+                  for key in ("loss", "grad_norm", "accuracy")}
+        for key, rtol in (("loss", PARITY_LOSS_RTOL), ("grad_norm", PARITY_GRAD_RTOL)):
+            fz, dn = parity[key]
+            require(abs(fz - dn) <= rtol * abs(dn), f"mine: dense vs fused {key}: {fz} vs {dn}")
+        out["dense_vs_fused"] = parity
+    if resume:
+        # a second Trainer and a new miner resume from the saved step, with
+        # the table published when it was saved (a refresh then in flight is
+        # not saved)
+        miner2, trainer2, _, _, _ = make_run(MINE_STEPS + 1)
+        with priority_stream(DEVICE):
+            _, report2 = trainer2.run(state)
+            miner2.wait()
+        restored = miner2.buffer.read()
+        require(report2.steps_run == 1 and report2.history[0]["step"] == MINE_STEPS
+                and np.isfinite(report2.history[0]["loss"]),
+                f"mine: resume ran steps {[h['step'] for h in report2.history]}")
+        saved = tables.get(restored.version)
+        require(restored.version >= 1 and saved is not None
+                and restored.step == saved.step and np.array_equal(restored.ids, saved.ids),
+                f"mine: the resumed table v{restored.version} is none the run published")
+        out["resume"] = {"from_step": MINE_STEPS - 1, "table_version": restored.version,
+                         "table_step": restored.step, "loss": report2.history[0]["loss"]}
+        miner2.close()
+    return out
+
+
+def mine_search_check(torch, miner, topk_ref):
+    """The miner's search shape alone, on its last index and its first 256
+    queries (one mined batch): the kernel held against ref.py (k + 1
+    slots: scores within tol, ids equal at every clear slot; the seeded
+    towers' reps crowd the top scores, so fewer slots are clear than in
+    the kernels phase, and the shape is also held on seeded random rows
+    with the kernels phase's share of clear slots), and the kernel, plain,
+    library (torch.matmul + torch.topk) and bound times on the mined
+    batch."""
+    from repro_torch.kernels._timing import cuda_ms
+    from repro_torch.kernels.fused_topk import ops
+
+    r, k = miner.retriever, miner.cfg.top_k
+    p = r.index.reps
+    q = r.encode_queries(torch.from_numpy(miner.queries[: miner.cfg.query_batch]).to(DEVICE))
+    ops.reset_launches()
+    s, i = ops.fused_topk(q, p, k)
+    require(ops.fused_topk.paths["hopper"] == 1, f"mine search: took {ops.fused_topk.paths}")
+    rs, ri = topk_ref.topk_scores_ref(q, p, k + 1)
+    tol = SCORE_RTOL * rs[:, 0].abs().max().item()
+    err, bad, clear = topk_ref.topk_mismatch(s, i, rs, ri, tol)
+    require(err <= tol and bad == 0,
+            f"mine search: max |score err| {err} (tol {tol}), {bad} ids differ at clear slots")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qr = torch.randn(q.shape, generator=g, device=DEVICE).to(q.dtype)
+    pr = torch.randn(p.shape, generator=g, device=DEVICE).to(p.dtype)
+    rrs, rri = topk_ref.topk_scores_ref(qr, pr, k + 1)
+    rand_err, rand_clear = check_topk(topk_ref, *ops.fused_topk(qr, pr, k), rrs, rri,
+                                      SCORE_RTOL * rrs[:, 0].abs().max().item(),
+                                      "mine search shape, random rows")
+    bound_ms, bound_by = topk_bound_ms(q.shape[0], p.shape[0], p.shape[0], q.shape[1], k, 2)
+    return {
+        "Q": q.shape[0], "N": p.shape[0], "d": q.shape[1], "k": k, "dtype": "bf16",
+        "max_abs_err": err, "tolerance": tol, "clear_slots": clear, "slots": i.numel(),
+        "random_rows": {"max_abs_err": rand_err, "clear_slots": rand_clear},
+        "path": "hopper", "ms": cuda_ms(lambda: ops.fused_topk(q, p, k), 20),
+        "plain_ms": cuda_ms(lambda: topk_ref.topk_scores_ref(q, p, k), 3),
+        "library_ms": cuda_ms(lambda: library_topk(q, p, k), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def public(turn):
+    return {key: v for key, v in turn.items() if key not in ("miner", "tables")}
+
+
+def phase_mine(torch, topk_ref, banks):
+    """contaccum_mined with an async turn (checkpointed, then resumed) and a
+    sync turn from the same seeded state, ``banks`` (the train phase's, full)
+    in both; their first tables (mined from the same params at step 3) must
+    be identical. Then the miner's search shape alone, and the overlap the
+    async turn shows (its ``train_s`` also holds its checkpoint save; the
+    sync turn saves none), which must meet MINE_SAVED_SHARE and
+    MINE_STEP_RATIO."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    corpus = mine_corpus()
+    corpus_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        turn_async = mine_turn(torch, corpus, banks, sync=False, ckpt_dir=tmp, resume=True)
+    turn_async.pop("miner").close()
+    emit({"phase": "mine_turn", **public(turn_async)})
+    turn_sync = mine_turn(torch, corpus, banks, sync=True)
+    emit({"phase": "mine_turn", **public(turn_sync)})
+    ta, ts = turn_async.pop("tables"), turn_sync.pop("tables")
+    require(1 in ta and 1 in ts and np.array_equal(ta[1].ids, ts[1].ids),
+            "mine: the async and sync turns' first tables differ")
+    miner = turn_sync.pop("miner")
+    search = mine_search_check(torch, miner, topk_ref)
+    miner.close()
+    del miner
+    gc.collect()
+    torch.cuda.empty_cache()          # the later phases run on the default stream
+    refresh_s = turn_sync["refresh_s_total"]
+    saved_s = turn_sync["train_s"] - turn_async["train_s"]
+    ratio = turn_async["in_flight_over_no_refresh"]
+    # the same against the refreshes the async turn did (a request while
+    # one is in flight is skipped, and the sync turn's time for it is not
+    # overlap): the sync turn's mean refresh stands for each one
+    per_refresh = refresh_s / turn_sync["refreshes"]
+    done = turn_async["refreshes"]
+    saved_done_s = saved_s - (turn_sync["refreshes"] - done) * per_refresh
+    overlap = {"sync_refresh_s": refresh_s, "train_s_saved": saved_s,
+               "saved_share_of_refresh": saved_s / refresh_s,
+               "async_refreshes": done, "sync_refreshes": turn_sync["refreshes"],
+               "train_s_saved_per_refresh_done": saved_done_s / done,
+               "saved_share_per_refresh_done": saved_done_s / (done * per_refresh),
+               "in_flight_over_no_refresh": ratio}
+    require(overlap["saved_share_of_refresh"] >= MINE_SAVED_SHARE
+            and overlap["saved_share_per_refresh_done"] >= MINE_SAVED_SHARE,
+            f"mine: the async turn saved too little of the sync turn's refresh time: {overlap}")
+    require(ratio is not None and ratio <= MINE_STEP_RATIO,
+            f"mine: steps with a refresh in flight took {ratio} x the others")
+    return {
+        "model": "dpr-bert-base (2 x bert-base-uncased, 12 layers, d 768, seeded init, remat full)",
+        "cell": "contaccum_mined", "overrides": {"precision": "bf16_banks", "loss_impl": "fused"},
+        "steps": MINE_STEPS, "refresh_every": MINE_EVERY, "corpus": MINE_CORPUS,
+        "corpus_s": corpus_s, "columns_per_chunk": turn_sync["n_negatives"] + 1,
+        "banks": "the train phase's last banks (full)",
+        "miner": {"top_k": MINE_TOPK, "band": list(MINE_BAND), "query_batch": 256,
+                  "encode_batch": 256, "search_impl": "fused", "precision": "bf16_banks"},
+        "async": public(turn_async), "sync": public(turn_sync),
+        "first_tables_identical": True,
+        "n_negatives": turn_sync["n_negatives"], "overlap": overlap,
+        "search": search,
+        "fused_topk_launches": turn_async["fused_topk_launches"] + turn_sync["fused_topk_launches"],
+        "infonce_launches": {kernel: turn_async["launches"][kernel] + turn_sync["launches"][kernel]
+                             for kernel in ("fwd", "dq", "dp")},
+    }
 
 
 def ptxas_report(log: str):
@@ -1586,8 +1969,13 @@ def main(argv=None) -> int:
     emit({"phase": "serve", **serve, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     t0 = time.perf_counter()
-    train = phase_train(torch, ops)
+    train, banks = phase_train(torch, ops)
     emit({"phase": "train", **train, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    mine = phase_mine(torch, ref, banks)
+    del banks
+    emit({"phase": "mine", **mine, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     t0 = time.perf_counter()
     flash = phase_flash(torch, ops, ref)
@@ -1599,13 +1987,21 @@ def main(argv=None) -> int:
     emit({"phase": "recsys", **recsys, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     ev = kernels["eval_topk"]
+    topk_by_path = {"serve": serve["launches"]["fused_topk"],
+                    "eval": train["eval_fused_topk_launches"], "mine": mine["fused_topk_launches"]}
+    ms = mine["search"]
     lines = [{
         "name": "fused_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
         "replaces": "src/repro/kernels/fused_topk/fused_topk.py:47",
-        "launches": serve["launches"]["fused_topk"], "max_abs_err": ev["max_abs_err"],
+        "launches": sum(topk_by_path.values()), "launches_by_path": topk_by_path,
+        "max_abs_err": ev["max_abs_err"],
         "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
         "bound_by": ev["bound_by"], "library_ms": ev["library_ms"],
+        "shape": f"eval_topk: Q={ev['Q']}, N={ev['N']}, d={ev['d']}, k={ev['k']}, bf16",
+        "mine_shape": {key: ms[key] for key in ("Q", "N", "d", "k", "max_abs_err", "ms",
+                                                "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
     }]
     # each fused_infonce kernel at its largest shape on the train path (dQ
     # runs only for the local queries); the phase line has both shapes
@@ -1615,9 +2011,11 @@ def main(argv=None) -> int:
                                      ("dq", 205, "local_rows", "dq_max_abs_err"),
                                      ("dp", 229, "bank_rows", "dp_max_abs_err")):
         t = infonce[shape][kernel]
+        by_path = {"train": train["launches"][kernel], "mine": mine["infonce_launches"][kernel]}
         lines.append({
             "name": f"fused_infonce_{kernel}", "route": "cuda", "source": source,
-            "replaces": f"{tpu}:{line}", "launches": train["launches"][kernel],
+            "replaces": f"{tpu}:{line}", "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": infonce[shape][err], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": f"M={infonce[shape]['M']}, "

@@ -3,9 +3,8 @@ the shapes of its cells, as in ``repro.configs.dpr_bert_base``: the
 single-device training cells and the retrieval cells, as dicts.
 
 Not here yet: the cross-device cells (``contaccum_xdev``,
-``contaccum_xdev_ring``, ``contcache_xdev``: multi-device is not yet ported),
-the mined-negative cells (``paper_batch_mined``, ``contaccum_mined``: mining
-is not yet ported) and ``contrastive_16k`` (a pod-scale batch).
+``contaccum_xdev_ring``, ``contcache_xdev``: multi-device is not yet ported)
+and ``contrastive_16k`` (a pod-scale batch).
 """
 
 from __future__ import annotations
@@ -40,6 +39,17 @@ CONTACCUM_BF16 = {
     **_PAPER, "method": "contaccum", "accum_steps": 16,
     "precision": "bf16_banks", "loss_impl": "fused",
 }
+#: the paper's geometry + asynchronously mined hard negatives (mining/):
+#: each query carries 8 extra passage columns published by the ANCE-style
+#: background refresh; direct backprop, no banks
+PAPER_BATCH_MINED = {
+    **_PAPER, "method": "mined", "accum_steps": 1, "bank_size": 0, "mined_negatives": 8,
+}
+#: the paper's K=16 ContAccum with 4 mined columns a query on top of the
+#: dual banks: the contaccum x mined composition mining exists for. The JAX
+#: cell runs fp32 with the dense loss; ``chip_smoke.py`` trains it with
+#: CONTACCUM_BF16's precision and loss kernels
+CONTACCUM_MINED = {**_PAPER, "method": "contaccum", "accum_steps": 16, "mined_negatives": 4}
 CONTCACHE_BATCH = {**_PAPER, "method": "contcache", "accum_steps": 16}
 PREBATCH_CACHE_BATCH = {**_PAPER, "method": "prebatch_cache", "accum_steps": 16}
 

@@ -14,12 +14,16 @@ from repro_torch.core.precision import STATS_DTYPE
 class DualEncoder(NamedTuple):
     """Abstract dual encoder. ``params`` is a dict with keys 'query' and
     'passage' (which may alias for shared towers); the encode functions take
-    the full params dict."""
+    the full params dict. ``compute_copy`` (optional, not in the JAX type)
+    copies params into the fewest bytes on which the encodes give the same
+    reps: each leaf in the dtype the towers compute with it. The miner
+    snapshots into it; None means a plain copy."""
 
     init: Callable[..., Any]                               # (generator, device) -> params
     encode_query: Callable[[Any, Any], torch.Tensor]       # (params, queries) -> (B, d)
     encode_passage: Callable[[Any, Any], torch.Tensor]     # (params, passages) -> (B, d)
     rep_dim: int
+    compute_copy: Optional[Callable[[Any], Any]] = None    # params -> a copy
 
 
 class RetrievalBatch(NamedTuple):

@@ -7,9 +7,21 @@ Trainer, with the flags of ``repro.launch.train``. Runs on the GPU;
       --method contaccum --loss-impl fused --total-batch 64 --local-batch 8 \\
       --bank 256 --steps 100 --checkpoint-dir /tmp/ckpt
 
+Hard-negative mining (mining/): ``--negatives mined`` runs a
+``HardNegativeMiner`` that re-encodes the corpus every ``--mine-every``
+steps with a snapshot of the training params and publishes per-query hard
+negatives, which the loader joins into every batch as extra
+``passage_hard`` columns. It composes with any --method: with a bank method
+(e.g. contaccum) the banks keep extending the matrix and every batch also
+carries mined columns. The refresh runs on a worker thread (on the GPU on
+the miner's own stream, while the training loop runs on a high-priority
+stream); ``--mine-sync`` makes each refresh block the loop instead:
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --method contaccum --negatives mined --mine-every 50 --mine-topk 32
+
 Not yet ported: ``--dp``, ``--shard-banks`` and ``--loss-comm ring``
-(multi-device, ROADMAP A8) and ``--negatives mined`` (mining, ROADMAP A7);
-they raise.
+(multi-device, ROADMAP A8); they raise.
 """
 
 from __future__ import annotations
@@ -36,9 +48,9 @@ from repro_torch.launch.serve import tiny_bert
 from repro_torch.models.towers import make_bert_dual_encoder
 from repro_torch.optim.adamw import adamw, chain, clip_by_global_norm
 from repro_torch.optim.schedules import linear_warmup_linear_decay
-from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from repro_torch.runtime.trainer import PeriodicHook, Trainer, TrainerConfig, priority_stream
 
-_NOT_PORTED = "not yet ported to repro_torch (ROADMAP A7/A8)"
+_NOT_PORTED = "not yet ported to repro_torch (ROADMAP A8)"
 
 
 def main(argv=None):
@@ -61,13 +73,25 @@ def main(argv=None):
     ap.add_argument("--loss-comm", default="all_gather", choices=["all_gather", "ring"],
                     help="how sharded bank columns reach the loss ('ring': not yet ported)")
     ap.add_argument("--negatives", default=None, choices=["mined"],
-                    help="asynchronously mined hard negatives (not yet ported)")
-    ap.add_argument("--mine-every", type=int, default=50)
-    ap.add_argument("--mine-topk", type=int, default=32)
-    ap.add_argument("--mine-negatives", type=int, default=4)
-    ap.add_argument("--mine-band", type=int, nargs=2, default=None, metavar=("LO", "HI"))
-    ap.add_argument("--mine-margin", type=float, default=0.0)
-    ap.add_argument("--mine-sync", action="store_true")
+                    help="override the method's negative source: 'mined' runs "
+                         "the asynchronous hard-negative miner (mining/) and "
+                         "injects its table into every batch; bank methods "
+                         "keep their banks on top")
+    ap.add_argument("--mine-every", type=int, default=50,
+                    help="trainer steps between mining refreshes")
+    ap.add_argument("--mine-topk", type=int, default=32,
+                    help="mining search depth per query (>= band upper edge)")
+    ap.add_argument("--mine-negatives", type=int, default=4,
+                    help="mined negatives injected per query per batch")
+    ap.add_argument("--mine-band", type=int, nargs=2, default=None, metavar=("LO", "HI"),
+                    help="teleportation band [LO, HI) of gold-excluded ranks "
+                         "(default [1, mine-topk))")
+    ap.add_argument("--mine-margin", type=float, default=0.0,
+                    help="drop mined candidates scoring within this margin "
+                         "of the gold passage (false-negative guard)")
+    ap.add_argument("--mine-sync", action="store_true",
+                    help="refresh synchronously: the loop waits for each "
+                         "refresh (default: a worker thread, overlapped)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=2e-4)
     ap.add_argument("--corpus-size", type=int, default=2048)
@@ -80,15 +104,19 @@ def main(argv=None):
 
     if args.dp or args.shard_banks or args.loss_comm == "ring":
         raise NotImplementedError(f"--dp/--shard-banks/--loss-comm ring: {_NOT_PORTED}")
-    if args.negatives == "mined" or method_composition(args.method)[0] == "mined":
-        raise NotImplementedError(f"mined negatives: {_NOT_PORTED}")
     device = resolve_device(args.device)
+
+    source, backprop = method_composition(args.method)
+    mine = args.negatives == "mined" or source == "mined"
+    # with a bank method the banks stay the source and mined columns ride
+    # the batch (contaccum x mined); otherwise the source becomes 'mined'
+    negatives = "mined" if mine and not method_uses_banks(args.method) else None
 
     bank = args.bank if method_uses_banks(args.method) else 0
     k = max(args.total_batch // args.local_batch, 1)
-    _, backprop = method_composition(args.method)
     cfg = ContrastiveConfig(
         method=args.method,
+        negatives=negatives,
         accumulation_steps=k if backprop != "direct" else 1,
         bank_size=bank,
         loss_impl=args.loss_impl,
@@ -109,11 +137,50 @@ def main(argv=None):
     )
     loader = ShardedLoader(args.corpus_size, args.total_batch, seed=args.seed)
 
+    miner = None
+    injector = None
+    hooks = []
+    if mine:
+        from repro_torch.data.loader import MinedNegativeInjector
+        from repro_torch.mining import HardNegativeMiner, MinerConfig
+
+        band = args.mine_band or (1, args.mine_topk)
+        mcfg = MinerConfig(
+            refresh_every=args.mine_every,
+            top_k=args.mine_topk,
+            n_negatives=args.mine_negatives,
+            depth_lo=band[0],
+            depth_hi=band[1],
+            margin=args.mine_margin,
+            sync=args.mine_sync,
+            precision=args.precision,
+        )
+        # corpus alignment: query i's gold passage IS passage i
+        miner = HardNegativeMiner(
+            enc, mcfg, queries=corpus.queries, passages=corpus.passages, device=device
+        )
+        injector = MinedNegativeInjector(
+            miner.buffer.read,
+            corpus.n_passages,
+            seed=args.seed,
+            state=loader.state,
+            on_step=miner.note_step,
+        )
+        hooks.append(
+            PeriodicHook(every=mcfg.refresh_every, fn=miner.refresh_hook,
+                         prefix="mine/", name="mine")
+        )
+
     def next_batch(step):
-        b = corpus.batch(loader.next_indices())
+        idx = loader.next_indices()
+        b = corpus.batch(idx)
+        hard = b["passage_hard"]
+        if injector is not None:
+            mined_ids = injector.mined_ids(idx, gold=idx, step=step)
+            hard = np.concatenate([hard, corpus.passages[mined_ids]], axis=1)
         return RetrievalBatch(
-            *(torch.from_numpy(np.asarray(b[key], np.int64)).to(device)
-              for key in ("query", "passage_pos", "passage_hard"))
+            *(torch.from_numpy(np.asarray(x, np.int64)).to(device)
+              for x in (b["query"], b["passage_pos"], hard))
         )
 
     trainer = Trainer(
@@ -125,8 +192,19 @@ def main(argv=None):
         update,
         next_batch,
         loader_state=loader.state,
+        hooks=hooks,
+        aux_state=miner,
     )
-    state, report = trainer.run(state)
+    # the loop's device work on a high-priority stream: the miner's
+    # re-encode runs beside it on its own stream
+    with priority_stream(device):
+        state, report = trainer.run(state)
+    if miner is not None:
+        miner.close()
+        print(
+            f"mining: {miner.refreshes} refreshes, {miner.skipped} skipped, "
+            f"last refresh overlapped {miner.last_overlap} steps"
+        )
     print(
         f"done: {report.steps_run} steps, {report.restarts} restarts, "
         f"final loss {report.final_metrics.get('loss', float('nan')):.4f}, "

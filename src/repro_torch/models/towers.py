@@ -40,9 +40,23 @@ def make_bert_dual_encoder(
         tokens, mask = _as_tokens(batch)
         return bert_encode(params["passage"], cfg, tokens, mask)
 
+    def compute_copy(params):
+        """Each tower's layer weights in the compute dtype (the layers cast
+        them to it before any use, so the copy gives the same reps) and its
+        embedding tables as stored (they are summed before the cast)."""
+        return {
+            tower: {
+                "embed": {k: v.detach().clone() for k, v in tp["embed"].items()},
+                "layers": {k: v.detach().to(cfg.dtype, copy=True)
+                           for k, v in tp["layers"].items()},
+            }
+            for tower, tp in params.items()
+        }
+
     return DualEncoder(
         init=init,
         encode_query=encode_query,
         encode_passage=encode_passage,
         rep_dim=cfg.d_model,
+        compute_copy=compute_copy,
     )

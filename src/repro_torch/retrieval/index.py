@@ -9,10 +9,13 @@ one device holds every row.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple
+from typing import Any, Callable, List, NamedTuple, Union
 
 import numpy as np
 import torch
+
+#: token rows: a host array, or a tensor already on the encoder's device
+Tokens = Union[np.ndarray, torch.Tensor]
 
 
 class IndexStore(NamedTuple):
@@ -27,30 +30,37 @@ class IndexStore(NamedTuple):
         return self.reps.numel() * self.reps.element_size()
 
 
+def pad_batch(chunk: Tokens, batch: int) -> Tokens:
+    """A chunk of fewer than ``batch`` rows padded by repeating its last row
+    (numpy rows, or a tensor's on its device); a full chunk as it is."""
+    short = batch - len(chunk)
+    if short <= 0:
+        return chunk
+    if isinstance(chunk, torch.Tensor):
+        return torch.cat([chunk, chunk[-1:].expand(short, *chunk.shape[1:])])
+    return np.concatenate([chunk, np.repeat(chunk[-1:], short, axis=0)])
+
+
 def encode_corpus(
-    encode_passage: Callable[[np.ndarray], torch.Tensor],
-    passages: np.ndarray,
+    encode_passage: Callable[[Tokens], torch.Tensor],
+    passages: Tokens,
     *,
     batch: int = 256,
 ) -> torch.Tensor:
-    """Encode a corpus in fixed batches (the tail is padded by repeating its
-    last row, so every call has one shape). Returns the (n, d) reps on the
-    encoder's device."""
+    """Encode a corpus (numpy token rows, or a tensor of them already on the
+    device) in fixed batches (the tail is padded by repeating its last row,
+    so every call has one shape). Returns the (n, d) reps on the encoder's
+    device."""
     n = len(passages)
     out: List[torch.Tensor] = []
     for lo in range(0, n, batch):
-        chunk = passages[lo : lo + batch]
-        if len(chunk) < batch:
-            chunk = np.concatenate(
-                [chunk, np.repeat(chunk[-1:], batch - len(chunk), axis=0)]
-            )
-        out.append(encode_passage(chunk))
+        out.append(encode_passage(pad_batch(passages[lo : lo + batch], batch)))
     return torch.cat(out)[:n].contiguous()
 
 
 def build_index_store(
-    encode_passage: Callable[[np.ndarray], torch.Tensor],
-    passages: np.ndarray,
+    encode_passage: Callable[[Tokens], torch.Tensor],
+    passages: Tokens,
     *,
     batch: int = 256,
     dtype: Any = torch.float32,

@@ -69,8 +69,11 @@ class RetrieverConfig:
 
 class Retriever:
     """Built from a DualEncoder, its params (nested dicts of tensors or of
-    numpy arrays, as ``serving.load_trained_params`` returns them) and a
-    RetrieverConfig. Runs on ``device``: CUDA unless ``device="cpu"``."""
+    numpy arrays, as ``serving.load_trained_params`` returns them; None to
+    set later, as the miner does) and a RetrieverConfig. Runs on ``device``:
+    CUDA unless ``device="cpu"``. Token rows may be numpy arrays or tensors
+    already on the device. Every call runs on the caller's current CUDA
+    stream, and ``search`` syncs only that stream (its copy to the host)."""
 
     def __init__(
         self,
@@ -91,17 +94,19 @@ class Retriever:
             )
         self.device = resolve_device(device)
         self.encoder = encoder
-        self.params = params_to_torch(params, self.device)
+        self.params = None if params is None else params_to_torch(params, self.device)
         self.cfg = cfg
         self.backend = cfg.resolve_backend()
         self.policy = cfg.resolved_precision()
         self.index = index
 
     def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(self.device).long()
         return torch.as_tensor(np.asarray(tokens), device=self.device).long()
 
     @torch.inference_mode()
-    def build_index(self, passages: np.ndarray) -> IndexStore:
+    def build_index(self, passages: Union[np.ndarray, torch.Tensor]) -> IndexStore:
         """Encode the corpus with the passage tower into the index dtype
         (``cfg.resolved_index_dtype()``).
         Rebuilding with the current ``self.params`` is the periodic re-encode."""

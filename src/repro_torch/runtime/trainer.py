@@ -18,9 +18,10 @@ copy per step.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -110,6 +111,29 @@ def _metrics_to_host(metrics) -> Dict[str, float]:
     dev = next((v.device for v in values if v.device.type != "cpu"), torch.device("cpu"))
     host = torch.stack([v.to(dev) for v in values]).cpu().tolist()
     return dict(zip(names, host))
+
+
+@contextlib.contextmanager
+def priority_stream(device: Union[str, torch.device]) -> Iterator[Optional["torch.cuda.Stream"]]:
+    """Run the block's device work on a new high-priority CUDA stream
+    (yields it; on the CPU, yields None and changes nothing). Work on
+    another stream, such as the miner's re-encode, shares the SMs with it,
+    and the block scheduler hands free SMs to this stream's pending blocks
+    first, so the training loop's small kernels do not wait behind a wide
+    grid. The stream starts after the caller's queued work and the caller's
+    stream waits for it at the end."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield None
+        return
+    caller = torch.cuda.current_stream(device)
+    stream = torch.cuda.Stream(device, priority=-1)
+    stream.wait_stream(caller)
+    try:
+        with torch.cuda.stream(stream):
+            yield stream
+    finally:
+        caller.wait_stream(stream)
 
 
 class Trainer:

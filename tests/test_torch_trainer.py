@@ -176,8 +176,7 @@ def test_train_driver_tracks_the_jax_driver(tmp_path):
 
 
 def test_train_driver_refuses_what_is_not_ported():
-    for extra in (["--dp", "2"], ["--shard-banks"], ["--loss-comm", "ring"],
-                  ["--negatives", "mined"], ["--method", "mined"]):
+    for extra in (["--dp", "2"], ["--shard-banks"], ["--loss-comm", "ring"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             port_train.main(extra + ["--device", "cpu"])
 
