@@ -15,7 +15,10 @@ Phases, one JSON line each:
                shape (Q=32, N=2^20), plus a tie case and a k > n_valid case,
                and k = 129, 256 and 1000 at both shapes plus a k > n_valid
                case there; each bf16 call at those shapes must report the
-               Hopper kernel (ops.fused_topk.paths), and every fused_topk
+               Hopper kernel (ops.fused_topk.paths); the lm phase's eval
+               search (Q=256, N=4096, k=20) and Q=2048, k=100 at d=2048
+               bf16 must report fp32_widened (rows past the Hopper kernel's
+               widest, widened to the fp32 kernel); every fused_topk
                kernel's registers and local memory are held to ptxas's log
                (a bf16 one that spills fails the run);
                the fused_infonce forward, dQ and dP kernels at the two
@@ -24,7 +27,10 @@ Phases, one JSON line each:
                N=2064 columns of which the last 1000 are masked; d=768,
                bf16), M=2048 again with every column valid, the same three
                at a contaccum_mined chunk's N=2096 (4 mined columns a
-               query), an fp32 case and a small ragged case; kernel, plain,
+               query), the lm phase's chunk at d=2048 (M=8 and M=2048,
+               N=2064, 1000 masked, bf16: above the Hopper kernels' widest
+               row, so every call must take the wmma path), an fp32 case
+               and a small ragged case; kernel, plain,
                library and bound times, forward and backward apart; the
                forward and dP at every M=2048 case and all three at every
                M=8 case must take the Hopper
@@ -35,9 +41,11 @@ Phases, one JSON line each:
                flash_attention kernel at the BERT query and passage passes
                (B=8, S=32 and 256, H=12, D=64, bf16, ragged key masks, q, k
                and v the strided splits of one fused qkv tensor), a row with
-               every key masked, an fp32 case, and the LM prefill shapes no
+               every key masked, an fp32 case, the LM prefill shapes no
                path runs yet (internlm2-1.8b: S=4096, H=16, Hk=8, D=128;
-               stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16); kernel
+               stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16) and the
+               lm phase's passes (B=8, S=32 and 256, H=16, Hk=8, D=128,
+               causal, bf16); kernel
                (also with the host's enqueue), plain, library
                (scaled_dot_product_attention) and bound times, TFLOP/s and
                the tile plan at each shape, and the registers, shared
@@ -114,7 +122,23 @@ Phases, one JSON line each:
                one step with flash towers is held against plain towers from
                the same state and batch; a profiled step must show the
                kernel's time and launches.
-  8. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
+  8. lm      - the LM retriever: internlm2-1.8b dual encoders at full width
+               (d_model 2048, 16 heads, 8 KV heads of 128, d_ff 8192, vocab
+               92544) cut to LM_LAYERS of their 24 layers, shared=True,
+               bf16_banks, attention through the flash kernel (causal,
+               GQA), remat="full", trained LM_STEPS steps in the
+               contaccum_bf16 cell by a Trainer, then a Top@k eval through
+               the fused search. Checks: finite losses; flash_attention
+               launches of exactly 16 chunks x 3 tower passes x LM_LAYERS x
+               2 (remat) a step, all on the Hopper path; fused_infonce
+               launches of exactly 2, 1 and 2 x 16 x steps (forward, dQ,
+               dP), all on the wmma path (d = 2048 is past the Hopper
+               kernels'); every eval search on fp32_widened; one step with
+               attention_impl="chunked" and one on the dense loss backend
+               against the flash, fused step from the same state and batch.
+               Peak memory, step times, a profiled step's busy share and the
+               phase's seconds.
+  9. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
                its train_batch cell (B=65536, every published width), with
                each field's vocabulary capped at RECSYS_ROW_CAP rows, for
                RECSYS_STEPS steps on ClickLogGenerator batches: step time,
@@ -245,6 +269,26 @@ MINE_BAND = (1, 32)
 # median step without
 MINE_SAVED_SHARE = 0.25
 MINE_STEP_RATIO = 1.5
+
+# The lm phase: internlm2-1.8b (src/repro/configs/internlm2_1p8b.py) as both
+# towers of an LM dual encoder at full width in the contaccum_bf16 cell,
+# depth cut to LM_LAYERS of 24: each tower is 62.9M params a layer plus 379M
+# in the embedding and the LM head (unused by the pooled encoder, but in the
+# param tree and AdamW's state), the towers are two sets of leaves after the
+# first step, and the functional AdamW holds about 11 param-sized fp32
+# buffers at its peak: 24 layers would need about 3.78B params x 44 B = 166
+# GB, 4 layers take 1.26B params, about 55 GB. No checkpoints (the train
+# phase checks them; one here would be about 15 GB).
+LM_ARCH = "internlm2-1.8b"
+LM_LAYERS = 4
+LM_STEPS = 6
+# reps of the LM towers, and the eval's search: 256 eval queries against
+# the N_CORPUS passages, k = the largest Top@k cutoff
+LM_D = 2048
+LM_EVAL_KS = (1, 5, 20)
+LM_EVAL_QUERIES = 256
+# the lm phase's attention passes: (B, S, H, Hk, D), causal
+FLASH_LM_RETRIEVER_SHAPES = {"lm_query": (8, 32, 16, 8, 128), "lm_passage": (8, 256, 16, 8, 128)}
 
 # fused_topk at k > 128 (row states in global memory): the k values held
 # against the plain version at the eval_topk and serve_topk shapes
@@ -416,6 +460,31 @@ def phase_kernels(torch, ops, ref):
     }
     result["serve_topk_large_k"] = large_k("serve shape", q, p, None, n)
     del q, p, valid
+
+    # the LM retriever's search (lm phase): bf16 reps LM_D wide, past the
+    # Hopper kernel's widest rows, so each call widens them to the fp32
+    # kernel (exact products of bf16 values, fp32 sums); the eval's shape,
+    # and Q = 2048 at eval_topk's k
+    p = torch.randn((N_CORPUS, LM_D), generator=g, device=dev).to(torch.bfloat16)
+    for name, n_q, kk in (("lm_eval", LM_EVAL_QUERIES, max(LM_EVAL_KS)), ("lm_q2048", 2048, k)):
+        q = torch.randn((n_q, LM_D), generator=g, device=dev).to(torch.bfloat16)
+        ops.reset_launches()
+        s, i = ops.fused_topk(q, p, kk)
+        require(ops.fused_topk.paths["fp32_widened"] == ops.fused_topk.launches == 1,
+                f"{name}: fused_topk took {ops.fused_topk.paths}, not fp32_widened")
+        rs, ri = ref.topk_scores_ref(q, p, kk + 1)
+        tol = SCORE_RTOL * rs[:, 0].abs().max().item()
+        err, clear = check_topk(ref, s, i, rs, ri, tol, name)
+        bound_ms, bound_by = topk_bound_ms(n_q, N_CORPUS, N_CORPUS, LM_D, kk, 2)
+        result[name] = {
+            "Q": n_q, "N": N_CORPUS, "d": LM_D, "k": kk, "dtype": "bf16", "max_abs_err": err,
+            "tolerance": tol, "clear_slots": clear, "slots": i.numel(), "path": "fp32_widened",
+            "ms": cuda_ms(lambda: ops.fused_topk(q, p, kk), 10),
+            "plain_ms": cuda_ms(lambda: ref.topk_scores_ref(q, p, kk), 3),
+            "library_ms": cuda_ms(lambda: library_topk(q, p, kk), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    del q, p
 
     # ties: duplicated integer rows, exact sums, so ties must go to the lowest id
     base = torch.randint(-3, 4, (64, 96), generator=g, device=dev)
@@ -728,6 +797,16 @@ def phase_infonce_kernels(torch):
             f"M=2048 N={n_mined}{suffix}",
             *case(bank, n_mined, d, torch.bfloat16, n_masked,
                   n_own_mined + torch.arange(bank, device=dev)), timed=True)
+    # the lm phase's chunk: the same rows and columns at internlm2-1.8b's
+    # d = LM_D, past HOPPER_D_MAX: all three kernels take the wmma path
+    result["lm_local_rows"] = check("LM M=8", *case(local, n_path, LM_D, torch.bfloat16,
+                                                    N_BANK_MASKED, labels8), timed=True)
+    result["lm_bank_rows"] = check("LM M=2048", *case(bank, n_path, LM_D, torch.bfloat16,
+                                                      N_BANK_MASKED, labels_bank), timed=True)
+    for shape in ("lm_local_rows", "lm_bank_rows"):
+        for kernel in ("fwd", "dq", "dp"):
+            require(result[shape]["paths"][kernel] == "wmma",
+                    f"{shape} {kernel} took the {result[shape]['paths'][kernel]} path, not wmma")
     for shape, kernels in (("local_rows", ("fwd", "dq", "dp")), ("bank_rows", ("fwd", "dp")),
                            ("bank_rows_all_valid", ("fwd", "dp")),
                            ("local_rows_mined", ("fwd", "dq", "dp")),
@@ -755,25 +834,27 @@ def phase_infonce_kernels(torch):
     return result
 
 
-def contaccum_setup(torch, bert_cfg, total_steps):
-    """The contaccum_bf16 cell on towers of ``bert_cfg``, seeded: encoder,
-    contrastive config, optimizer (warmup, then linear decay to 0 at
-    ``total_steps``), update, initial state, corpus, loader and the batch
-    function a Trainer draws from."""
+def contaccum_setup(torch, towers, total_steps, generator=None):
+    """The contaccum_bf16 cell on ``towers`` (a BertConfig, or a built
+    DualEncoder), seeded: encoder, contrastive config, optimizer (warmup,
+    then linear decay to 0 at ``total_steps``), update, initial state (drawn
+    from ``generator``, a CPU generator seeded SEED by default), corpus,
+    loader and the batch function a Trainer draws from."""
     import types
 
     import numpy as np
 
     from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_BF16
     from repro_torch.core.methods import build_step_program, init_state
-    from repro_torch.core.types import ContrastiveConfig, RetrievalBatch
+    from repro_torch.core.types import ContrastiveConfig, DualEncoder, RetrievalBatch
     from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.retrieval import SyntheticRetrievalCorpus
     from repro_torch.models.towers import make_bert_dual_encoder
     from repro_torch.optim import adamw, chain, clip_by_global_norm, linear_warmup_linear_decay
 
     cell = CONTACCUM_BF16
-    enc = make_bert_dual_encoder(bert_cfg, precision=cell["precision"])
+    enc = (towers if isinstance(towers, DualEncoder)
+           else make_bert_dual_encoder(towers, precision=cell["precision"]))
     cfg = ContrastiveConfig(
         method=cell["method"], accumulation_steps=cell["accum_steps"],
         bank_size=cell["bank_size"], loss_impl=cell["loss_impl"],
@@ -794,7 +875,8 @@ def contaccum_setup(torch, bert_cfg, total_steps):
 
     return types.SimpleNamespace(
         enc=enc, cfg=cfg, tx=tx, update=build_step_program(enc, tx, cfg).update,
-        state=init_state(torch.Generator().manual_seed(SEED), enc, tx, cfg, device=DEVICE),
+        state=init_state(generator or torch.Generator().manual_seed(SEED), enc, tx, cfg,
+                         device=DEVICE),
         corpus=corpus, loader=loader, next_batch=next_batch,
     )
 
@@ -1447,7 +1529,8 @@ def phase_flash_kernels(torch):
                                             q.element_size())
         ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask), 20)
         res.update({
-            "tiles": "x".join(map(str, ops._plan(bb, sq, skv, hq, d, q.dtype, q.device.index))),
+            "tiles": "x".join(map(str, ops._plan(bb, sq, skv, hq, d, q.dtype, q.device.index,
+                                                 causal))),
             "ms": ms, "tflops": flash_flops(bb, sq, skv, hq, d, causal) / ms / 1e9,
             "plain_ms": device_ms(
                 lambda: ref.flash_attention_ref(q, k, v, causal=causal, kv_mask=kv_mask), 3),
@@ -1471,7 +1554,7 @@ def phase_flash_kernels(torch):
             "a row with every key masked does not average the values")   # every p is 1 / Skv
     q, k, v = fused_qkv(b, 256, torch.float32)
     result["fp32"] = check("fp32", q, k, v, kv_mask=ragged(b, 256))
-    for name, (bb, s, hq, hk, d) in FLASH_LM_SHAPES.items():
+    for name, (bb, s, hq, hk, d) in {**FLASH_LM_SHAPES, **FLASH_LM_RETRIEVER_SHAPES}.items():
         q = rand((bb, s, hq, d), bf16)
         k, v = rand((bb, s, hk, d), bf16), rand((bb, s, hk, d), bf16)
         result[name] = check(name, q, k, v, causal=True)
@@ -1625,6 +1708,153 @@ def phase_flash(torch, topk_ops, topk_ref):
         "profile": share,
     }
     return out
+
+
+def phase_lm(torch, topk_ops):
+    """ContAccum training of full-width internlm2-1.8b dual encoders (LM_LAYERS
+    of 24 layers) through the flash kernel in the contaccum_bf16 cell, held
+    against chunked attention and the dense loss, then a Top@k eval."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.common.treemath import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.dpr_bert_base import CONTACCUM_BF16
+    from repro_torch.core.methods import build_step_program
+    from repro_torch.evaluation import evaluate_topk
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_infonce import ops as infonce_ops
+    from repro_torch.models.towers import make_lm_dual_encoder
+    from repro_torch.retrieval import RetrieverConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cell = CONTACCUM_BF16
+    kk, batch = cell["accum_steps"], cell["global_batch"]
+    lm_cfg = dataclasses.replace(get_arch(LM_ARCH).model_cfg, n_layers=LM_LAYERS,
+                                 attention_impl=FLASH_IMPL, remat="full")
+    require(lm_cfg.d_model == LM_D, f"{LM_ARCH} reps are {lm_cfg.d_model} wide, not {LM_D}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    enc = make_lm_dual_encoder(lm_cfg, precision=cell["precision"])
+    run = contaccum_setup(torch, enc, LM_STEPS,
+                          generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    update, state, next_batch = run.update, run.state, run.next_batch
+    run.state = None                      # the trained state replaces it below
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tower_params = sum(t.numel() for t in tree_leaves(state.params["query"]))
+    trainer = Trainer(TrainerConfig(total_steps=LM_STEPS, log_every=1), update, next_batch,
+                      loader_state=run.loader.state)
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.reset_launches()            # the lm path's run starts here
+    infonce_ops.reset_launches()
+    t0 = time.perf_counter()
+    state, report = trainer.run(state)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    flash_launches = flash_ops.flash_attention.launches   # read just after the run
+    flash_paths = dict(flash_ops.flash_attention.paths)
+    launches = {kernel: getattr(infonce_ops, f"fused_infonce_{kernel}").launches
+                for kernel in ("fwd", "dq", "dp")}
+    paths = {kernel: dict(getattr(infonce_ops, f"fused_infonce_{kernel}").paths)
+             for kernel in ("fwd", "dq", "dp")}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    hist = report.history
+    require(report.steps_run == LM_STEPS, f"lm train ran {report.steps_run} steps")
+    require(all(np.isfinite(row["loss"]) for row in hist), "non-finite lm training loss")
+    # each chunk runs the query, positive and hard-negative tower passes;
+    # each layer's forward runs again in the backward under remat
+    passes = 2 + (1 if cell["n_hard"] else 0)
+    per_step = kk * passes * LM_LAYERS * 2
+    require(flash_launches == per_step * LM_STEPS,
+            f"flash_attention launched {flash_launches} times, not {per_step} x {LM_STEPS}")
+    require(flash_paths["hopper"] == flash_launches,
+            f"flash_attention took {flash_paths}, not all the bf16 Hopper kernel")
+    want = {"fwd": 2 * kk * LM_STEPS, "dq": kk * LM_STEPS, "dp": 2 * kk * LM_STEPS}
+    require(launches == want, f"fused_infonce launches {launches} != {want}")
+    for kernel in ("fwd", "dq", "dp"):
+        require(paths[kernel]["wmma"] == launches[kernel],
+                f"fused_infonce {kernel} took {paths[kernel]}, not all the wmma kernels")
+    last = hist[-1]
+    towers_apart = max((q - p).abs().max().item() for q, p in zip(
+        tree_leaves(state.params["query"]), tree_leaves(state.params["passage"])))
+    require(towers_apart > 0, "the shared towers did not part after training")
+
+    # one step from the trained state and a fresh batch: flash against
+    # chunked attention, and the fused loss against the dense one
+    parity_batch = next_batch(LM_STEPS)
+    steps = {"flash_fused": update,
+             "chunked": build_step_program(make_lm_dual_encoder(
+                 dataclasses.replace(lm_cfg, attention_impl="chunked"),
+                 precision=cell["precision"]), run.tx, run.cfg).update,
+             "dense": build_step_program(enc, run.tx, dataclasses.replace(
+                 run.cfg, loss_impl="dense")).update}
+    parity = {}
+    for name, fn in steps.items():
+        _, m = fn(state, parity_batch)
+        parity[name] = {key: float(getattr(m, key)) for key in ("loss", "grad_norm", "accuracy")}
+    rel = {}
+    for other in ("chunked", "dense"):
+        for key, rtol in (("loss", PARITY_LOSS_RTOL), ("grad_norm", PARITY_GRAD_RTOL)):
+            a, b = parity["flash_fused"][key], parity[other][key]
+            rel[f"{other}_{key}"] = rel_err(a, b)
+            require(rel_err(a, b) <= rtol, f"lm step: flash, fused vs {other} {key}: {a} vs {b}")
+    share = profile_step_share(torch, update, state, parity_batch)
+    require(bool(share.get("flash_launches")) and bool(share.get("flash_ms")),
+            f"the profiled lm step shows no flash_fwd_kernel time: {share}")
+
+    # Top@k eval: the corpus and the eval queries through the flash towers,
+    # the search through fused_topk (every call widened to fp32)
+    topk_ops.reset_launches()
+    flash_ops.reset_launches()
+    t0 = time.perf_counter()
+    recalls = evaluate_topk(
+        enc, state.params, run.corpus, ks=LM_EVAL_KS,
+        cfg=RetrieverConfig(top_k=max(LM_EVAL_KS), search_impl="fused",
+                            precision=cell["precision"]),
+        device=DEVICE,
+    )
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches, eval_paths = topk_ops.fused_topk.launches, dict(topk_ops.fused_topk.paths)
+    eval_flash = dict(flash_ops.flash_attention.paths)
+    require(eval_launches > 0 and eval_paths["fp32_widened"] == eval_launches,
+            f"the lm eval's searches took {eval_paths}, not all fp32_widened")
+    require(eval_flash["hopper"] == flash_ops.flash_attention.launches > 0,
+            f"the lm eval's encodes took {eval_flash}")
+    require(all(np.isfinite(v) for v in recalls.values()), f"non-finite recall {recalls}")
+    del state, run, steps, update, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    times = [row["step_time_s"] for row in hist[1:]]
+    step_s = statistics.median(times)
+    tokens_per_step = batch * (cell["q_len"] + cell["p_len"] * (1 + cell["n_hard"]))
+    return {
+        "model": f"{LM_ARCH} dual encoder (shared=True at init; d_model {lm_cfg.d_model}, "
+                 f"{lm_cfg.n_heads} heads, {lm_cfg.n_kv_heads} KV heads of {lm_cfg.dh}, d_ff "
+                 f"{lm_cfg.d_ff}, vocab {lm_cfg.vocab_size}; {LM_LAYERS} of 24 layers; seeded "
+                 f"init; remat full; attention {FLASH_IMPL})",
+        "cell": "contaccum_bf16", "steps": LM_STEPS, "accumulation_steps": kk,
+        "global_batch": batch, "bank_size": cell["bank_size"], "q_len": cell["q_len"],
+        "p_len": cell["p_len"], "n_hard": cell["n_hard"], "precision": cell["precision"],
+        "loss_impl": cell["loss_impl"], "params_per_tower": tower_params, "setup_s": setup_s,
+        "train_s": train_s, "first_step_s": hist[0]["step_time_s"], "median_step_s": step_s,
+        "step_times_s": [row["step_time_s"] for row in hist], "pairs_per_s": batch / step_s,
+        "tokens_per_s": tokens_per_step / step_s, "max_memory_allocated": peak_bytes,
+        "losses": [row["loss"] for row in hist],
+        "grad_norm_ratios": [row["grad_norm_ratio"] for row in hist],
+        "n_negatives": last["n_negatives"], "towers_max_abs_diff": towers_apart,
+        "flash_attention_launches": flash_launches, "flash_attention_paths": flash_paths,
+        "flash_launches_per_step": per_step, "infonce_launches": launches,
+        "infonce_paths": paths, "parity": parity, "parity_rel_err": rel, "profile": share,
+        "eval": recalls, "eval_s": eval_s, "eval_fused_topk_launches": eval_launches,
+        "eval_fused_topk_paths": eval_paths,
+        "eval_flash_launches": flash_ops.flash_attention.launches,
+    }
 
 
 def bag_bound_ms(indices, n_bags: int, d: int, itemsize: int):
@@ -1983,12 +2213,18 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     t0 = time.perf_counter()
+    lm = phase_lm(torch, ops)
+    emit({"phase": "lm", **lm, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
     recsys = phase_recsys(torch)
     emit({"phase": "recsys", **recsys, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     ev = kernels["eval_topk"]
     topk_by_path = {"serve": serve["launches"]["fused_topk"],
-                    "eval": train["eval_fused_topk_launches"], "mine": mine["fused_topk_launches"]}
+                    "eval": train["eval_fused_topk_launches"], "mine": mine["fused_topk_launches"],
+                    "lm_eval": lm["eval_fused_topk_launches"]}
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     ms = mine["search"]
     lines = [{
         "name": "fused_topk", "route": "cuda",
@@ -1999,9 +2235,9 @@ def main(argv=None) -> int:
         "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
         "bound_by": ev["bound_by"], "library_ms": ev["library_ms"],
         "shape": f"eval_topk: Q={ev['Q']}, N={ev['N']}, d={ev['d']}, k={ev['k']}, bf16",
-        "mine_shape": {key: ms[key] for key in ("Q", "N", "d", "k", "max_abs_err", "ms",
-                                                "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")},
+        "mine_shape": {key: ms[key] for key in ("Q", "N", "d", "k", *timed)},
+        "lm_eval_shape": {key: kernels["lm_eval"][key] for key in ("Q", "N", "d", "k", "path",
+                                                                    *timed)},
     }]
     # each fused_infonce kernel at its largest shape on the train path (dQ
     # runs only for the local queries); the phase line has both shapes
@@ -2011,7 +2247,9 @@ def main(argv=None) -> int:
                                      ("dq", 205, "local_rows", "dq_max_abs_err"),
                                      ("dp", 229, "bank_rows", "dp_max_abs_err")):
         t = infonce[shape][kernel]
-        by_path = {"train": train["launches"][kernel], "mine": mine["infonce_launches"][kernel]}
+        by_path = {"train": train["launches"][kernel], "mine": mine["infonce_launches"][kernel],
+                   "lm": lm["infonce_launches"][kernel]}
+        lm_shape = infonce["lm_" + shape]
         lines.append({
             "name": f"fused_infonce_{kernel}", "route": "cuda", "source": source,
             "replaces": f"{tpu}:{line}", "launches": sum(by_path.values()),
@@ -2020,18 +2258,29 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": f"M={infonce[shape]['M']}, "
             f"N={infonce[shape]['N']}, d={infonce[shape]['d']}, {infonce[shape]['dtype']}",
+            "lm_shape": {"M": lm_shape["M"], "N": lm_shape["N"], "d": lm_shape["d"],
+                         "path": lm_shape["paths"][kernel], "max_abs_err": lm_shape[err],
+                         **{key: lm_shape[kernel][key] for key in timed[1:]}},
         })
     # flash_attention at the BERT passage pass (the phase line has every shape)
     fa = flash_k["bert_passage"]
+    flash_by_path = {"flash_train": flash["train"]["flash_attention_launches"],
+                     "lm": lm["flash_attention_launches"]}
     lines.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
-        "launches": flash["train"]["flash_attention_launches"],
+        "launches": sum(flash_by_path.values()), "launches_by_path": flash_by_path,
         "max_abs_err": fa["max_abs_err"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
         "shape": f"B={fa['B']}, S={fa['Sq']}, H={fa['H']}, D={fa['D']}, bf16, key mask",
+        **{f"{name}_shape": {"B": flash_k[name]["B"], "S": flash_k[name]["Sq"],
+                             "H": flash_k[name]["H"], "Hk": flash_k[name]["Hk"],
+                             "D": flash_k[name]["D"], "causal": True,
+                             "tiles": flash_k[name]["tiles"],
+                             **{key: flash_k[name][key] for key in timed}}
+           for name in FLASH_LM_RETRIEVER_SHAPES},
     })
     # embedding_bag at the dcn-v2 stacked table; no path of the port calls it
     # (the recsys models gather, as in JAX), so its launches are the kernels

@@ -16,7 +16,8 @@ dtypes (the repo's dtype lint allows them only in a ``core/precision.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from collections.abc import Mapping
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -77,6 +78,76 @@ def resolve_precision(
             )
         return PRECISION_PRESETS[spec]
     return spec
+
+
+class _CastOnRead(Mapping):
+    """A read-only view of a param dict whose float leaves read as ``dtype``.
+    A leaf is cast when it is first read (then kept for the view's life), so
+    a leaf the encoder never reads (the other tower, the LM head that
+    ``encode_pooled`` skips) is never cast: the values are those of casting
+    the whole tree, as the JAX package does, where XLA drops the unused
+    casts as dead code."""
+
+    def __init__(self, tree: Mapping, dtype: torch.dtype):
+        self._tree, self._dtype, self._read = tree, dtype, {}
+
+    def __getitem__(self, key):
+        if key not in self._read:
+            self._read[key] = _cast_floats(self._tree[key], self._dtype, on_read=True)
+        return self._read[key]
+
+    def __iter__(self):
+        return iter(self._tree)
+
+    def __len__(self) -> int:
+        return len(self._tree)
+
+
+def _cast_floats(tree: Any, dtype: torch.dtype, *, on_read: bool = False) -> Any:
+    """``tree`` (nested dicts, lists and tuples) with its float leaves in
+    ``dtype``, other leaves as they are; with ``on_read`` its dicts become
+    cast-on-read views."""
+    if isinstance(tree, Mapping):
+        if on_read:
+            return _CastOnRead(tree, dtype)
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(v, dtype, on_read=on_read) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def apply_compute_dtype(encoder, policy: Union[str, PrecisionPolicy]):
+    """Wrap a DualEncoder so params are cast to ``compute_dtype`` at
+    application and the emitted representations are in ``compute_dtype``
+    (``repro.core.precision.apply_compute_dtype``): stored params stay in
+    ``param_dtype`` (fp32 masters) and ``init`` casts to it; each encode
+    reads its params through a cast-on-read view, so the compute copies are
+    transient, made per call, and only of what the encoder reads; float
+    inputs are cast alongside. Identity under fp32."""
+    from repro_torch.core.types import DualEncoder
+
+    policy = resolve_precision(policy)
+    ct = policy.compute_dtype
+
+    def encode_query(params, batch):
+        return encoder.encode_query(_cast_floats(params, ct, on_read=True),
+                                    _cast_floats(batch, ct)).to(ct)
+
+    def encode_passage(params, batch):
+        return encoder.encode_passage(_cast_floats(params, ct, on_read=True),
+                                      _cast_floats(batch, ct)).to(ct)
+
+    def init(*a, **kw):
+        return _cast_floats(encoder.init(*a, **kw), policy.param_dtype)
+
+    return DualEncoder(
+        init=init,
+        encode_query=encode_query,
+        encode_passage=encode_passage,
+        rep_dim=encoder.rep_dim,
+    )
 
 
 def tensor_from_numpy(a: np.ndarray, device: Union[str, torch.device]) -> torch.Tensor:

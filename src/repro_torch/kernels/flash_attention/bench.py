@@ -1,7 +1,7 @@
 """Times the bf16 flash_attention kernel under each tile plan (BQ query rows,
 BK keys a tile) at the bf16 shapes of ``chip_smoke.py``'s kernels phase and
 at the BERT passes of serving (a batch of 32 queries, an index encode batch
-of 256 passages), beside ``scaled_dot_product_attention`` on the same
+of 256 passages) and the LM retriever's passes, beside ``scaled_dot_product_attention`` on the same
 inputs, on one GPU.
 Each plan's output is held against ref.py (``error_ok``) first. Plans are
 timed in turns, forward then backward over the list, and both times are
@@ -58,6 +58,9 @@ SHAPES = {
     "internlm2_prefill": (1, 4096, 16, 8, 128, True, False),
     "internlm2_prefill_2k": (1, 2048, 16, 8, 128, True, False),  # 256 blocks of 128 rows
     "stablelm_prefill": (1, 2048, 32, 32, 80, True, False),
+    # the LM retriever's query and passage passes (internlm2-1.8b towers)
+    "lm_query": (8, 32, 16, 8, 128, True, False),
+    "lm_passage": (8, 256, 16, 8, 128, True, False),
 }
 #: (B, S) of the host timings: the BERT query and passage passes of a train
 #: chunk, and a served batch of queries (serve_topk's 32)
@@ -201,7 +204,8 @@ def main(argv=None):
         print(json.dumps({
             "shape": name, "B": b, "S": s, "H": h, "Hk": hk, "D": d, "causal": causal,
             "key_mask": mask is not None,
-            "plan": "x".join(map(str, ops._plan(b, s, s, h, d, q.dtype, q.device.index))),
+            "plan": "x".join(map(str, ops._plan(b, s, s, h, d, q.dtype, q.device.index,
+                                                causal))),
             "ms": times, "worst_share_of_allowance": errors,
             "library_ms": device_ms(library, args.reps),
         }), flush=True)

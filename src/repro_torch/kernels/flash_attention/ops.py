@@ -25,7 +25,10 @@ The bf16 kernel's tile shape (query rows ``BQ``, keys ``BK`` a tile) is
 are the JAX op's shape contract and the backward's chunks, not the kernel's
 tiles.
 
-``flash_attention.launches`` counts the kernel's launches.
+``flash_attention.launches`` counts the kernel's launches and
+``flash_attention.paths`` the path of each (``PATHS``: ``"hopper"``, the
+bf16 TMA + ``wgmma`` kernel; ``"fp32"``, the CUDA-core kernel);
+``reset_launches()`` zeroes both.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ HEAD_DIMS = range(16, 129, 16)
 #: of a SM's shared memory reserved for each resident block
 SMEM_LIMIT = 232_448
 BLOCK_RESERVED_SMEM = 1024
+PATHS = ("hopper", "fp32")
 
 
 def smem_bytes_mirror(block_q: int, block_k: int, d: int, dtype: torch.dtype) -> int:
@@ -70,7 +74,7 @@ def smem_bytes_mirror(block_q: int, block_k: int, d: int, dtype: torch.dtype) ->
 
 
 def tile_plan(b: int, sq: int, skv: int, h: int, d: int, dtype: torch.dtype, *, sms: int,
-              sm_smem: int, smem_bytes=smem_bytes_mirror):
+              sm_smem: int, smem_bytes=smem_bytes_mirror, causal: bool = False):
     """(BQ, BK) of the kernel at this shape on a card of ``sms`` SMs with
     ``sm_smem`` bytes of shared memory each; ``smem_bytes(BQ, BK, d, dtype)``
     is the shared memory of a block. fp32: 64 x 64. bf16: BK = 128 when the
@@ -78,16 +82,20 @@ def tile_plan(b: int, sq: int, skv: int, h: int, d: int, dtype: torch.dtype, *, 
     128 keys fit a SM (D <= 64 on an H100), BQ = 64, and BK falls to 64 once
     those blocks fill the card's two slots a SM more than twice over (an
     index encode batch; the BERT passage pass of a train chunk fills them
-    1.45 times). Else BQ = 128 (two consumer warpgroups, one block a SM)
+    1.45 times). Else (one block a SM) BQ = 128 (two consumer warpgroups)
     when the queries fill more than one warpgroup's 64 rows and its blocks
-    fill the SMs at least once, else 64. Fitted to the shapes ``bench.py``
-    times (PERF.md)."""
+    fill the SMs at least once, else 64; under a causal mask BK = 64 up to
+    256 keys (the LM retriever's 256-token passage pass: 128 x 64 0.0186 ms
+    against 128 x 128 0.0204 on an H100). Fitted to the shapes
+    ``bench.py`` times (PERF.md)."""
     if dtype == torch.float32:
         return 64, 64
     bk = 128 if skv > 64 else 64
     if 2 * (smem_bytes(64, 128, d, dtype) + BLOCK_RESERVED_SMEM) <= sm_smem:
         slots = 2 * sms
         return 64, (64 if b * h * -(-sq // 64) > 2 * slots else bk)
+    if causal and skv <= 256:
+        bk = 64
     return (128 if sq > 64 and b * h * -(-sq // 128) >= sms else 64), bk
 
 
@@ -96,13 +104,14 @@ def _library_smem_bytes(block_q: int, block_k: int, d: int, dtype: torch.dtype) 
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(b: int, sq: int, skv: int, h: int, d: int, dtype: torch.dtype, device: int):
+def _plan(b: int, sq: int, skv: int, h: int, d: int, dtype: torch.dtype, device: int,
+          causal: bool = False):
     """tile_plan on card ``device``, with its SMs and their shared memory and
     the built library's shared memory a block; one computation a shape."""
     props = torch.cuda.get_device_properties(device)
     return tile_plan(b, sq, skv, h, d, dtype, sms=props.multi_processor_count,
                      sm_smem=props.shared_memory_per_multiprocessor,
-                     smem_bytes=_library_smem_bytes)
+                     smem_bytes=_library_smem_bytes, causal=causal)
 
 
 @functools.cache
@@ -190,7 +199,7 @@ def _launch(q, k, v, kv_mask, causal: bool, scale: float, tiles=None) -> torch.T
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not a multiple of 16 in [16, 128]")
     if tiles is None:
-        tiles = _plan(b, sq, skv, h, d, q.dtype, q.device.index)
+        tiles = _plan(b, sq, skv, h, d, q.dtype, q.device.index, causal)
     bq, bk = tiles
     lib = _library()
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
@@ -209,6 +218,7 @@ def _launch(q, k, v, kv_mask, causal: bool, scale: float, tiles=None) -> torch.T
             f"flash_attention launch failed: {lib.flash_attention_error_string(err).decode()}"
         )
     flash_attention.launches += 1
+    flash_attention.paths["hopper" if q.dtype == torch.bfloat16 else "fp32"] += 1
     return out
 
 
@@ -256,4 +266,10 @@ def flash_attention(
     return _FlashAttention.apply(q, k, v, kv_mask, causal, scale, block_q, block_k)
 
 
-flash_attention.launches = 0
+def reset_launches() -> None:
+    """Zero the launch count and the path counts."""
+    flash_attention.launches = 0
+    flash_attention.paths = dict.fromkeys(PATHS, 0)
+
+
+reset_launches()

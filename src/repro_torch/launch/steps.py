@@ -16,8 +16,10 @@ leaves to its callers. With one device there is no mesh, so the
 psum-scatter lookup stays off (``lookup_fn`` None); on one device it gives
 the values of the plain gather.
 
-Not yet ported: the LM, MoE and SchNet cells (ROADMAP A9a/A9c/A9e) and the
-contrastive and retrieval cells of dpr-bert-base (ROADMAP A10).
+Not yet ported: the LM cells (the registered internlm2-1.8b and stablelm-3b
+run as retriever towers, ``models.towers.make_lm_dual_encoder``; their
+train, prefill and decode cells are ROADMAP A9b), the MoE and SchNet cells
+(A9c/A9e) and the contrastive and retrieval cells of dpr-bert-base (A10).
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ def _pad_to(n: int, multiple: int) -> int:
 def _make_tx(arch_id: str, *, lr: float = 3e-4, clip: float = 1.0):
     """Clip, then AdamW with fp32 moments on the JAX package's schedule.
     ``arch_id`` keeps the JAX signature: the JAX package gives bf16 moments
-    only to two LM archs that the port does not register yet (ROADMAP A9a)."""
+    only to qwen1.5-110b and qwen3-moe-235b-a22b, which the port does not
+    register yet (ROADMAP A9c)."""
     sched = linear_warmup_linear_decay(lr, 2000, 200_000)
     return chain(clip_by_global_norm(clip), adamw(sched, moment_dtype=torch.float32))
 
@@ -191,9 +194,9 @@ def _not_yet(item: str):
 
 
 _BUILDERS = {
-    "train": _not_yet("A9a"),
-    "prefill": _not_yet("A9a"),
-    "decode": _not_yet("A9a"),
+    "train": _not_yet("A9b"),
+    "prefill": _not_yet("A9b"),
+    "decode": _not_yet("A9b"),
     "gnn_full": _not_yet("A9e"),
     "gnn_minibatch": _not_yet("A9e"),
     "gnn_mol": _not_yet("A9e"),

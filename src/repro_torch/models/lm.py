@@ -1,0 +1,271 @@
+"""Decoder-only causal LM as the backbone of a retriever (GTR/E5 style), the
+part of ``repro.models.lm`` that the LM dual encoder runs: ``LMConfig``,
+``init_lm``, ``_block``, ``_remat_wrap``, ``backbone`` and ``encode_pooled``.
+
+Modern pre-norm transformer: RMSNorm, RoPE (split halves), GQA attention
+through ``models.attention.attention`` (causal, no key mask), SwiGLU FFN,
+optional QKV bias, optionally tied embeddings. Parameters are nested dicts
+of tensors in the JAX package's layout, the per-layer weights stacked on a
+leading ``n_layers`` axis under ``layers``, so ``compat.params_to_torch``
+carries a JAX tree across unchanged.
+
+``scan_layers`` picks ``lax.scan`` or an unrolled loop in the JAX package;
+the port runs a Python loop over the layers for either value, so one config
+drives both packages and the values do not depend on it. ``remat``:
+"none" keeps every activation, "full" recomputes each layer in the backward
+(``torch.utils.checkpoint``), "dots" keeps the projection matmuls' outputs
+and recomputes the rest (selective checkpointing; JAX's
+``dots_with_no_batch_dims_saveable``).
+
+Not here yet: the LM head, ``lm_loss``, ``KVCache``, ``prefill`` and
+``decode_step`` (ROADMAP A9b), and MoE layers (``LMConfig.moe``; A9c), for
+which ``init_lm`` and ``_block`` raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from collections.abc import Mapping
+from typing import Any, Optional, Union
+
+import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.precision import STATS_DTYPE
+from repro_torch.models import layers as L
+from repro_torch.models.attention import attention
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None        # defaults to d_model // n_heads
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    moe: Optional[Any] = None             # JAX's MoEConfig; not yet ported (ROADMAP A9c)
+    # execution
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    attention_impl: str = "chunked"       # "plain" | "chunked" | "pallas" (models.attention)
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    loss_chunk: int = 512                 # sequence chunk of lm_loss (ROADMAP A9b)
+    remat: str = "full"                   # none | full | dots
+    scan_layers: bool = True              # JAX: scan vs unrolled layers; the port loops either way
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def param_count(self) -> int:
+        d, dh = self.d_model, self.dh
+        attn = d * (self.n_heads * dh) * 2 + d * (self.n_kv_heads * dh) * 2
+        if self.moe:
+            ffn = d * self.moe.n_experts * self.moe.d_expert * 3 + d * self.moe.n_experts
+        else:
+            ffn = d * self.d_ff * 3
+        per_layer = attn + ffn + 2 * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+    def active_param_count(self) -> int:
+        """Activated parameters per token (MoE: top_k of n_experts)."""
+        if not self.moe:
+            return self.param_count()
+        d, dh = self.d_model, self.dh
+        attn = d * (self.n_heads * dh) * 2 + d * (self.n_kv_heads * dh) * 2
+        ffn = d * self.moe.top_k * self.moe.d_expert * 3 + d * self.moe.n_experts
+        per_layer = attn + ffn + 2 * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+
+def _require_dense(cfg: LMConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers (LMConfig.moe) are not yet ported to repro_torch "
+            "(ROADMAP A9c)"
+        )
+
+
+def init_lm(
+    cfg: LMConfig,
+    generator: torch.Generator,
+    device: Union[None, str, torch.device] = "cuda",
+):
+    """Random weights drawn from ``generator`` on its own device and placed
+    on ``device`` (CUDA unless ``device="cpu"``), in ``cfg.param_dtype``."""
+    _require_dense(cfg)
+    device = resolve_device(device)
+    d, dh, h, hk = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    nl, pd = cfg.n_layers, cfg.param_dtype
+
+    def normal(shape, std):
+        w = torch.randn(shape, generator=generator, device=generator.device) * std
+        return w.to(device=device, dtype=pd)
+
+    def stack(shape, fan_in):
+        return normal((nl,) + shape, fan_in ** -0.5)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=pd, device=device)
+
+    attn = {
+        "wq": stack((d, h * dh), d),
+        "wk": stack((d, hk * dh), d),
+        "wv": stack((d, hk * dh), d),
+        "wo": stack((h * dh, d), h * dh),
+    }
+    if cfg.qkv_bias:
+        attn["bq"] = const((nl, h * dh), 0.0)
+        attn["bk"] = const((nl, hk * dh), 0.0)
+        attn["bv"] = const((nl, hk * dh), 0.0)
+    ffn = {
+        "w_gate": stack((d, cfg.d_ff), d),
+        "w_up": stack((d, cfg.d_ff), d),
+        "w_down": stack((cfg.d_ff, d), cfg.d_ff),
+    }
+    params = {
+        "embed": normal((cfg.vocab_size, d), 0.02),
+        "layers": {
+            "ln1": const((nl, d), 1.0),
+            "ln2": const((nl, d), 1.0),
+            "attn": attn,
+            "ffn": ffn,
+        },
+        "final_norm": const((d,), 1.0),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
+    return params
+
+
+def _block(cfg: LMConfig, lp, x, cos, sin, *, kv_mask=None, causal=True):
+    """One transformer block. lp: per-layer params (no leading L dim).
+    x: (B, S, d). Returns (x', aux_metrics, (k, v))."""
+    _require_dense(cfg)
+    b, s, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    dt = cfg.dtype
+
+    y = L.rms_norm(lp["ln1"], x, eps=cfg.norm_eps)
+    ap = lp["attn"]
+    q = y @ ap["wq"].to(dt)
+    k = y @ ap["wk"].to(dt)
+    v = y @ ap["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + ap["bq"].to(dt)
+        k = k + ap["bk"].to(dt)
+        v = v + ap["bv"].to(dt)
+    q = L.apply_rotary(q.reshape(b, s, h, dh), cos, sin)
+    k = L.apply_rotary(k.reshape(b, s, hk, dh), cos, sin)
+    v = v.reshape(b, s, hk, dh)
+
+    o = attention(
+        q, k, v,
+        impl=cfg.attention_impl,
+        causal=causal,
+        kv_mask=kv_mask,
+        q_chunk=cfg.q_chunk,
+        kv_chunk=cfg.kv_chunk,
+    )
+    x = x + o.reshape(b, s, h * dh) @ ap["wo"].to(dt)
+
+    y = L.rms_norm(lp["ln2"], x, eps=cfg.norm_eps)
+    fp = lp["ffn"]
+    ff = L.swiglu(y @ fp["w_gate"].to(dt), y @ fp["w_up"].to(dt)) @ fp["w_down"].to(dt)
+    return x + ff, {}, (k, v)
+
+
+#: the matmuls with no batch dimension (each projection: activations x a
+#: weight matrix, which torch runs as one mm); the attention's einsums are
+#: batched (bmm) and recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg: LMConfig, fn):
+    """``fn`` under the config's remat policy while autograd records; as is
+    otherwise (nothing to recompute)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        kwargs = {}
+    elif cfg.remat == "dots":
+        kwargs = {"context_fn": functools.partial(create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+    return wrapped
+
+
+def _per_layer(tree, n: int) -> list:
+    """The stacked (n, ...) leaves of ``tree`` as n per-layer trees. Each
+    leaf is unbound once, so the backward of the n slices is one stack."""
+    if isinstance(tree, Mapping):
+        subs = {k: _per_layer(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def backbone(params, cfg: LMConfig, tokens: torch.Tensor, *, collect_cache: bool = False):
+    """tokens (B, S) -> (final hidden states (B, S, d), the mean MoE aux loss
+    (0 without MoE), the stacked (k, v) of every layer with
+    ``collect_cache`` else None)."""
+    _require_dense(cfg)
+    b, s = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    cos, sin = L.rotary_embedding(torch.arange(s, device=tokens.device), cfg.dh,
+                                  cfg.rope_theta, cfg.dtype)
+
+    def layer_fn(x, lp):
+        x, _, kv = _block(cfg, lp, x, cos, sin, causal=True)
+        return (x, *kv) if collect_cache else x
+
+    layer_fn = _remat_wrap(cfg, layer_fn)
+    kv_list = []
+    for lp in _per_layer(params["layers"], cfg.n_layers):
+        if collect_cache:
+            x, k, v = layer_fn(x, lp)
+            kv_list.append((k, v))
+        else:
+            x = layer_fn(x, lp)
+    kvs = None
+    if collect_cache:
+        kvs = tuple(torch.stack(t) for t in zip(*kv_list))
+    x = L.rms_norm(params["final_norm"], x, eps=cfg.norm_eps)
+    moe_aux = torch.zeros((), dtype=STATS_DTYPE, device=x.device)
+    return x, moe_aux / cfg.n_layers, kvs
+
+
+def encode_pooled(params, cfg: LMConfig, tokens: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LM-as-retriever embedding (GTR/E5 style): the final hidden states
+    mean-pooled over the valid positions (all of them without a mask)."""
+    x, _, _ = backbone(params, cfg, tokens)
+    if mask is None:
+        return x.mean(dim=1)
+    m = mask.to(x.dtype)[..., None]
+    return (x * m).sum(1) / torch.clamp(m.sum(1), min=1.0)

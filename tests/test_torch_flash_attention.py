@@ -208,9 +208,10 @@ def test_error_check_allows_128_key_tiles(b, s, h, hk, d, causal, masked, dtype)
 
 # the shapes the port runs or times the kernel at: the BERT query and passage
 # passes (B=8, H=12, D=64), an index encode batch, internlm2-1.8b and
-# stablelm-3b prefill
+# stablelm-3b prefill, the LM retriever's passes (B=8, H=16)
 PLAN_SHAPES = [(8, 32, 32, 12), (8, 256, 256, 12), (256, 256, 256, 12), (1, 4096, 4096, 16),
-               (1, 2048, 2048, 32), (1, 1, 1, 1), (64, 512, 512, 16)]
+               (1, 2048, 2048, 32), (1, 1, 1, 1), (64, 512, 512, 16), (8, 32, 32, 16),
+               (8, 256, 256, 16)]
 #: an H100 SXM: its SMs and each SM's shared memory
 H100 = {"sms": 132, "sm_smem": 233_472}
 
@@ -242,12 +243,15 @@ def test_tile_plan_is_legal_and_fits_shared_memory(d, dtype):
      (256, 256, 256, 12, 64, (64, 64)),        # an index encode batch: 12288 blocks
      (1, 4096, 4096, 16, 128, (128, 128)),     # internlm2-1.8b prefill
      (1, 2048, 2048, 32, 80, (128, 128)),      # stablelm-3b prefill
-     (1, 2048, 2048, 16, 128, (128, 128))],    # 256 blocks of 128 rows, one 64-row block a SM
+     (1, 2048, 2048, 16, 128, (128, 128)),     # 256 blocks of 128 rows, one 64-row block a SM
+     (8, 32, 32, 16, 128, (64, 64)),           # LM retriever query pass (internlm2-1.8b), causal
+     (8, 256, 256, 16, 128, (128, 64))],       # LM retriever passage pass, causal
 )
 def test_tile_plan_at_the_timed_shapes(b, sq, skv, h, d, want):
     """The plan kernels/flash_attention/bench.py timed fastest at each of
-    these shapes on an H100 (PERF.md)."""
-    assert ops.tile_plan(b, sq, skv, h, d, torch.bfloat16, **H100) == want
+    these shapes on an H100 (PERF.md), causal where the shape's callers are
+    (the LM shapes)."""
+    assert ops.tile_plan(b, sq, skv, h, d, torch.bfloat16, **H100, causal=d != 64) == want
 
 
 def test_tile_plan_follows_the_card():

@@ -1,0 +1,106 @@
+"""The LM retriever's blocks with the flash kernel (``attention_impl="pallas"``)
+against the same blocks with chunked attention, on the card, at
+internlm2-1.8b's width (d_model 2048, 16 heads, 8 KV heads of 128, d_ff
+8192) and the retriever's passes (B=8, S=32 and 256, causal, bf16). Marked
+``cuda``: without a GPU (and nvcc) every test here skips. Imports no JAX.
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_lm_cuda.py
+
+Tolerances: the flash block's output may depart from the chunked block's no
+further on average than the chunked bf16 block departs from its fp32 twin,
+and no element further than that twin's largest departure plus one bf16
+ulp of the largest |output| (the attention's probabilities are rounded to
+bf16 per tile in the kernel and after normalising in the chunked path; the
+rest of the block is the same ops). Gradients (the flash op's backward
+recomputes through chunked attention): global norm within 2e-2 relative,
+as chip_smoke.py holds a flash train step to a plain one.
+"""
+
+import dataclasses
+import math
+
+import pytest
+import torch
+
+from repro_torch.common.treemath import tree_global_norm, tree_leaves
+from repro_torch.configs import get_arch
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.models import layers as L
+from repro_torch.models import lm
+from repro_torch.models.towers import make_lm_dual_encoder
+
+GRAD_RTOL = 2e-2
+INTERNLM2 = get_arch("internlm2-1.8b").model_cfg
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _block_out(cfg, lp, x, grad):
+    """One block's output (B, S, d) and, with ``grad``, the gradients of
+    sum(out * w) w.r.t. its params (w fixed, seeded)."""
+    s = x.shape[1]
+    cos, sin = L.rotary_embedding(torch.arange(s, device=x.device), cfg.dh, cfg.rope_theta,
+                                  cfg.dtype)
+    lp = {k: ({n: t.detach().requires_grad_(grad) for n, t in v.items()} if isinstance(v, dict)
+              else v.detach().requires_grad_(grad)) for k, v in lp.items()}
+    out, _, _ = lm._block(cfg, lp, x.to(cfg.dtype), cos, sin, causal=True)
+    if not grad:
+        return out.float(), None
+    w = torch.randn(out.shape, generator=torch.Generator(device=x.device).manual_seed(3),
+                    device=x.device)
+    (out.float() * w).sum().backward()
+    return out.detach().float(), tree_global_norm([t.grad for t in tree_leaves(lp)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [32, 256])
+def test_internlm2_block_with_flash_matches_chunked(dev, s):
+    cfg = dataclasses.replace(INTERNLM2, n_layers=1, dtype=torch.bfloat16)
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    lp = {k: ({n: t[0] for n, t in v.items()} if isinstance(v, dict) else v[0])
+          for k, v in params["layers"].items()}
+    x = torch.randn((8, s, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    chunked = dataclasses.replace(cfg, attention_impl="chunked")
+    ops.reset_launches()
+    flash, g_flash = _block_out(dataclasses.replace(cfg, attention_impl="pallas"), lp, x, True)
+    assert ops.flash_attention.launches == ops.flash_attention.paths["hopper"] == 1
+    plain, g_plain = _block_out(chunked, lp, x, True)
+    fp32, _ = _block_out(dataclasses.replace(chunked, dtype=torch.float32), lp, x, False)
+    assert bool(torch.isfinite(flash).all())
+    diff, floor = (flash - plain).abs(), (plain - fp32).abs()
+    ulp = 2.0 ** (math.floor(math.log2(plain.abs().max().item())) - 7)
+    assert diff.mean() <= floor.mean(), (diff.mean().item(), floor.mean().item())
+    assert diff.max() <= floor.max() + ulp, (diff.max().item(), floor.max().item(), ulp)
+    assert abs(g_flash.item() - g_plain.item()) <= GRAD_RTOL * g_plain.item()
+
+
+@pytest.mark.cuda
+def test_lm_towers_launch_the_kernel_per_layer_on_the_hopper_path(dev):
+    """An encode and its backward under remat="full": the kernel runs once
+    a layer, and once more a layer in the backward's recompute, every launch
+    on the bf16 Hopper path; the reps stay close to the chunked towers'."""
+    cfg = dataclasses.replace(INTERNLM2, n_layers=2, d_model=512, n_heads=4, n_kv_heads=2,
+                              d_ff=1024, vocab_size=1000, attention_impl="pallas", remat="full")
+    enc = make_lm_dual_encoder(cfg, precision="bf16_banks")
+    params = enc.init(torch.Generator(device=dev).manual_seed(0), dev)
+    for t in tree_leaves(params["passage"]):
+        t.requires_grad_(True)
+    tokens = torch.randint(0, 1000, (8, 256), generator=torch.Generator(device=dev).manual_seed(2),
+                           device=dev)
+    ops.reset_launches()
+    reps = enc.encode_passage(params, tokens)
+    assert ops.flash_attention.launches == cfg.n_layers
+    reps.float().square().sum().backward()
+    assert ops.flash_attention.launches == ops.flash_attention.paths["hopper"] == 2 * cfg.n_layers
+    assert reps.dtype == torch.bfloat16 and reps.shape == (8, 512)
+    with torch.inference_mode():
+        chunked = make_lm_dual_encoder(dataclasses.replace(cfg, attention_impl="chunked"),
+                                       precision="bf16_banks").encode_passage(params, tokens)
+    torch.testing.assert_close(reps.detach().float(), chunked.float(), rtol=0, atol=0.05)
