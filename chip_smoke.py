@@ -17,8 +17,10 @@ Phases, one JSON line each:
                case there; each bf16 call at those shapes must report the
                Hopper kernel (ops.fused_topk.paths); the lm phase's eval
                search (Q=256, N=4096, k=20) and Q=2048, k=100 at d=2048
-               bf16 must report fp32_widened (rows past the Hopper kernel's
-               widest, widened to the fp32 kernel); every fused_topk
+               bf16 must report the Hopper path too (the query chunks
+               streamed through the rings: rows past a resident tile),
+               each timed beside the route it took before (fp32_widened:
+               the rows widened to the fp32 kernel); every fused_topk
                kernel's registers and local memory are held to ptxas's log
                (a bf16 one that spills fails the run);
                the fused_infonce forward, dQ and dP kernels at the two
@@ -28,8 +30,11 @@ Phases, one JSON line each:
                bf16), M=2048 again with every column valid, the same three
                at a contaccum_mined chunk's N=2096 (4 mined columns a
                query), the lm phase's chunk at d=2048 (M=8 and M=2048,
-               N=2064, 1000 masked, bf16: above the Hopper kernels' widest
-               row, so every call must take the wmma path), an fp32 case
+               N=2064, 1000 masked and all valid, bf16: dP must take the
+               Hopper path, the split kernel at M=8 and the cluster kernel
+               at M=2048, timed beside the wmma kernels it took before;
+               the forward and dQ, above their Hopper kernels' widest row,
+               the wmma path), an fp32 case
                and a small ragged case; kernel, plain,
                library and bound times, forward and backward apart; the
                forward and dP at every M=2048 case and all three at every
@@ -132,8 +137,9 @@ Phases, one JSON line each:
                launches of exactly 16 chunks x 3 tower passes x LM_LAYERS x
                2 (remat) a step, all on the Hopper path; fused_infonce
                launches of exactly 2, 1 and 2 x 16 x steps (forward, dQ,
-               dP), all on the wmma path (d = 2048 is past the Hopper
-               kernels'); every eval search on fp32_widened; one step with
+               dP), dP all on the Hopper path, the forward and dQ all on
+               the wmma path (d = 2048 is past their Hopper kernels');
+               every eval search on the Hopper path; one step with
                attention_impl="chunked" and one on the dense loss backend
                against the flash, fused step from the same state and batch.
                Peak memory, step times, a profiled step's busy share and the
@@ -461,29 +467,40 @@ def phase_kernels(torch, ops, ref):
     result["serve_topk_large_k"] = large_k("serve shape", q, p, None, n)
     del q, p, valid
 
-    # the LM retriever's search (lm phase): bf16 reps LM_D wide, past the
-    # Hopper kernel's widest rows, so each call widens them to the fp32
-    # kernel (exact products of bf16 values, fp32 sums); the eval's shape,
-    # and Q = 2048 at eval_topk's k
+    # the LM retriever's search (lm phase): bf16 reps LM_D wide, past a
+    # resident query tile, so the Hopper scan streams the query chunks
+    # through its rings; the eval's shape, and Q = 2048 at eval_topk's k;
+    # each beside the route it took before (parent_ms: the rows widened to
+    # fp32 in the call, then the fp32 kernel, as fp32_widened did)
     p = torch.randn((N_CORPUS, LM_D), generator=g, device=dev).to(torch.bfloat16)
     for name, n_q, kk in (("lm_eval", LM_EVAL_QUERIES, max(LM_EVAL_KS)), ("lm_q2048", 2048, k)):
         q = torch.randn((n_q, LM_D), generator=g, device=dev).to(torch.bfloat16)
-        ops.reset_launches()
-        s, i = ops.fused_topk(q, p, kk)
-        require(ops.fused_topk.paths["fp32_widened"] == ops.fused_topk.launches == 1,
-                f"{name}: fused_topk took {ops.fused_topk.paths}, not fp32_widened")
+        s, i = hopper_call(name, q, p, kk)
         rs, ri = ref.topk_scores_ref(q, p, kk + 1)
         tol = SCORE_RTOL * rs[:, 0].abs().max().item()
         err, clear = check_topk(ref, s, i, rs, ri, tol, name)
         bound_ms, bound_by = topk_bound_ms(n_q, N_CORPUS, N_CORPUS, LM_D, kk, 2)
+        layout = ops.scan_plan(LM_D, kk, n_q)[0]
+        require(layout == ops.STREAMED, f"{name}: scan layout {layout}, not streamed")
+        kernel = lambda: ops.fused_topk(q, p, kk)                     # noqa: E731
+        parent = lambda: ops.fused_topk(q.float(), p.float(), kk)     # noqa: E731
+        times = {"ms": [], "parent_ms": []}
+        for key, fn in (("parent_ms", parent), ("ms", kernel), ("ms", kernel),
+                        ("parent_ms", parent)):
+            times[key].append(cuda_ms(fn, 10))
         result[name] = {
             "Q": n_q, "N": N_CORPUS, "d": LM_D, "k": kk, "dtype": "bf16", "max_abs_err": err,
-            "tolerance": tol, "clear_slots": clear, "slots": i.numel(), "path": "fp32_widened",
-            "ms": cuda_ms(lambda: ops.fused_topk(q, p, kk), 10),
+            "tolerance": tol, "clear_slots": clear, "slots": i.numel(), "path": "hopper",
+            "layout": "streamed", "ms": statistics.mean(times["ms"]), "ms_turns": times["ms"],
+            "parent_route": "fp32_widened", "parent_ms": statistics.mean(times["parent_ms"]),
+            "parent_ms_turns": times["parent_ms"],
             "plain_ms": cuda_ms(lambda: ref.topk_scores_ref(q, p, kk), 3),
             "library_ms": cuda_ms(lambda: library_topk(q, p, kk), 10),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        require(result[name]["ms"] < result[name]["parent_ms"],
+                f"{name}: the Hopper scan ({times['ms']} ms) is not faster than fp32_widened "
+                f"({times['parent_ms']} ms)")
     del q, p
 
     # ties: duplicated integer rows, exact sums, so ties must go to the lowest id
@@ -709,7 +726,7 @@ def phase_infonce_kernels(torch):
         g_pos = -torch.rand((m,), generator=g, device=dev)
         return q, p, labels.to(torch.int32), valid, g_lse, g_pos
 
-    def check(name, q, p, labels, valid, g_lse, g_pos, timed):
+    def check(name, q, p, labels, valid, g_lse, g_pos, timed, parent_dp=False):
         ops.reset_launches()
         lse, pos, amax = ops.fused_infonce_fwd(q, p, labels, valid)
         dq = ops.fused_infonce_dq(q, p, labels, valid, lse, g_lse, g_pos)
@@ -768,6 +785,23 @@ def phase_infonce_kernels(torch):
             out[kernel] = {"ms": device_ms(fn, 20), "plain_ms": device_ms(plain, 5),
                            "library_ms": device_ms(library, 5), "bound_ms": bound_ms,
                            "bound_by": bound_by, "ms_with_enqueue": cuda_ms(fn, 20)}
+        if parent_dp:
+            # dP on the wmma kernels it took before its Hopper path, in turns
+            # with the Hopper kernel (parent, Hopper, Hopper, parent)
+            parent = lambda: ops.grad_on_path("dp", "wmma", *args)    # noqa: E731
+            err = close_err(parent(), rdp, grad_rtol, f"{name} dp on the wmma path")
+            fn = lambda: ops.fused_infonce_dp(*args)                  # noqa: E731
+            turns = {"ms": [], "parent_ms": []}
+            for key, call in (("parent_ms", parent), ("ms", fn), ("ms", fn),
+                              ("parent_ms", parent)):
+                turns[key].append(device_ms(call, 20))
+            out["dp"].update({"ms_turns": turns["ms"], "parent_route": "wmma",
+                              "parent_ms": statistics.mean(turns["parent_ms"]),
+                              "parent_ms_turns": turns["parent_ms"],
+                              "parent_max_abs_err": err})
+            require(max(turns["ms"]) < min(turns["parent_ms"]),
+                    f"{name}: the Hopper dP ({turns['ms']} ms) is not faster than the wmma "
+                    f"kernels ({turns['parent_ms']} ms)")
         return out
 
     result = {}
@@ -798,15 +832,26 @@ def phase_infonce_kernels(torch):
             *case(bank, n_mined, d, torch.bfloat16, n_masked,
                   n_own_mined + torch.arange(bank, device=dev)), timed=True)
     # the lm phase's chunk: the same rows and columns at internlm2-1.8b's
-    # d = LM_D, past HOPPER_D_MAX: all three kernels take the wmma path
-    result["lm_local_rows"] = check("LM M=8", *case(local, n_path, LM_D, torch.bfloat16,
-                                                    N_BANK_MASKED, labels8), timed=True)
-    result["lm_bank_rows"] = check("LM M=2048", *case(bank, n_path, LM_D, torch.bfloat16,
-                                                      N_BANK_MASKED, labels_bank), timed=True)
-    for shape in ("lm_local_rows", "lm_bank_rows"):
-        for kernel in ("fwd", "dq", "dp"):
-            require(result[shape]["paths"][kernel] == "wmma",
-                    f"{shape} {kernel} took the {result[shape]['paths'][kernel]} path, not wmma")
+    # d = LM_D: dP on its Hopper kernels (the split kernel at the local
+    # rows, the cluster kernel at the bank rows), the forward and dQ, past
+    # HOPPER_D_MAX, on the wmma path
+    for suffix, n_masked in (("", N_BANK_MASKED), ("_all_valid", 0)):
+        result["lm_local_rows" + suffix] = check(
+            f"LM M=8{suffix}", *case(local, n_path, LM_D, torch.bfloat16, n_masked, labels8),
+            timed=True, parent_dp=True)
+        result["lm_bank_rows" + suffix] = check(
+            f"LM M=2048{suffix}", *case(bank, n_path, LM_D, torch.bfloat16, n_masked,
+                                        labels_bank), timed=True, parent_dp=True)
+        for shape in ("lm_local_rows" + suffix, "lm_bank_rows" + suffix):
+            for kernel in ("fwd", "dq", "dp"):
+                want = "hopper" if kernel == "dp" else "wmma"
+                require(result[shape]["paths"][kernel] == want,
+                        f"{shape} {kernel} took the {result[shape]['paths'][kernel]} path, "
+                        f"not {want}")
+    result["lm_dp_plan"] = {"local_rows_ranks": ops.dp_small_ranks(LM_D),
+                            "local_rows_blocks": ops.hopper_blocks("dp", local, n_path, d=LM_D),
+                            "bank_rows_ranks": ops.dp_plan(bank)[0],
+                            "bank_rows_blocks": ops.hopper_blocks("dp", bank, n_path, d=LM_D)}
     for shape, kernels in (("local_rows", ("fwd", "dq", "dp")), ("bank_rows", ("fwd", "dp")),
                            ("bank_rows_all_valid", ("fwd", "dp")),
                            ("local_rows_mined", ("fwd", "dq", "dp")),
@@ -1775,9 +1820,12 @@ def phase_lm(torch, topk_ops):
             f"flash_attention took {flash_paths}, not all the bf16 Hopper kernel")
     want = {"fwd": 2 * kk * LM_STEPS, "dq": kk * LM_STEPS, "dp": 2 * kk * LM_STEPS}
     require(launches == want, f"fused_infonce launches {launches} != {want}")
+    # dP on its Hopper kernels at d = 2048; the forward and dQ, past their
+    # Hopper kernels' widest rows, on the wmma kernels
     for kernel in ("fwd", "dq", "dp"):
-        require(paths[kernel]["wmma"] == launches[kernel],
-                f"fused_infonce {kernel} took {paths[kernel]}, not all the wmma kernels")
+        want = "hopper" if kernel == "dp" else "wmma"
+        require(paths[kernel][want] == launches[kernel],
+                f"fused_infonce {kernel} took {paths[kernel]}, not all the {want} kernels")
     last = hist[-1]
     towers_apart = max((q - p).abs().max().item() for q, p in zip(
         tree_leaves(state.params["query"]), tree_leaves(state.params["passage"])))
@@ -1807,7 +1855,7 @@ def phase_lm(torch, topk_ops):
             f"the profiled lm step shows no flash_fwd_kernel time: {share}")
 
     # Top@k eval: the corpus and the eval queries through the flash towers,
-    # the search through fused_topk (every call widened to fp32)
+    # the search through fused_topk (every call on the Hopper scan)
     topk_ops.reset_launches()
     flash_ops.reset_launches()
     t0 = time.perf_counter()
@@ -1821,8 +1869,8 @@ def phase_lm(torch, topk_ops):
     eval_s = time.perf_counter() - t0
     eval_launches, eval_paths = topk_ops.fused_topk.launches, dict(topk_ops.fused_topk.paths)
     eval_flash = dict(flash_ops.flash_attention.paths)
-    require(eval_launches > 0 and eval_paths["fp32_widened"] == eval_launches,
-            f"the lm eval's searches took {eval_paths}, not all fp32_widened")
+    require(eval_launches > 0 and eval_paths["hopper"] == eval_launches,
+            f"the lm eval's searches took {eval_paths}, not all the Hopper kernel")
     require(eval_flash["hopper"] == flash_ops.flash_attention.launches > 0,
             f"the lm eval's encodes took {eval_flash}")
     require(all(np.isfinite(v) for v in recalls.values()), f"non-finite recall {recalls}")
@@ -2236,8 +2284,8 @@ def main(argv=None) -> int:
         "bound_by": ev["bound_by"], "library_ms": ev["library_ms"],
         "shape": f"eval_topk: Q={ev['Q']}, N={ev['N']}, d={ev['d']}, k={ev['k']}, bf16",
         "mine_shape": {key: ms[key] for key in ("Q", "N", "d", "k", *timed)},
-        "lm_eval_shape": {key: kernels["lm_eval"][key] for key in ("Q", "N", "d", "k", "path",
-                                                                    *timed)},
+        "lm_eval_shape": {key: kernels["lm_eval"][key] for key in (
+            "Q", "N", "d", "k", "path", "parent_route", "parent_ms", *timed)},
     }]
     # each fused_infonce kernel at its largest shape on the train path (dQ
     # runs only for the local queries); the phase line has both shapes
@@ -2249,7 +2297,9 @@ def main(argv=None) -> int:
         t = infonce[shape][kernel]
         by_path = {"train": train["launches"][kernel], "mine": mine["infonce_launches"][kernel],
                    "lm": lm["infonce_launches"][kernel]}
-        lm_shape = infonce["lm_" + shape]
+        lm_shapes = {"lm_shape": infonce["lm_" + shape]}
+        if kernel == "dp":   # the split kernel at the LM retriever's local rows
+            lm_shapes["lm_local_rows_shape"] = infonce["lm_local_rows"]
         lines.append({
             "name": f"fused_infonce_{kernel}", "route": "cuda", "source": source,
             "replaces": f"{tpu}:{line}", "launches": sum(by_path.values()),
@@ -2258,9 +2308,11 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": f"M={infonce[shape]['M']}, "
             f"N={infonce[shape]['N']}, d={infonce[shape]['d']}, {infonce[shape]['dtype']}",
-            "lm_shape": {"M": lm_shape["M"], "N": lm_shape["N"], "d": lm_shape["d"],
-                         "path": lm_shape["paths"][kernel], "max_abs_err": lm_shape[err],
-                         **{key: lm_shape[kernel][key] for key in timed[1:]}},
+            **{name: {"M": sh["M"], "N": sh["N"], "d": sh["d"], "path": sh["paths"][kernel],
+                      "max_abs_err": sh[err], **{key: sh[kernel][key] for key in timed[1:]},
+                      **{key: sh[kernel][key] for key in ("parent_route", "parent_ms")
+                         if key in sh[kernel]}}
+               for name, sh in lm_shapes.items()},
         })
     # flash_attention at the BERT passage pass (the phase line has every shape)
     fa = flash_k["bert_passage"]

@@ -12,9 +12,13 @@ yardstick), TFLOP/s over the valid columns, the path each call took where
 (inputs read once and outputs written once over 3.35 TB/s, or the
 operations over the valid columns over the operand type's peak: 989
 TFLOP/s bf16, 67 fp32 without tensor cores). One JSON line per shape and
-kernel, then the card's name and power limit.
+kernel, then the card's name and power limit. The LM retriever's chunk
+(internlm2-1.8b, d = 2048; ``--only lm`` times it alone): the same rows
+and columns, masked and all valid; its dP also on the ``wmma`` kernels it
+took before its Hopper path (``parent_ms``, ``ops.grad_on_path``), and
+its forward and dQ, which take them still.
 
-    PYTHONPATH=src python -m repro_torch.kernels.fused_infonce.bench [--reps 20]
+    PYTHONPATH=src python -m repro_torch.kernels.fused_infonce.bench [--reps 20] [--only lm]
 
 ``ms`` is the device time of a call (``_timing.device_ms``: the calls
 queued behind a sleep kernel); ``kernels_ms`` sums each kernel's device time
@@ -25,7 +29,8 @@ tiles end and so counts some of its wait for them). ``paths`` is the path
 each call took (``ops.fused_infonce_fwd.paths``, ``.dq.paths``,
 ``.dp.paths``). It uses only ``ops``, ``ref`` and the dense backend, so it
 also runs in an older tree of the port with this file copied into it
-(paths are then null where that tree counts none).
+(paths are then null where that tree counts none, and ``parent_ms``
+where it has no ``grad_on_path``).
 
 Needs a CUDA device; builds the kernels at first use like any caller.
 """
@@ -41,18 +46,22 @@ from repro_torch.core.loss import DenseLossBackend
 from repro_torch.kernels._timing import card, device_ms
 from repro_torch.kernels.fused_infonce import ops, ref
 
-N_PATH, D, N_MASKED = 2064, 768, 1000
+N_PATH, D, LM_D, N_MASKED = 2064, 768, 2048, 1000
 #: an H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, and the
 #: dense operations/s of each operand type (fp32 on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-#: (name, M, dtype, masked columns)
-SHAPES = (("local_rows", 8, torch.bfloat16, N_MASKED),
-          ("bank_rows", 2048, torch.bfloat16, N_MASKED),
-          ("local_rows_all_valid", 8, torch.bfloat16, 0),
-          ("bank_rows_all_valid", 2048, torch.bfloat16, 0),
-          ("local_rows_fp32", 8, torch.float32, N_MASKED),
-          ("bank_rows_fp32", 2048, torch.float32, N_MASKED))
+#: (name, M, d, dtype, masked columns)
+SHAPES = (("local_rows", 8, D, torch.bfloat16, N_MASKED),
+          ("bank_rows", 2048, D, torch.bfloat16, N_MASKED),
+          ("local_rows_all_valid", 8, D, torch.bfloat16, 0),
+          ("bank_rows_all_valid", 2048, D, torch.bfloat16, 0),
+          ("local_rows_fp32", 8, D, torch.float32, N_MASKED),
+          ("bank_rows_fp32", 2048, D, torch.float32, N_MASKED),
+          ("lm_local_rows", 8, LM_D, torch.bfloat16, N_MASKED),
+          ("lm_bank_rows", 2048, LM_D, torch.bfloat16, N_MASKED),
+          ("lm_local_rows_all_valid", 8, LM_D, torch.bfloat16, 0),
+          ("lm_bank_rows_all_valid", 2048, LM_D, torch.bfloat16, 0))
 
 
 def profile_kernels(fn, reps: int) -> dict:
@@ -85,9 +94,9 @@ def bound_ms(kernel: str, m: int, n: int, n_valid: int, d: int, dtype) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _case(m, dtype, n_masked, dev, g):
-    q = (torch.randn((m, D), generator=g, device=dev) * 0.2).to(dtype)
-    p = (torch.randn((N_PATH, D), generator=g, device=dev) * 0.2).to(dtype)
+def _case(m, d, dtype, n_masked, dev, g):
+    q = (torch.randn((m, d), generator=g, device=dev) * 0.2).to(dtype)
+    p = (torch.randn((N_PATH, d), generator=g, device=dev) * 0.2).to(dtype)
     valid = torch.ones((N_PATH,), dtype=torch.bool, device=dev)
     if n_masked:
         valid[-n_masked:] = False
@@ -117,6 +126,8 @@ def _took(counter, before):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", choices=("lm",), default=None,
+                    help="time only the LM retriever's chunk (d = 2048)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench.py needs a CUDA device")
@@ -125,8 +136,11 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(0)
     dense = DenseLossBackend()
     smi = card()
-    for name, m, dtype, n_masked in SHAPES:
-        q, p, labels, valid, g_lse, g_pos = _case(m, dtype, n_masked, dev, g)
+    parent_dp = getattr(ops, "grad_on_path", None)
+    for name, m, d, dtype, n_masked in SHAPES:
+        if args.only and not name.startswith(args.only):
+            continue
+        q, p, labels, valid, g_lse, g_pos = _case(m, d, dtype, n_masked, dev, g)
         lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
         args_ = (q, p, labels, valid, lse, g_lse, g_pos)
         n_valid = int(valid.sum().item())
@@ -152,11 +166,14 @@ def main(argv=None):
             torch.cuda.synchronize()
             took = _took(counter, before)
             ms = device_ms(fn, args.reps)
-            bound, bound_by = bound_ms(kernel, m, N_PATH, n_valid, D, dtype)
+            bound, bound_by = bound_ms(kernel, m, N_PATH, n_valid, d, dtype)
+            parent_ms = None
+            if kernel == "dp" and d == LM_D and parent_dp is not None:
+                parent_ms = device_ms(lambda: parent_dp("dp", "wmma", *args_), args.reps)
             print(json.dumps({
-                "shape": name, "kernel": kernel, "M": m, "N": N_PATH, "n_valid": n_valid, "d": D,
+                "shape": name, "kernel": kernel, "M": m, "N": N_PATH, "n_valid": n_valid, "d": d,
                 "dtype": str(dtype).removeprefix("torch."), "ms": ms,
-                "tflops": flop * m * n_valid * D / ms / 1e9,
+                "parent_ms": parent_ms, "tflops": flop * m * n_valid * d / ms / 1e9,
                 "kernels_ms": profile_kernels(fn, args.reps),
                 "plain_ms": device_ms(plain_fn, max(5, args.reps // 4)),
                 "library_ms": device_ms(library_fn, max(5, args.reps // 4)),

@@ -9,7 +9,8 @@
 //   dQ       _dq_kernel (:205) -> bf16: hp::infonce_small_kernel<true> (+
 //                                 infonce_grad_reduce_kernel); else infonce_dq_kernel
 //   dP       _dp_kernel (:229) -> bf16: hp::infonce_small_kernel<false> at up to 16
-//                                 query rows, hp::infonce_dp_cluster_kernel above;
+//                                 query rows (hp::infonce_dp_split_kernel past d =
+//                                 1024), hp::infonce_dp_cluster_kernel above;
 //                                 else infonce_dp_kernel (+ infonce_grad_reduce_kernel)
 // ops.py picks the kernel of each call (ops.path_of). Same contract. s = (q .
 // p_n) * inv_tau, products accumulated in fp32; an invalid column
@@ -79,11 +80,20 @@
 //    stream of Q and P tiles through a ring of about 100 KB (the strip takes
 //    the rest of shared memory); the tensor cores run at about a quarter of
 //    their peak.
+//  - dP past d = 1024 (16 d-chunks; the LM retriever's 2048): at M > 16 the
+//    cluster kernel as above (3 ranks, each on 10-11 of the 32 chunks in
+//    groups of up to 4; nothing in its plan depends on d). At M <= 16 the
+//    small kernel's P tile (10 KB a d-chunk with the queries) no longer
+//    fits: infonce_dp_split_kernel puts a cluster of ceil(nc / 16) blocks
+//    on each passage tile, each rank on its share of the d-chunks (partial
+//    scores summed through distributed shared memory, then its columns of
+//    dP); see the kernel.
 //  - A dQ or dP block whose passages are all masked writes zeros and
 //    computes nothing.
 //
 // The fp32 kernels and the bf16 shapes the Hopper kernels do not take (d
-// not a multiple of 8 or above 1024, dQ above 16 rows, dP above 6144 rows)
+// not a multiple of 8, or above 1024 for the forward and dQ and above 8192
+// for dP; dQ above 16 rows, dP above 6144 rows)
 // keep the first design: 64 x 64 score tiles on wmma bf16 16x16x16 (fp32
 // inputs: a CUDA-core FMA loop, no TF32), looping over d in chunks of 64
 // with synchronous loads; the backward kernels first compute the block's
@@ -815,6 +825,12 @@ __host__ __device__ constexpr int small_off_qv(int nc) { return small_off_c(nc) 
 __host__ __device__ constexpr int small_off_bar(int nc) { return small_off_qv(nc) + 4 * SQ * 4; }
 __host__ __device__ constexpr int small_smem(int nc) { return small_off_bar(nc) + 8 * nc + 1024; }
 static_assert(small_smem(NC_MAX) <= 232448, "shared memory over the 227 KB a block may use");
+// dP at up to SQ query rows past NC_MAX d-chunks: a rank of the cluster
+// holds the small kernel's layout for its nc <= NC_MAX chunks, then each
+// thread's 8 partial scores (4 KB a block) for the other ranks to read
+__host__ __device__ constexpr int split_off_x(int nc) { return (small_off_bar(nc) + 8 * nc + 15) / 16 * 16; }
+__host__ __device__ constexpr int split_smem(int nc) { return split_off_x(nc) + 128 * 32 + 1024; }
+static_assert(split_smem(NC_MAX) <= 232448, "shared memory over the 227 KB a block may use");
 
 // ---- the forward: per query row and passage tile a partial (max, sum-exp,
 // pos) in part (3, M, tiles); infonce_stats_merge_kernel merges each row's
@@ -1161,8 +1177,10 @@ infonce_dp_cluster_kernel(const __grid_constant__ CUtensorMap tq,
 // 4i + e of acc: passage 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2.
 // Opens with a block barrier, which also orders the caller's earlier
 // shared-memory writes.
+// c_lo: the first d-chunk (chunk c of shared memory is chunk c_lo + c of d).
 __device__ __forceinline__ void small_scores(const CUtensorMap* tq, const CUtensorMap* tp,
-                                             uint32_t base, int nc, int n0, float (&acc)[8]) {
+                                             uint32_t base, int nc, int n0, float (&acc)[8],
+                                             int c_lo = 0) {
   const uint32_t bar = base + small_off_bar(nc);
   const uint32_t p_s = base, q_s = base + nc * BOX;
   if (threadIdx.x == 0) {
@@ -1175,8 +1193,8 @@ __device__ __forceinline__ void small_scores(const CUtensorMap* tq, const CUtens
     prefetch_tensormap(tp);
     for (int c = 0; c < nc; ++c) {
       mbar_expect_tx(bar + 8u * c, BOX + QBOX);
-      tma_load_2d(tp, p_s + c * BOX, bar + 8u * c, 64 * c, n0);
-      tma_load_2d(tq, q_s + c * QBOX, bar + 8u * c, 64 * c, 0);
+      tma_load_2d(tp, p_s + c * BOX, bar + 8u * c, 64 * (c_lo + c), n0);
+      tma_load_2d(tq, q_s + c * QBOX, bar + 8u * c, 64 * (c_lo + c), 0);
     }
   }
 #pragma unroll
@@ -1193,6 +1211,67 @@ __device__ __forceinline__ void small_scores(const CUtensorMap* tq, const CUtens
   }
   wgmma_wait<0>();
   fence_regs<8>(acc);
+}
+
+// The dP tile of passages n0.. over d-chunks [c_lo, c_lo + nc) (chunk c of
+// shared memory: P at c BOX, Q at nc BOX + c QBOX) from this thread's 8
+// coefficients (passages pl and pl + 8, queries 8 i + 2 t4 + e % 2): the
+// coefficients are the register A operand of one k-step a d-chunk (dP tile
+// = C^T Q, Q the MN-major B), staged in bf16 where the P tile was and
+// written in 16-byte stores. Opens with a block barrier: every warp's score
+// products have read the P tile.
+__device__ __forceinline__ void small_dp_tile(uint8_t* smem, uint32_t base, const float (&cf)[8],
+                                              int nc, int c_lo, int n0, int N, int d, int pl,
+                                              int t4, __nv_bfloat16* dp) {
+  const uint32_t q_s = base + nc * BOX;
+  // the coefficients as the A operand of one k-step (16 queries)
+  uint32_t a[4] = {pack_bf16(cf[0], cf[1]), pack_bf16(cf[2], cf[3]), pack_bf16(cf[4], cf[5]),
+                   pack_bf16(cf[6], cf[7])};
+  __syncthreads();   // every warp's score products have read the P tile: it stages dP now
+  for (int c0 = 0; c0 < nc; c0 += 2) {
+    float o[2][32];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
+    fence_regs<32>(o[0]);
+    fence_regs<32>(o[1]);
+    fence_regs<4>(a);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)   // past the last chunk: the last again, not stored
+      wgmma_rs_n64(o[h], a, desc_sw128(q_s + min(c0 + h, nc - 1) * QBOX, QBOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(o[0]);
+    fence_regs<32>(o[1]);
+    fence_regs<4>(a);
+    // chunk c of the tile into P chunk c's bytes, in the same 128-byte
+    // swizzle (16-byte group i of row r at i ^ (r % 8): no bank conflicts)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (c0 + h >= nc) continue;
+      uint8_t* tile = smem + (c0 + h) * BOX;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = pl + 8 * e;
+          *reinterpret_cast<uint32_t*>(tile + r * 128 + ((i ^ (r & 7)) << 4) + t4 * 4) =
+              pack_bf16(o[h][4 * i + 2 * e], o[h][4 * i + 2 * e + 1]);
+        }
+    }
+  }
+  __syncthreads();
+  // the tile's rows in 16-byte stores, consecutive threads on consecutive bytes
+  const int col0 = 64 * c_lo, groups = (min(d, 64 * (c_lo + nc)) - col0) / 8;
+  for (int x = threadIdx.x; x < PB * groups; x += 128) {
+    const int r = x / groups, k = x % groups;
+    if (n0 + r < N)
+      *reinterpret_cast<uint4*>(dp + size_t(n0 + r) * d + col0 + 8 * k) =
+          *reinterpret_cast<const uint4*>(smem + (k / 8) * BOX + r * 128 +
+                                          (((k % 8) ^ (r & 7)) << 4));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1237,7 +1316,7 @@ infonce_small_kernel(const __grid_constant__ CUtensorMap tq,
   float* qv = reinterpret_cast<float*>(smem + small_off_qv(nc));
   const int* qlab = reinterpret_cast<const int*>(qv + 3 * SQ);
   load_query_values(qv, SQ, 0, M, labels, lse, g_lse, g_pos, inv_tau, tid, 128);
-  const uint32_t p_s = base, q_s = base + nc * BOX;
+  const uint32_t p_s = base;
   // S^T: register 4i + e is passage 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2
   float acc[8];
   small_scores(&tq, &tp, base, nc, n0, acc);
@@ -1256,53 +1335,7 @@ infonce_small_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
   if constexpr (!DQ) {
-    // the coefficients as the A operand of one k-step (16 queries)
-    uint32_t a[4] = {pack_bf16(cf[0], cf[1]), pack_bf16(cf[2], cf[3]), pack_bf16(cf[4], cf[5]),
-                     pack_bf16(cf[6], cf[7])};
-    __syncthreads();   // every warp's score products have read the P tile: it stages dP now
-    for (int c0 = 0; c0 < nc; c0 += 2) {
-      float o[2][32];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
-      fence_regs<32>(o[0]);
-      fence_regs<32>(o[1]);
-      fence_regs<4>(a);
-      wgmma_fence();
-#pragma unroll
-      for (int h = 0; h < 2; ++h)   // past the last chunk: the last again, not stored
-        wgmma_rs_n64(o[h], a, desc_sw128(q_s + min(c0 + h, nc - 1) * QBOX, QBOX, 1024));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<32>(o[0]);
-      fence_regs<32>(o[1]);
-      fence_regs<4>(a);
-      // chunk c of the tile into P chunk c's bytes, in the same 128-byte
-      // swizzle (16-byte group i of row r at i ^ (r % 8): no bank conflicts)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (c0 + h >= nc) continue;
-        uint8_t* tile = smem + (c0 + h) * BOX;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int r = pl + 8 * e;
-            *reinterpret_cast<uint32_t*>(tile + r * 128 + ((i ^ (r & 7)) << 4) + t4 * 4) =
-                pack_bf16(o[h][4 * i + 2 * e], o[h][4 * i + 2 * e + 1]);
-          }
-      }
-    }
-    __syncthreads();
-    // the tile's rows in 16-byte stores, consecutive threads on consecutive bytes
-    const int groups = d / 8;
-    for (int x = tid; x < PB * groups; x += 128) {
-      const int r = x / groups, k = x % groups;
-      if (n0 + r < N)
-        *reinterpret_cast<uint4*>(dp + size_t(n0 + r) * d + 8 * k) = *reinterpret_cast<const uint4*>(
-            smem + (k / 8) * BOX + r * 128 + (((k % 8) ^ (r & 7)) << 4));
-    }
+    small_dp_tile(smem, base, cf, nc, 0, n0, N, d, pl, t4, dp);
   } else {
     // C^T as a K-major B: row q (128 bytes: 64 passages), 128-byte swizzled
     uint8_t* cs = smem + small_off_c(nc);
@@ -1349,6 +1382,92 @@ infonce_small_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// dP at up to SQ query rows on rows of more than NC_MAX d-chunks, where the
+// small kernel's P tile (10 KB a d-chunk with the queries) no longer fits a
+// block: a cluster of `ranks` blocks on one tile of 64 passages, rank r
+// taking d-chunks [r nc / ranks, (r + 1) nc / ranks) (at most NC_MAX: 2
+// ranks of 16 at d = 2048, 3 of 13-14 at 2560). Each rank loads its share
+// of the P tile and of the queries by TMA exactly as the small kernel does
+// all of them, and accumulates its partial S^T (wgmma m64n16) over its
+// share. The partials (64 x 16 fp32, 4 KB a rank) are summed through
+// distributed shared memory in rank order, so every rank forms the same
+// scores and the same bf16 coefficients in registers, and each rank writes
+// its own columns of dP as the small kernel writes all of them (C^T Q, the
+// tile staged in bf16 where its P chunks were). P is read once and dP
+// written once; what bounds it is those bytes (2 x 8.4 MB at d = 2048, N =
+// 2064: 5.0 us), with twice the small kernel's blocks (66) to carry them.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(128, 1)
+infonce_dp_split_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
+                        const uint8_t* __restrict__ col_valid, const float* __restrict__ lse,
+                        const float* __restrict__ g_lse, const float* __restrict__ g_pos,
+                        __nv_bfloat16* __restrict__ dp, int M, int N, int d, float k1,
+                        float inv_tau) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int ranks = int(cluster_nctarank()), rank = int(cluster_ctarank());
+  const int n0 = (blockIdx.x / ranks) * PB;
+  const int nc_all = (d + 63) / 64;
+  const int c_lo = rank * nc_all / ranks, nc = (rank + 1) * nc_all / ranks - c_lo;
+  const int tid = threadIdx.x, v = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+
+  // a wholly masked passage tile: its dP rows are 0 (every rank of the
+  // cluster sees the same tile and leaves here, before any cluster barrier)
+  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {
+    zero_rows(dp, n0, N, d, 64 * c_lo, min(d, 64 * (c_lo + nc)), 128);
+    return;
+  }
+
+  float* qv = reinterpret_cast<float*>(smem + small_off_qv(nc));
+  const int* qlab = reinterpret_cast<const int*>(qv + 3 * SQ);
+  load_query_values(qv, SQ, 0, M, labels, lse, g_lse, g_pos, inv_tau, tid, 128);
+  // this rank's partial S^T: register 4i + e is passage 16 v + g + 8 (e /
+  // 2), query 8 i + 2 t4 + e % 2
+  float part[8];
+  small_scores(&tq, &tp, base, nc, n0, part, c_lo);
+  // at one offset in every rank (the ranks' shares differ by a chunk at most)
+  const int x_off = split_off_x((nc_all + ranks - 1) / ranks) + tid * 32;
+  const uint32_t x_s = base + x_off;
+  *reinterpret_cast<float4*>(smem + x_off) = make_float4(part[0], part[1], part[2], part[3]);
+  *reinterpret_cast<float4*>(smem + x_off + 16) = make_float4(part[4], part[5], part[6], part[7]);
+  cluster_arrive();   // phase 1: this rank's partial is written
+  cluster_wait();     // and every rank's
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int r = 0; r < ranks; ++r) {   // rank order: every rank sums the same way
+    const uint4 lo = ld_cluster_v4(x_s, r), hi = ld_cluster_v4(x_s + 16, r);
+    acc[0] += __uint_as_float(lo.x);
+    acc[1] += __uint_as_float(lo.y);
+    acc[2] += __uint_as_float(lo.z);
+    acc[3] += __uint_as_float(lo.w);
+    acc[4] += __uint_as_float(hi.x);
+    acc[5] += __uint_as_float(hi.y);
+    acc[6] += __uint_as_float(hi.z);
+    acc[7] += __uint_as_float(hi.w);
+  }
+  cluster_arrive_relaxed();   // phase 2: this rank reads no more partials
+
+  const int pl = 16 * v + g;   // this thread's passages: n0 + pl and + 8
+  const bool va = passage_valid(col_valid, n0 + pl, N);
+  const bool vb = passage_valid(col_valid, n0 + pl + 8, N);
+  float cf[8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = 8 * i + 2 * t4 + (e & 1), p = n0 + pl + 8 * (e >> 1);
+      cf[4 * i + e] = coef(acc[4 * i + e], k1, qv[q], qv[SQ + q], qv[2 * SQ + q], qlab[q] == p,
+                           (e >> 1) ? vb : va);
+    }
+  small_dp_tile(smem, base, cf, nc, c_lo, n0, N, d, pl, t4, dp);
+  cluster_wait();   // no rank leaves while another may read its partial
 }
 
 // ---------------------------------------------------------------------------
@@ -1611,6 +1730,7 @@ cudaError_t map2d(CUtensorMap* map, const void* ptr, int cols, int rows, int box
 }
 
 struct ClusterTag {};
+struct SplitTag {};
 template <bool DQ> struct SmallTag {};
 
 cudaLaunchConfig_t cluster_config(int col_tiles, int ranks, cudaStream_t st,
@@ -1632,8 +1752,10 @@ cudaLaunchConfig_t cluster_config(int col_tiles, int ranks, cudaStream_t st,
 cudaError_t dp_cluster(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
                    const float* lse, const float* g_lse, const float* g_pos, void* out, int M, int N,
                    int d, int ranks, int rq, float inv_tau, cudaStream_t st) {
+  // nothing of the plan depends on d: each rank takes its share of the
+  // d-chunks in groups of up to NCH, the last group of a share as it falls
   if (ranks < 1 || ranks > RANKS_MAX || rq % TQ || rq > RQ_MAX || ranks * rq < M ||
-      (ranks - 1) * rq >= M || d > 64 * NC_MAX)
+      (ranks - 1) * rq >= M)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tp;
   cudaError_t err;
@@ -1647,6 +1769,40 @@ cudaError_t dp_cluster(const void* q, const void* p, const int* labels, const ui
   const cudaLaunchConfig_t cfg = cluster_config((N + PB - 1) / PB, ranks, st, attr);
   err = cudaLaunchKernelEx(&cfg, infonce_dp_cluster_kernel, tq, tp, labels, col_valid, lse, g_lse,
                            g_pos, static_cast<__nv_bfloat16*>(out), M, N, d, rq, inv_tau * LOG2E,
+                           inv_tau);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// dP at up to SQ query rows in clusters of `ranks` blocks a passage tile,
+// each rank on at most NC_MAX of the d-chunks
+cudaError_t dp_split(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
+                     const float* lse, const float* g_lse, const float* g_pos, void* out, int M,
+                     int N, int d, int ranks, float inv_tau, cudaStream_t st) {
+  const int nc = (d + 63) / 64;
+  if (M > SQ || ranks < 2 || ranks > RANKS_MAX || ranks > nc || (nc + ranks - 1) / ranks > NC_MAX)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tp;
+  cudaError_t err;
+  if ((err = map2d(&tq, q, d, M, SQ)) != cudaSuccess ||
+      (err = map2d(&tp, p, d, N, PB)) != cudaSuccess)
+    return err;
+  if ((err = allow_smem_once<SplitTag>(reinterpret_cast<const void*>(infonce_dp_split_kernel),
+                                       split_smem(NC_MAX))) != cudaSuccess)
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned((N + PB - 1) / PB * ranks));
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = split_smem((nc + ranks - 1) / ranks);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(ranks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, infonce_dp_split_kernel, tq, tp, labels, col_valid, lse, g_lse,
+                           g_pos, static_cast<__nv_bfloat16*>(out), M, N, d, inv_tau * LOG2E,
                            inv_tau);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -1800,13 +1956,14 @@ int fused_infonce_dp_launch(const void* q, const void* p, const void* labels,
   return int(cudaErrorInvalidValue);
 }
 
-// The Hopper kernels, bf16 only (q and p row-major, 16-byte aligned bases, d
-// a multiple of 8 up to 1024). dP: M up to 16 takes the small kernel
-// (ranks and rq unused), else infonce_dp_cluster_kernel in clusters of
-// `ranks` blocks,
-// rank r holding the coefficients of query rows [r rq, (r + 1) rq) (rq a
-// multiple of TQ (256), at most RQ_MAX (768), ranks at most 8; ops.dp_plan).
-// out: dp (N, d) bf16.
+// The Hopper dP, bf16 only (q and p row-major, 16-byte aligned bases, d a
+// multiple of 8). M up to 16: ranks 1 takes the small kernel (d up to
+// 1024; rq unused), ranks 2-8 infonce_dp_split_kernel in clusters of
+// `ranks` blocks, each on at most 16 of the d-chunks (ops.dp_small_ranks).
+// Else infonce_dp_cluster_kernel in clusters of `ranks` blocks, rank r
+// holding the coefficients of query rows [r rq, (r + 1) rq) (rq a multiple
+// of TQ (256), at most RQ_MAX (768), ranks at most 8; ops.dp_plan), at any
+// d. out: dp (N, d) bf16.
 int fused_infonce_dp_hopper_launch(const void* q, const void* p, const void* labels,
                                    const void* col_valid, const void* lse, const void* g_lse,
                                    const void* g_pos, void* out, int M, int N, int d, int ranks,
@@ -1816,8 +1973,10 @@ int fused_infonce_dp_hopper_launch(const void* q, const void* p, const void* lab
   const auto valid = static_cast<const uint8_t*>(col_valid);
   const auto l = static_cast<const float*>(lse), gl = static_cast<const float*>(g_lse),
              gp = static_cast<const float*>(g_pos);
-  if (M <= hp::SQ)
+  if (M <= hp::SQ && ranks == 1)
     return int(hp::small<false>(q, p, lab, valid, l, gl, gp, out, M, N, d, inv_tau, st));
+  if (M <= hp::SQ)
+    return int(hp::dp_split(q, p, lab, valid, l, gl, gp, out, M, N, d, ranks, inv_tau, st));
   return int(hp::dp_cluster(q, p, lab, valid, l, gl, gp, out, M, N, d, ranks, rq, inv_tau, st));
 }
 
@@ -1874,6 +2033,7 @@ int fused_infonce_kernel_attributes(int which, int* regs, int* local) {
       reinterpret_cast<const void*>(hp::infonce_small_kernel<false>),
       reinterpret_cast<const void*>(hp::infonce_fwd_small_kernel),
       reinterpret_cast<const void*>(hp::infonce_fwd_rows_kernel),
+      reinterpret_cast<const void*>(hp::infonce_dp_split_kernel),
   };
   if (which < 0 || which >= int(sizeof(kernels) / sizeof(kernels[0])))
     return int(cudaErrorInvalidValue);

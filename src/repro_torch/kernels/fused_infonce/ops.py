@@ -17,9 +17,9 @@ built from source at its first launch.
 The three count the path of each call in ``fused_infonce_fwd.paths``,
 ``fused_infonce_dq.paths`` and ``fused_infonce_dp.paths`` (``path_of``):
 
-- ``"hopper"``: bf16 operands with d a multiple of 8 up to ``HOPPER_D_MAX``
-  (TMA reads rows of a multiple of 16 bytes; a base that is not 16-byte
-  aligned is copied first). The forward, at any M: each block takes one
+- ``"hopper"``: bf16 operands with d a multiple of 8 up to ``HOPPER_D_MAX``,
+  ``DP_D_MAX`` for dP (TMA reads rows of a multiple of 16 bytes; a base that
+  is not 16-byte aligned is copied first). The forward, at any M: each block takes one
   tile of 64 passages and writes each of its query rows' partial (max,
   sum-exp, pos) over that tile, taken from the score registers; a second
   kernel merges each row's partials (launched as a programmatic dependent,
@@ -38,15 +38,22 @@ The three count the path of each call in ``fused_infonce_fwd.paths``,
   turns the scores of its query rows into bf16 coefficients in registers
   and keeps them in shared memory, then computes its share of d for every
   query row, reading the other ranks' coefficients through distributed
-  shared memory; one launch, no fp32 partial in device memory. On an H100
+  shared memory; one launch, no fp32 partial in device memory. dP past
+  ``HOPPER_D_MAX`` (the LM retriever's d = 2048): the cluster kernel at
+  more rows as it is; at up to ``SMALL_M`` rows clusters of
+  ``dp_small_ranks(d)`` blocks on each tile of 64 passages, each rank on
+  its share of the d-chunks (at most 16), the partial scores summed through
+  distributed shared memory, each rank writing its columns. On an H100
   the bounds are the bytes of P at the local rows (1-2 us) and the tensor
   cores at the bank rows (6.6 us forward, 13 us dP); the local-row kernels
   are held back by latency (33 blocks), the bank-row kernels by each
   block's stream of Q and P from L2 (PERF.md).
-- ``"wmma"``: other bf16 shapes (d not a multiple of 8 or above
-  ``HOPPER_D_MAX``, dQ above ``SMALL_M`` rows, dP above ``MAX_RANKS *
-  RANK_ROWS`` rows): the first kernels (``wmma`` tiles, synchronous loads,
-  fp32 partials and a merge or reduce kernel when the long axis is split).
+- ``"wmma"``: other bf16 shapes (d not a multiple of 8, the forward and dQ
+  above ``HOPPER_D_MAX``, dP above ``DP_D_MAX``, dQ above ``SMALL_M`` rows,
+  dP above ``MAX_RANKS * RANK_ROWS`` rows): the first kernels (``wmma``
+  tiles, synchronous loads, fp32 partials and a merge or reduce kernel when
+  the long axis is split). ``grad_on_path`` runs a gradient on a path
+  named by the caller, to time one route beside another.
 - ``"fp32"``: fp32 operands (or bf16 with fp32): CUDA-core FMAs, no TF32.
 
 A block whose 64 passages are all masked computes nothing: dQ and dP write
@@ -89,8 +96,13 @@ PASSAGE_TILE = 64
 PASS1_TILE, RANK_ROWS = 256, 768
 #: the portable cluster size
 MAX_RANKS = 8
-#: the widest bf16 row the Hopper kernels take (16 d-chunks of 64)
+#: the widest bf16 row the Hopper forward and dQ take, and one block of the
+#: small dP (16 d-chunks of 64)
 HOPPER_D_MAX = 1024
+#: the widest bf16 row the Hopper dP takes: at up to SMALL_M rows a cluster
+#: of at most MAX_RANKS blocks, each on at most 16 d-chunks (the cluster
+#: kernel at more rows takes any d)
+DP_D_MAX = MAX_RANKS * HOPPER_D_MAX
 PATHS = ("hopper", "wmma", "fp32")
 #: every kernel of the library, in fused_infonce_kernel_attributes' order
 KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stats_merge_kernel",
@@ -98,12 +110,13 @@ KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stat
            "infonce_dp_kernel<fp32>", "infonce_grad_reduce_kernel<bf16>",
            "infonce_grad_reduce_kernel<fp32>", "infonce_dp_cluster_kernel",
            "infonce_small_kernel<dq>", "infonce_small_kernel<dp>", "infonce_fwd_small_kernel",
-           "infonce_fwd_rows_kernel")
-#: the kernels the train path's forward, dQ and dP run (bf16, Hopper path)
+           "infonce_fwd_rows_kernel", "infonce_dp_split_kernel")
+#: the kernels the train paths' forward, dQ and dP run (bf16, Hopper path;
+#: the split dP at the LM retriever's local rows)
 HOPPER_KERNELS = ("infonce_fwd_small_kernel", "infonce_fwd_rows_kernel",
                   "infonce_stats_merge_kernel", "infonce_dp_cluster_kernel",
                   "infonce_small_kernel<dq>", "infonce_small_kernel<dp>",
-                  "infonce_grad_reduce_kernel<bf16>")
+                  "infonce_grad_reduce_kernel<bf16>", "infonce_dp_split_kernel")
 #: SMs of an H100 SXM: the card the forward's default row plan fills
 H100_SMS = 132
 
@@ -165,6 +178,16 @@ def dp_plan(m: int) -> Tuple[int, int]:
     return -(-m // rq), rq
 
 
+def dp_small_ranks(d: int) -> int:
+    """Blocks a passage tile of the Hopper dP at up to SMALL_M query rows:
+    1 (the small kernel) up to HOPPER_D_MAX, else a cluster of as many as
+    keep each rank's share of the d-chunks at 16 or fewer (2 at d = 2048, 3
+    at 2560)."""
+    if d > DP_D_MAX:
+        raise ValueError(f"the Hopper dP takes d <= {DP_D_MAX}")
+    return max(1, -(-d // HOPPER_D_MAX))
+
+
 def fwd_plan(m: int, n: int, sm_count: int = H100_SMS) -> int:
     """Query rows a block of the forward's many-row kernel takes (m >
     SMALL_M): a multiple of PASS1_TILE, the rows split into as many groups
@@ -178,12 +201,14 @@ def fwd_plan(m: int, n: int, sm_count: int = H100_SMS) -> int:
     return -(-q_tiles // groups) * PASS1_TILE
 
 
-def hopper_blocks(kind: str, m: int, n: int, sm_count: int = H100_SMS) -> int:
+def hopper_blocks(kind: str, m: int, n: int, sm_count: int = H100_SMS, d: int = 0) -> int:
     """Blocks of the Hopper kernel that a forward (kind "fwd"), dQ ("dq")
-    or dP ("dp") call of m query rows and n passages launches (the merge
-    and reduce kernels aside); the forward's row groups as on a card of
-    ``sm_count`` SMs."""
+    or dP ("dp") call of m query rows and n passages of d columns launches
+    (the merge and reduce kernels aside); the forward's row groups as on a
+    card of ``sm_count`` SMs."""
     tiles = -(-n // PASSAGE_TILE)
+    if kind == "dp" and m <= SMALL_M:
+        return tiles * dp_small_ranks(d)
     if kind == "dq" or m <= SMALL_M:
         return tiles
     if kind == "fwd":
@@ -197,7 +222,7 @@ def path_of(kind: str, dtype: torch.dtype, m: int, d: int) -> str:
     rows of d."""
     if dtype != torch.bfloat16:
         return "fp32"
-    if d % 8 or d > HOPPER_D_MAX:
+    if d % 8 or d > (DP_D_MAX if kind == "dp" else HOPPER_D_MAX):
         return "wmma"
     if kind == "fwd":
         return "hopper"
@@ -339,8 +364,9 @@ def fused_infonce_fwd(
     return lse, pos, amax
 
 
-def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau):
-    """(gradient in the operand type, the path it took)."""
+def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau, path=None):
+    """(gradient in the operand type, the path it took): ``path_of``'s, or
+    ``path`` where given."""
     lib = _library()
     q, p, ct, vec = _operands(q, p)
     m, d = q.shape
@@ -348,7 +374,7 @@ def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau):
     dev = q.device
     rows = m if which == "dq" else n
     out = torch.empty((rows, d), dtype=ct, device=dev)
-    path = path_of(which, ct, m, d)
+    path = path or path_of(which, ct, m, d)
     mask = None if col_valid is None else col_valid.data_ptr()
     stats = (lse.data_ptr(), g_lse.data_ptr(), g_pos.data_ptr())
     if path == "hopper":
@@ -361,7 +387,7 @@ def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau):
                     out.data_ptr(), partial.data_ptr(), m, n, d, float(inv_tau), _stream(dev),
                 )
             else:
-                ranks, rq = dp_plan(m) if m > SMALL_M else (1, 0)
+                ranks, rq = dp_plan(m) if m > SMALL_M else (dp_small_ranks(d), 0)
                 err = lib.fused_infonce_dp_hopper_launch(
                     q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask, *stats,
                     out.data_ptr(), m, n, d, ranks, rq, float(inv_tau), _stream(dev),
@@ -387,6 +413,19 @@ def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau):
         )
     _raise_on(err, f"fused_infonce {which}", lib)
     return out, path
+
+
+def grad_on_path(which, path, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau=1.0):
+    """dQ (``which`` "dq") or dP ("dp") of CUDA operands through the kernels
+    of ``path`` ("hopper" or "wmma" for bf16), whatever ``path_of`` picks,
+    in the operand type: a route timed beside another in one run
+    (``bench.py``, ``chip_smoke.py``); not counted in the launch counts.
+    Raises where that path's kernel does not take the shape."""
+    _check(q, p, labels, col_valid)
+    _check_rows(q, lse=lse, g_lse=g_lse, g_pos=g_pos)
+    if q.device.type != "cuda" or path not in PATHS:
+        raise ValueError(f"grad_on_path runs CUDA operands on one of {PATHS}")
+    return _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau, path)[0]
 
 
 def fused_infonce_dq(q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau=1.0) -> torch.Tensor:

@@ -86,6 +86,25 @@
 //    the kernel refuses a plan over the limit. d = 768, k = 100: eval_topk
 //    3 stages a ring, 222,856 bytes; serve_topk (spread) 4, 206,472 bytes.
 //
+//    Streamed layout (topk_stream_kernel, the same code with STREAM set):
+//    rows too wide for a resident tile (d > 1216 at 64 query rows; at up to
+//    32, once the spread tile leaves no two stages a ring; the full tile
+//    alone is ceil(d/64) x 8 KB, 256 KB at the LM retriever's d = 2048)
+//    keep no query tile. Each ring stage holds an index chunk and then the
+//    query tile's chunk of the same 64 columns (128 + 64 rows x 128 bytes =
+//    24 KB), both loaded by the producer lane of that ring on the stage's
+//    full barrier, as fused_infonce's ring_load stages a P chunk and then a
+//    Q chunk; the consumer's wgmma reads A from the stage instead of the
+//    tile. Nothing else changes: scores, selection
+//    and pools as above, and nothing in the plan depends on d. Each index
+//    tile then costs half as many bytes again of queries from L2 (64 rows
+//    beside 128), which the resident tile saves; at d = 2048 the query tile
+//    of a block is 256 KB and L2 holds every query tile of a call. Plan:
+//      rings        2 x stages x 24 KB                    (3-4 stages each)
+//      the rest     as above, no query tile
+//    k <= 128: 4 stages, 222,856 bytes; k <= 256: 3, 190,088; k > 256
+//    (pools cut in global memory): 4, 206,472.
+//
 // 2. topk_select_kernel, one block a query row (1024 threads, 256 when the
 //    row has fewer than 8192 candidates): the k best of the row's splits x
 //    k candidates by the same radix select (a block-wide histogram), the
@@ -95,8 +114,9 @@
 //
 // What it does not do yet: overlap a consumer's selection with its own next
 // products (a second accumulator), share an index tile between two query
-// tiles (clusters, TMA multicast), or publish a split's bar to the other
-// splits of its row.
+// tiles (clusters, TMA multicast), publish a split's bar to the other
+// splits of its row, or (streamed) share a query chunk between the two
+// consumers' rings.
 //
 // ---- fp32 (topk_split_kernel + topk_merge_kernel) -------------------------
 // The CUDA-core path, unchanged (no TF32 rounding): 64 x 128 score tiles by
@@ -146,18 +166,26 @@ constexpr int STAGE_KEYS_MAX = 512;      // largest pool cut in a warp's shared 
 constexpr int SELECT_THREADS = 1024;
 constexpr int SORT_SMEM_KEYS = 4096;     // largest kp the select pass sorts in shared memory
 
+// The query tile's layouts: resident (all of it, loaded once), spread (a
+// resident tile of at most 32 rows, 8 a warp: see q_chunk) and streamed
+// (none resident: each ring stage carries the query chunk beside its index
+// chunk, for rows too wide for a resident tile)
+constexpr int RESIDENT = 0, SPREAD = 1, STREAMED = 2;
+
 struct ScanLayout {
   int off_ring, off_stage, off_hist, off_count, off_bar, total;
 };
 
-// spread: a query tile of at most 32 rows, 8 a warp (see q_chunk); stages:
-// of each consumer's ring; stage_keys: keys of a warp's staging area (0:
-// pools are cut in global memory)
-__host__ __device__ constexpr ScanLayout scan_layout(int d, int spread, int stages,
+// layout: RESIDENT, SPREAD or STREAMED; stages: of each consumer's ring;
+// stage_keys: keys of a warp's staging area (0: pools are cut in global
+// memory)
+__host__ __device__ constexpr ScanLayout scan_layout(int d, int layout, int stages,
                                                      int stage_keys) {
   const int nc = (d + 63) / 64;
-  const int q_bytes = spread ? (nc + 1) / 2 * CHUNK_Q : nc * CHUNK_Q;
-  const int off_stage = q_bytes + CONSUMERS * stages * CHUNK_P;
+  const int q_bytes = layout == STREAMED ? 0 : layout == SPREAD ? (nc + 1) / 2 * CHUNK_Q
+                                                                 : nc * CHUNK_Q;
+  const int stage = layout == STREAMED ? CHUNK_P + CHUNK_Q : CHUNK_P;
+  const int off_stage = q_bytes + CONSUMERS * stages * stage;
   const int off_hist = off_stage + 4 * CONSUMERS * stage_keys * 8;
   const int off_count = off_hist + 4 * CONSUMERS * BINS * 4;
   const int off_bar = off_count + CONSUMERS * HQ * 4;
@@ -347,17 +375,25 @@ __device__ uint64_t warp_cut(uint64_t* pool, int n, int k, uint64_t* stage, int 
   return kth;
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS, 1)
-topk_scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tp,
-                 const uint8_t* __restrict__ col_valid, uint64_t* __restrict__ cand,
-                 uint64_t* __restrict__ pools, int Q, int N, int d, int k, int kp,
-                 int cols_per_split, float inv_tau, int spread, int stages, int stage_keys) {
+// The scan block (see the file's header). STREAM: the streamed layout (no
+// resident query tile: producer lane w loads each stage's query chunk, rows
+// q0.. of the tile, beside its index chunk, and the consumer multiplies the
+// two chunks of the stage); else the resident or spread layout (`spread`).
+template <bool STREAM>
+__device__ __forceinline__ void scan_block(const CUtensorMap* tq, const CUtensorMap* tp,
+                                           const uint8_t* __restrict__ col_valid,
+                                           uint64_t* __restrict__ cand,
+                                           uint64_t* __restrict__ pools, int Q, int N, int d,
+                                           int k, int kp, int cols_per_split, float inv_tau,
+                                           int spread, int stages, int stage_keys) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const ScanLayout L = scan_layout(d, spread, stages, stage_keys);
+  const ScanLayout L = scan_layout(d, STREAM ? STREAMED : spread, stages, stage_keys);
+  // bytes of a ring stage: an index chunk, then (streamed) its query chunk
+  constexpr uint32_t STAGE = STREAM ? CHUNK_P + CHUNK_Q : CHUNK_P;
   const uint32_t q_s = smem_u32(smem), bar_q = q_s + L.off_bar;
   // consumer w's ring: its stages, and a full and an empty barrier each
-  auto ring = [&](int w) { return q_s + L.off_ring + uint32_t(w * stages * CHUNK_P); };
+  auto ring = [&](int w) { return q_s + L.off_ring + uint32_t(w * stages) * STAGE; };
   auto full = [&](int w, int s) { return bar_q + 8u * (1 + w * MAX_STAGES + s); };
   auto empty = [&](int w, int s) { return bar_q + 8u * (1 + (CONSUMERS + w) * MAX_STAGES + s); };
 
@@ -382,18 +418,19 @@ topk_scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   if (warp == 4 * CONSUMERS) {
     // ---- producer: lane w fills consumer w's ring with the index chunks of
     // tiles w, w + 2, ... of the split (each lane waits only on its own
-    // ring); lane 0 first loads the query tile
+    // ring); lane 0 first loads the query tile (streamed: each lane loads
+    // the query chunks into its ring's stages)
     if (lane == 0) {
-      prefetch_tensormap(&tq);
-      prefetch_tensormap(&tp);
-      if (spread) {   // boxes of 8 rows: rows 8w.. to group 2w of each chunk
+      prefetch_tensormap(tq);
+      prefetch_tensormap(tp);
+      if (!STREAM && spread) {   // boxes of 8 rows: rows 8w.. to group 2w of each chunk
         mbar_expect_tx(bar_q, nc * 4 * 1024);
         for (int c = 0; c < nc; ++c)
           for (int w = 0; w < 4; ++w)
-            tma_load_2d(&tq, q_s + q_chunk(c, true) + 2048u * w, bar_q, 64 * c, 8 * w);
-      } else {
+            tma_load_2d(tq, q_s + q_chunk(c, true) + 2048u * w, bar_q, 64 * c, 8 * w);
+      } else if (!STREAM) {
         mbar_expect_tx(bar_q, nc * CHUNK_Q);
-        for (int c = 0; c < nc; ++c) tma_load_2d(&tq, q_s + q_chunk(c, false), bar_q, 64 * c, q0);
+        for (int c = 0; c < nc; ++c) tma_load_2d(tq, q_s + q_chunk(c, false), bar_q, 64 * c, q0);
       }
     }
     if (lane < CONSUMERS) {
@@ -402,8 +439,9 @@ topk_scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         for (int c = 0; c < nc; ++c, ++it) {
           const int s = it % stages;
           mbar_wait(empty(lane, s), ((it / stages) & 1) ^ 1);   // the first round passes at once
-          mbar_expect_tx(full(lane, s), CHUNK_P);
-          tma_load_2d(&tp, ring(lane) + s * CHUNK_P, full(lane, s), 64 * c, n_begin + j * HN);
+          mbar_expect_tx(full(lane, s), STAGE);
+          tma_load_2d(tp, ring(lane) + s * STAGE, full(lane, s), 64 * c, n_begin + j * HN);
+          if (STREAM) tma_load_2d(tq, ring(lane) + s * STAGE + CHUNK_P, full(lane, s), 64 * c, q0);
         }
     }
     return;   // no block barrier follows
@@ -440,7 +478,7 @@ topk_scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   float acc[64];
 #pragma unroll
   for (int x = 0; x < 64; ++x) acc[x] = 0.f;
-  mbar_wait(bar_q, 0);
+  if (!STREAM) mbar_wait(bar_q, 0);
   int it = 0;
   for (int j = wg; j < n_tiles; j += CONSUMERS) {
     const int n0 = n_begin + j * HN;
@@ -450,14 +488,14 @@ topk_scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     // H100: a stage then waits for the next chunk's data to be released.)
     for (int c = 0; c < nc; ++c, ++it) {
       const int s = it % stages;
-      const uint32_t a = q_s + q_chunk(c, spread != 0);
+      const uint32_t a = STREAM ? ring(wg) + s * STAGE + CHUNK_P : q_s + q_chunk(c, spread != 0);
       mbar_wait(full(wg, s), (it / stages) & 1);
       fence_regs<64>(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss_n128(acc, desc_sw128(a + kk * 32, 16, 1024),
-                      desc_sw128(ring(wg) + s * CHUNK_P + kk * 32, 16, 1024), (c | kk) != 0);
+                      desc_sw128(ring(wg) + s * STAGE + kk * 32, 16, 1024), (c | kk) != 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<64>(acc);
@@ -594,6 +632,27 @@ topk_scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     uint64_t* out = cand + (size_t(row) * gridDim.y + blockIdx.y) * k;
     for (int x = lane; x < k; x += 32) out[x] = x < c ? pool[x] : empty_slot;
   }
+}
+
+// The scan with a resident query tile (spread: at most 32 rows, 8 a warp)
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+topk_scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tp,
+                 const uint8_t* __restrict__ col_valid, uint64_t* __restrict__ cand,
+                 uint64_t* __restrict__ pools, int Q, int N, int d, int k, int kp,
+                 int cols_per_split, float inv_tau, int spread, int stages, int stage_keys) {
+  scan_block<false>(&tq, &tp, col_valid, cand, pools, Q, N, d, k, kp, cols_per_split, inv_tau,
+                    spread, stages, stage_keys);
+}
+
+// The scan with the query chunks streamed through the rings (rows too wide
+// for a resident tile)
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+topk_stream_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tp,
+                   const uint8_t* __restrict__ col_valid, uint64_t* __restrict__ cand,
+                   uint64_t* __restrict__ pools, int Q, int N, int d, int k, int kp,
+                   int cols_per_split, float inv_tau, int stages, int stage_keys) {
+  scan_block<true>(&tq, &tp, col_valid, cand, pools, Q, N, d, k, kp, cols_per_split, inv_tau, 0,
+                   stages, stage_keys);
 }
 
 // One block a query row (SELECT_THREADS threads, or BINS when the row has
@@ -737,19 +796,22 @@ topk_select_kernel(const uint64_t* __restrict__ cand, float* __restrict__ out_s,
 }
 
 struct ScanTag {};
+struct StreamTag {};
 
 cudaError_t launch_bf16(const void* q, const void* p, const void* col_valid, void* cand,
                         void* out_s, void* out_i, void* pools, void* scratch, int Q, int N, int d,
                         int k, int kp, int splits, int cols_per_split, float inv_tau, int stages,
-                        int stage_keys, cudaStream_t st) {
-  const int spread = Q <= HQ / 2;
+                        int stage_keys, int layout, cudaStream_t st) {
+  // a resident tile is spread exactly when it has at most 32 rows
   if (d < 8 || d % 8 != 0 || stages < 2 || stages > MAX_STAGES || k < 1 || kp < k || kp < 128 ||
       (kp & (kp - 1)) != 0 || pools == nullptr || stage_keys < 0 ||
       (stage_keys != 0 && (stage_keys < 2 * kp || stage_keys > STAGE_KEYS_MAX)) ||
       (kp > SORT_SMEM_KEYS && scratch == nullptr) ||
-      splits < 1 || cols_per_split % HN != 0)
+      splits < 1 || cols_per_split % HN != 0 ||
+      (layout != STREAMED && layout != (Q <= HQ / 2 ? SPREAD : RESIDENT)))
     return cudaErrorInvalidValue;
-  const ScanLayout L = scan_layout(d, spread, stages, stage_keys);
+  const int spread = layout == SPREAD;
+  const ScanLayout L = scan_layout(d, layout, stages, stage_keys);
   if (L.total > SMEM_LIMIT) return cudaErrorInvalidValue;
   CUtensorMap tq, tp;
   const cuuint64_t q_dims[2] = {cuuint64_t(d), cuuint64_t(Q)};
@@ -758,15 +820,25 @@ cudaError_t launch_bf16(const void* q, const void* p, const void* col_valid, voi
   const cuuint32_t q_box[2] = {64, cuuint32_t(spread ? 8 : HQ)}, p_box[2] = {64, HN};
   cudaError_t err;
   if ((err = tensor_map_bf16<2>(&tq, q, q_dims, row_bytes, q_box)) != cudaSuccess ||
-      (err = tensor_map_bf16<2>(&tp, p, p_dims, row_bytes, p_box)) != cudaSuccess ||
-      (err = allow_smem_once<ScanTag>(reinterpret_cast<const void*>(topk_scan_kernel),
-                                      SMEM_LIMIT)) != cudaSuccess)
+      (err = tensor_map_bf16<2>(&tp, p, p_dims, row_bytes, p_box)) != cudaSuccess)
     return err;
   const dim3 grid((Q + HQ - 1) / HQ, splits);
-  topk_scan_kernel<<<grid, SCAN_THREADS, L.total, st>>>(
-      tq, tp, static_cast<const uint8_t*>(col_valid), static_cast<uint64_t*>(cand),
-      static_cast<uint64_t*>(pools), Q, N, d, k, kp, cols_per_split, inv_tau, spread, stages,
-      stage_keys);
+  const auto valid = static_cast<const uint8_t*>(col_valid);
+  const auto keys = static_cast<uint64_t*>(cand), pool = static_cast<uint64_t*>(pools);
+  if (layout == STREAMED) {
+    if ((err = allow_smem_once<StreamTag>(reinterpret_cast<const void*>(topk_stream_kernel),
+                                          SMEM_LIMIT)) != cudaSuccess)
+      return err;
+    topk_stream_kernel<<<grid, SCAN_THREADS, L.total, st>>>(
+        tq, tp, valid, keys, pool, Q, N, d, k, kp, cols_per_split, inv_tau, stages, stage_keys);
+  } else {
+    if ((err = allow_smem_once<ScanTag>(reinterpret_cast<const void*>(topk_scan_kernel),
+                                        SMEM_LIMIT)) != cudaSuccess)
+      return err;
+    topk_scan_kernel<<<grid, SCAN_THREADS, L.total, st>>>(
+        tq, tp, valid, keys, pool, Q, N, d, k, kp, cols_per_split, inv_tau, spread, stages,
+        stage_keys);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t sort_bytes = kp <= SORT_SMEM_KEYS ? size_t(kp) * 8 : 0;   // <= 32 KB
   // a row of few candidates takes a block of BINS threads (fewer to sync)
@@ -1190,6 +1262,7 @@ const void* const KERNELS[] = {
     reinterpret_cast<const void*>(topk_split_kernel<0>),
     reinterpret_cast<const void*>(topk_merge_kernel<KPAD>),
     reinterpret_cast<const void*>(topk_merge_kernel<0>),
+    reinterpret_cast<const void*>(topk_stream_kernel),
 };
 
 }  // namespace
@@ -1205,21 +1278,23 @@ int fused_topk_block_n() { return BN; }
 // out_s/out_i: (Q, k).
 // kp: the next power of two >= k, at least 128. pools: ceil(Q / 64) *
 // splits * 2 * 64 * 2 * kp keys. scratch: Q * kp keys when kp > 4096, else
-// null. stages: 2-4 a ring; stage_keys: 0 or at least 2 * kp; the plan's
-// shared memory (fused_topk_scan_smem_bytes) must fit.
+// null. stages: 2-4 a ring; stage_keys: 0 or at least 2 * kp; layout: 0
+// resident (Q > 32) or 1 spread (Q <= 32), topk_scan_kernel, or 2 streamed,
+// topk_stream_kernel; the plan's shared memory (fused_topk_scan_smem_bytes)
+// must fit.
 int fused_topk_bf16_launch(const void* q, const void* p, const void* col_valid, void* cand,
                            void* out_s, void* out_i, void* pools, void* scratch, int Q, int N,
                            int d, int k, int kp, int splits, int cols_per_split, float inv_tau,
-                           int stages, int stage_keys, void* stream) {
+                           int stages, int stage_keys, int layout, void* stream) {
   return int(launch_bf16(q, p, col_valid, cand, out_s, out_i, pools, scratch, Q, N, d, k, kp,
-                         splits, cols_per_split, inv_tau, stages, stage_keys,
+                         splits, cols_per_split, inv_tau, stages, stage_keys, layout,
                          static_cast<cudaStream_t>(stream)));
 }
 
-// Dynamic shared memory of a scan block under a plan (spread: Q <= 32);
-// ops.scan_smem_bytes computes the same.
-int fused_topk_scan_smem_bytes(int d, int spread, int stages, int stage_keys) {
-  return scan_layout(d, spread, stages, stage_keys).total;
+// Dynamic shared memory of a scan block under a plan (layout: 0 resident, 1
+// spread (Q <= 32), 2 streamed); ops.scan_smem_bytes computes the same.
+int fused_topk_scan_smem_bytes(int d, int layout, int stages, int stage_keys) {
+  return scan_layout(d, layout, stages, stage_keys).total;
 }
 
 // fp32 q and p. cand_s/cand_i: (Q, splits, k) scratch; out_s/out_i: (Q, k).

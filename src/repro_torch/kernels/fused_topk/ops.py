@@ -6,12 +6,15 @@ in the Pallas kernel). On CPU tensors it is the plain version (ref.py); on
 CUDA tensors it launches the kernel or raises. ``fused_topk.launches``
 counts the launches and ``fused_topk.paths`` which path each took:
 
-- ``"hopper"``: bf16, the Hopper scan (TMA ring, ``wgmma`` scores,
-  selection from registers), then the select pass;
+- ``"hopper"``: bf16 rows up to ``HOPPER_D_MAX``, the Hopper scan (TMA
+  ring, ``wgmma`` scores, selection from registers), then the select pass:
+  ``topk_scan_kernel`` with the query tile resident where it fits (every
+  plan up to d = 1216), else ``topk_stream_kernel``, which streams the
+  query chunks through the rings beside the index chunks (``scan_plan``);
 - ``"fp32"``: fp32 inputs, the CUDA-core kernel (no TF32);
-- ``"fp32_widened"``: bf16 inputs wider than ``HOPPER_D_MAX``, whose query
-  tile does not fit the Hopper kernel's shared memory, widened to fp32 (an
-  exact copy: the products and their fp32 sums are the same) and run there.
+- ``"fp32_widened"``: bf16 inputs wider than ``HOPPER_D_MAX``, widened to
+  fp32 (an exact copy: the products and their fp32 sums are the same) and
+  run there.
 
 The kernel is built from source at its first launch. TMA needs rows of a
 multiple of 16 bytes and 16-byte aligned bases: a bf16 operand that breaks
@@ -64,9 +67,19 @@ def state_pairs(k: int) -> int:
 # The Hopper scan's shared-memory plan (csrc/fused_topk.cu, scan_layout):
 #: dynamic shared memory a block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232_448
-#: bytes of one 64-column chunk of the 64-row query tile, and of a ring stage
-#: (128 index rows x 64 columns)
+#: bytes of one 64-column chunk of the 64-row query tile, and of an index
+#: chunk (128 index rows x 64 columns): a ring stage, with a query chunk
+#: beside it in the streamed layout
 CHUNK_Q, CHUNK_P = BLOCK_Q * 128, BLOCK_N * 128
+#: the query tile's layouts: resident (loaded once), spread (resident, at
+#: most 32 rows, 8 to a warp, in half the bytes) and streamed (no tile: each
+#: ring stage carries its query chunk); False and True are resident and
+#: spread
+RESIDENT, SPREAD, STREAMED = 0, 1, 2
+#: the widest rows the streamed layout is planned for: its plan does not
+#: depend on d, and the CUDA tests hold it to ref.py up to here (every
+#: width of the repo's configs, 768, 2048 and 2560, is below)
+STREAM_D_MAX = 8192
 #: consumer warpgroups of a scan block, each with its own ring of at most
 #: MAX_STAGES stages, its own pools and its own candidate list
 CONSUMERS, MAX_STAGES = 2, 4
@@ -78,46 +91,62 @@ HIST_BYTES, COUNT_BYTES = 4 * CONSUMERS * 256 * 4, CONSUMERS * BLOCK_Q * 4
 BARRIER_BYTES, ALIGN_SLACK = 8 * (1 + 2 * CONSUMERS * MAX_STAGES), 1024
 #: the largest kp the select pass sorts in shared memory
 SORT_SMEM_KEYS = 4096
-#: every kernel of the library, in fused_topk_kernel_attributes' order; the
-#: first two run bf16 inputs
+#: every kernel of the library, in fused_topk_kernel_attributes' order
 KERNELS = ("topk_scan_kernel", "topk_select_kernel", "topk_split_kernel<128>",
-           "topk_split_kernel<0>", "topk_merge_kernel<128>", "topk_merge_kernel<0>")
-BF16_KERNELS = KERNELS[:2]
+           "topk_split_kernel<0>", "topk_merge_kernel<128>", "topk_merge_kernel<0>",
+           "topk_stream_kernel")
+#: the kernels of bf16 inputs (the Hopper path)
+BF16_KERNELS = ("topk_scan_kernel", "topk_select_kernel", "topk_stream_kernel")
 PATHS = ("hopper", "fp32", "fp32_widened")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def scan_smem_bytes(d: int, spread: bool, stages: int, stage_keys: int) -> int:
+def _stage_bytes(layout: int) -> int:
+    """A ring stage: an index chunk, and its query chunk when streamed."""
+    return CHUNK_P + (CHUNK_Q if layout == STREAMED else 0)
+
+
+def scan_smem_bytes(d: int, layout: int, stages: int, stage_keys: int) -> int:
     """Dynamic shared memory of one scan block: the query tile (ceil(d/64)
-    chunks of 8 KB, two to a block of 8 KB when spread), two rings of
-    ``stages`` chunks of 16 KB, 8 warps' staging areas of ``stage_keys``
-    keys, the histograms, the pool counts, the barriers and 1 KB to align
-    the base. The CPU
-    tests hold the plan to it; a CUDA test holds it to the library's
-    ``fused_topk_scan_smem_bytes``."""
+    chunks of 8 KB, two to a block of 8 KB when spread, none when
+    streamed), two rings of ``stages`` stages (an index chunk of 16 KB, and
+    a query chunk of 8 KB beside it when streamed), 8 warps' staging areas
+    of ``stage_keys`` keys, the histograms, the pool counts, the barriers
+    and 1 KB to align the base. The CPU tests hold the plan to it; a CUDA
+    test holds it to the library's ``fused_topk_scan_smem_bytes``."""
     nc = -(-d // 64)
-    q_bytes = (-(-nc // 2) if spread else nc) * CHUNK_Q
-    return (q_bytes + CONSUMERS * stages * CHUNK_P + 4 * CONSUMERS * stage_keys * 8
+    q_bytes = {RESIDENT: nc, SPREAD: -(-nc // 2), STREAMED: 0}[layout] * CHUNK_Q
+    return (q_bytes + CONSUMERS * stages * _stage_bytes(layout) + 4 * CONSUMERS * stage_keys * 8
             + HIST_BYTES + COUNT_BYTES + BARRIER_BYTES + ALIGN_SLACK)
 
 
-def scan_plan(d: int, k: int, n_q: int) -> Optional[Tuple[bool, int, int]]:
-    """(spread, stages, stage_keys) of the Hopper scan for rows of d bf16 (a
-    multiple of 8), this k and n_q query rows, or None when no plan fits
-    SMEM_LIMIT. spread: at most 32 query rows, 8 to each warp, in half the
-    query tile. stage_keys: a row's pool (2 kp keys) when it is at most
-    STAGE_KEYS_MAX and the staging still leaves two stages a ring, else 0
-    (pools cut in global memory). stages: of each ring, as many as the rest
-    holds, up to MAX_STAGES, at least 2."""
-    spread = n_q <= BLOCK_Q // 2
+def layout_plan(d: int, layout: int, k: int) -> Optional[Tuple[int, int, int]]:
+    """(layout, stages, stage_keys) of the Hopper scan in this layout for
+    rows of d bf16 and this k, or None where it does not fit SMEM_LIMIT.
+    stage_keys: a row's pool (2 kp keys) when it is at most STAGE_KEYS_MAX
+    and the staging still leaves two stages a ring, else 0 (pools cut in
+    global memory). stages: of each ring, as many as the rest holds, up to
+    MAX_STAGES, at least 2."""
     cap = 2 * state_pairs(k)
     for stage_keys in ((cap, 0) if cap <= STAGE_KEYS_MAX else (0,)):
-        stages = min(MAX_STAGES, (SMEM_LIMIT - scan_smem_bytes(d, spread, 0, stage_keys))
-                     // (CONSUMERS * CHUNK_P))
+        stages = min(MAX_STAGES, (SMEM_LIMIT - scan_smem_bytes(d, layout, 0, stage_keys))
+                     // (CONSUMERS * _stage_bytes(layout)))
         if stages >= 2:
-            return spread, stages, stage_keys
+            return layout, stages, stage_keys
     return None
+
+
+def scan_plan(d: int, k: int, n_q: int) -> Optional[Tuple[int, int, int]]:
+    """(layout, stages, stage_keys) of the Hopper scan for rows of d bf16 (a
+    multiple of 8), this k and n_q query rows (``layout_plan``), or None
+    past STREAM_D_MAX: the query tile resident (RESIDENT; SPREAD for at most
+    32 query rows, 8 to each warp, in half the tile) wherever that plan
+    fits, else STREAMED."""
+    if d > STREAM_D_MAX:
+        return None
+    resident = SPREAD if n_q <= BLOCK_Q // 2 else RESIDENT
+    return layout_plan(d, resident, k) or layout_plan(d, STREAMED, k)
 
 
 def path_of(dtype: torch.dtype, d: int, k: int) -> str:
@@ -128,15 +157,19 @@ def path_of(dtype: torch.dtype, d: int, k: int) -> str:
     return "hopper" if scan_plan(-(-d // 8) * 8, k, BLOCK_Q) is not None else "fp32_widened"
 
 
-#: the widest bf16 row the Hopper kernel takes (a multiple of 64)
-HOPPER_D_MAX = max(d for d in range(64, 4097, 64) if scan_plan(d, K_MAX, BLOCK_Q) is not None)
+#: the widest bf16 row the Hopper scan takes (a multiple of 64), and the
+#: widest whose query tile stays resident at 64 query rows
+HOPPER_D_MAX = max(d for d in range(64, 2 * STREAM_D_MAX + 1, 64)
+                   if scan_plan(d, K_MAX, BLOCK_Q) is not None)
+RESIDENT_D_MAX = max(d for d in range(64, HOPPER_D_MAX + 1, 64)
+                     if scan_plan(d, K_MAX, BLOCK_Q)[0] == RESIDENT)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load(NAME)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_topk_bf16_launch.argtypes = [ptr] * 8 + [i32] * 7 + [f32, i32, i32, ptr]
+    lib.fused_topk_bf16_launch.argtypes = [ptr] * 8 + [i32] * 7 + [f32, i32, i32, i32, ptr]
     lib.fused_topk_bf16_launch.restype = i32
     lib.fused_topk_fp32_launch.argtypes = [ptr] * 9 + [i32] * 7 + [f32, i32, ptr]
     lib.fused_topk_fp32_launch.restype = i32
@@ -269,7 +302,7 @@ def fused_topk(
     n_state = q_tiles * splits * lists * BLOCK_Q * 2 * kp
     with torch.cuda.device(dev):
         if path == "hopper":
-            _, stages, stage_keys = scan_plan(-(-d // 8) * 8, k, n_q)
+            layout, stages, stage_keys = scan_plan(-(-d // 8) * 8, k, n_q)
             q, index = _tma_ready(q), _tma_ready(index)
             cand = torch.empty((n_q, splits, k), dtype=torch.int64, device=dev)
             pools = torch.empty((n_state,), dtype=torch.int64, device=dev)
@@ -280,7 +313,7 @@ def fused_topk(
                 out_i.data_ptr(), pools.data_ptr(),
                 None if scratch is None else scratch.data_ptr(),
                 n_q, n, q.shape[1], k, kp, splits, cols_per_split, float(inv_tau),
-                stages, stage_keys, stream,
+                stages, stage_keys, layout, stream,
             )
         else:
             cand_s = torch.empty((n_q, splits, k), dtype=torch.float32, device=dev)

@@ -14,6 +14,8 @@ Tolerances:
     round the result to bf16.
 """
 
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -407,7 +409,16 @@ def test_fwd_plan_refuses_the_small_kernels_rows():
     ("dp", torch.bfloat16, 37, 96, "hopper"),
     ("dp", torch.bfloat16, 6144, 1024, "hopper"),
     ("dp", torch.bfloat16, 6145, 768, "wmma"),      # more rows than 8 ranks hold
-    ("dp", torch.bfloat16, 8, 1032, "wmma"),        # wider than the resident tile
+    ("dp", torch.bfloat16, 8, 1032, "hopper"),      # wider than one block's tile: the split kernel
+    ("dp", torch.bfloat16, 8, 2048, "hopper"),      # the LM retriever's local rows
+    ("dp", torch.bfloat16, 2048, 2048, "hopper"),   # and its query-bank rows
+    ("dq", torch.bfloat16, 8, 2048, "wmma"),        # the forward and dQ keep HOPPER_D_MAX
+    ("fwd", torch.bfloat16, 8, 2048, "wmma"),
+    ("fwd", torch.bfloat16, 2048, 2048, "wmma"),
+    ("dp", torch.bfloat16, 16, ops.DP_D_MAX, "hopper"),
+    ("dp", torch.bfloat16, 17, ops.DP_D_MAX, "hopper"),
+    ("dp", torch.bfloat16, 8, ops.DP_D_MAX + 8, "wmma"),
+    ("dp", torch.bfloat16, 2048, ops.DP_D_MAX + 8, "wmma"),
     ("dq", torch.bfloat16, 8, 20, "wmma"),          # rows of 40 bytes: no TMA
     ("dp", torch.bfloat16, 2048, 36, "wmma"),
     ("dq", torch.float32, 8, 768, "fp32"),
@@ -434,3 +445,83 @@ def test_reset_launches_clears_every_path():
     assert ops.fused_infonce_dq.paths == dict.fromkeys(ops.PATHS, 0)
     assert ops.fused_infonce_dp.paths == dict.fromkeys(ops.PATHS, 0)
     assert ops.fused_infonce_dp.launches == 0
+
+
+# ---- dP past HOPPER_D_MAX (the LM retriever's d = 2048) ----------------------
+
+LM_D = 2048
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 2048])
+def test_path_of_dp_at_the_lm_width(m):
+    """d = 2048: dP on the Hopper path at every M, the forward and dQ on
+    wmma (they keep HOPPER_D_MAX)."""
+    assert ops.path_of("dp", torch.bfloat16, m, LM_D) == "hopper"
+    assert ops.path_of("fwd", torch.bfloat16, m, LM_D) == "wmma"
+    assert ops.path_of("dq", torch.bfloat16, m, LM_D) == "wmma"
+    assert ops.HOPPER_D_MAX == 1024 and ops.DP_D_MAX == 8192
+
+
+@pytest.mark.parametrize("d", [8, 768, 1024, 1032, 1088, 1280, 2048, 2560, 4096, 8192])
+def test_split_dp_ranks_cover_every_d_chunk_once(d):
+    """At up to SMALL_M rows past HOPPER_D_MAX a cluster of dp_small_ranks(d)
+    blocks takes each passage tile, rank r the d-chunks [r nc / ranks, (r +
+    1) nc / ranks): together every chunk once, each rank at least one and
+    at most 16 (one block's tile, the kernel's NC_MAX); one rank (the small
+    kernel) up to HOPPER_D_MAX; at most MAX_RANKS (a portable cluster)."""
+    nc = -(-d // 64)
+    ranks = ops.dp_small_ranks(d)
+    assert (ranks == 1) == (d <= ops.HOPPER_D_MAX) and ranks <= ops.MAX_RANKS
+    shares = [range(r * nc // ranks, (r + 1) * nc // ranks) for r in range(ranks)]
+    assert [c for share in shares for c in share] == list(range(nc))
+    assert all(1 <= len(share) <= ops.HOPPER_D_MAX // 64 for share in shares)
+    assert ops.hopper_blocks("dp", 8, PATH_N, d=d) == 33 * ranks
+    assert {2048: 2, 2560: 3}.get(d, ranks) == ranks
+
+
+def test_split_dp_refuses_rows_past_its_widest():
+    with pytest.raises(ValueError):
+        ops.dp_small_ranks(ops.DP_D_MAX + 8)
+
+
+def test_split_dp_shared_memory_fits_a_block():
+    """The split kernel's plan (csrc: split_smem) at its largest share of 16
+    d-chunks: the small kernel's tile of P and queries (10 KB a chunk), the
+    coefficient area, the query values and barriers, then 4 KB of partial
+    scores, under the 227 KB a block may use; the source states the same
+    constants."""
+    src = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
+           / "fused_infonce" / "csrc" / "fused_infonce.cu").read_text()
+    nc = ops.HOPPER_D_MAX // 64
+    small_bar = nc * (8192 + 2048) + 16 * 128 + 4 * 16 * 4
+    split = -(-(small_bar + 8 * nc) // 16) * 16 + 128 * 32 + 1024
+    assert split <= 232_448
+    assert "constexpr int NC_MAX = 16;" in src and "infonce_dp_split_kernel(" in src
+    assert "split_smem(int nc) { return split_off_x(nc) + 128 * 32 + 1024; }" in src
+    assert ops.KERNELS[-1] == "infonce_dp_split_kernel"
+    assert "infonce_dp_split_kernel" in ops.HOPPER_KERNELS
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("m", [8, 20])
+def test_dp_at_the_lm_width_matches_jax(m, dtype):
+    """d = 2048 with masked columns: the port's fused_infonce_dp (its plain
+    version on the CPU) for the port's forward lse against the JAX
+    package's dP (its Pallas kernels in interpret mode, through jax.vjp).
+    fp32 within the file's rtol and atol of 1e-5; bf16 within 2e-2 of the
+    largest gradient (the file's reason: JAX rounds each coefficient to
+    bf16 before its product)."""
+    np_dtype = np.float32 if dtype == "fp32" else ml_dtypes.bfloat16
+    q, p, labels, valid, g_lse, g_pos = _problem(2048 + m, m, 40, LM_D, 0.3, np_dtype,
+                                                 scale=LM_D ** -0.5)
+    want = _jax(q, p, labels, valid, g_lse, g_pos, 1.0)[4]
+    tq, tp = _t(q), _t(p)
+    tl, tv = torch.from_numpy(labels), torch.from_numpy(valid)
+    lse = ops.fused_infonce_fwd(tq, tp, tl, tv)[0]
+    got = _np(ops.fused_infonce_dp(tq, tp, tl, tv, lse, _t(g_lse), _t(g_pos)))
+    assert ops.path_of("dp", tp.dtype, m, LM_D) == ("hopper" if dtype == "bf16" else "fp32")
+    assert not got[~valid].any()
+    if dtype == "fp32":
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()

@@ -378,3 +378,78 @@ def test_kernels_reject_what_they_do_not_take(dev):
         ops.fused_infonce_fwd(q, p, labels.long())
     with pytest.raises(ValueError, match="on"):
         ops.fused_infonce_fwd(q, p.cpu(), labels)
+
+
+# ---- dP past HOPPER_D_MAX (the LM retriever's 2048-wide reps) ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1032, 1280, 2048, 2560, ops.DP_D_MAX])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 2048])
+def test_wide_rows_dp_takes_the_hopper_path(dev, m, d):
+    """dP past HOPPER_D_MAX runs on the Hopper path up to DP_D_MAX: at up
+    to 16 rows the split kernel (clusters of dp_small_ranks(d) blocks, each
+    rank on its share of the d-chunks: 8 and 9 of 17 at d = 1032, 16 each at
+    2048 and 8192, 13-14 at 2560), above the cluster kernel (its ranks'
+    shares end in groups of fewer than 4 chunks). Ragged N with a wholly
+    masked passage tile and a masked tail, labels out of range and on a
+    masked column; the rows of masked passages are exactly 0, two calls give
+    the same bits, and the forward and dQ stay on the wmma path."""
+    n = N_PATH if m in (8, 2048) else 1001
+    q = _rand((m, d), torch.bfloat16, dev, 50)
+    p = _rand((n, d), torch.bfloat16, dev, 51)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[64:128] = False
+    valid[-300:] = False
+    g = torch.Generator(device=dev).manual_seed(52)
+    labels = torch.randint(-1, n + 1, (m,), generator=g, device=dev).to(torch.int32)
+    labels[0] = 100                                 # on a masked column
+    g_lse, g_pos = _cotangents(m, dev)
+    ops.reset_launches()
+    dq, dp = _check_grads(q, p, labels, valid, g_lse, g_pos)
+    assert not dp[~valid].float().abs().max().item()
+    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_dq.paths == {"hopper": 0, "wmma": 1, "fp32": 0}
+    assert ops.fused_infonce_fwd.paths == {"hopper": 0, "wmma": 1, "fp32": 0}
+    lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
+    args = (q, p, labels, valid, lse, g_lse, g_pos)
+    assert torch.equal(ops.fused_infonce_dp(*args), ops.fused_infonce_dp(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 2048])
+def test_wide_rows_dp_every_column_valid_and_its_parent_route(dev, m):
+    """The lm chunk with every column valid (no masked tile to skip), on
+    the Hopper path and on the wmma kernels the parent ran
+    (``grad_on_path``, which counts no launch): both within 1e-2 of the
+    largest reference gradient."""
+    q = _rand((m, 2048), torch.bfloat16, dev, 53)
+    p = _rand((N_PATH, 2048), torch.bfloat16, dev, 54)
+    labels = (torch.arange(m, device=dev) + (0 if m == 8 else 16)).to(torch.int32)
+    g_lse, g_pos = _cotangents(m, dev)
+    lse = ops.fused_infonce_fwd(q, p, labels, None)[0]
+    rdp = infonce_stats_vjp_ref(q, p, labels, None, g_lse, g_pos)[1]
+    ops.reset_launches()
+    dp = ops.fused_infonce_dp(q, p, labels, None, lse, g_lse, g_pos)
+    parent = ops.grad_on_path("dp", "wmma", q, p, labels, None, lse, g_lse, g_pos)
+    torch.cuda.synchronize()
+    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    _close(dp, rdp, 1e-2, "dp")
+    _close(parent, rdp, 1e-2, "dp on the wmma path")
+
+
+@pytest.mark.cuda
+def test_split_dp_needs_its_ranks(dev):
+    """Past HOPPER_D_MAX one block cannot hold the small kernel's tile: the
+    library refuses a split of one rank, or of shares above 16 chunks."""
+    q = _rand((8, 2048), torch.bfloat16, dev, 55)
+    p = _rand((300, 2048), torch.bfloat16, dev, 56)
+    labels = torch.arange(8, dtype=torch.int32, device=dev)
+    g_lse, g_pos = _cotangents(8, dev)
+    lse = ops.fused_infonce_fwd(q, p, labels, None)[0]
+    lib, out = ops._library(), torch.empty_like(p)
+    for ranks in (1, 9):
+        err = lib.fused_infonce_dp_hopper_launch(
+            q.data_ptr(), p.data_ptr(), labels.data_ptr(), None, lse.data_ptr(),
+            g_lse.data_ptr(), g_pos.data_ptr(), out.data_ptr(), 8, 300, 2048, ranks, 0, 1.0,
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0, ranks

@@ -183,26 +183,30 @@ KERNEL_SOURCE = (REPO / "src" / "repro_torch" / "kernels" / "fused_topk" / "csrc
                  / "fused_topk.cu")
 
 
-@pytest.mark.parametrize("d", [8, 24, 64, 96, 256, 512, 768, 1024, ops.HOPPER_D_MAX, 1472])
+@pytest.mark.parametrize("d", [8, 24, 64, 96, 256, 512, 768, 1024, 1216, 1472, 2048, 2560,
+                               ops.HOPPER_D_MAX, ops.HOPPER_D_MAX + 8])
 def test_scan_plan_fits_the_shared_memory_budget(d):
     """Every Hopper plan fits the 227 KB a block may use with 2-4 stages in
     each consumer's ring, spreads at most 32 query rows over the warps,
-    stages a row's whole pool (2 kp keys) for its cuts only up to 512 keys,
-    and takes as many stages as the rest holds (each k and Q of the grid)."""
+    keeps the query tile resident wherever a resident plan fits and streams
+    it only where none does, stages a row's whole pool (2 kp keys) for its
+    cuts only up to 512 keys, and takes as many stages as the rest holds
+    (each k and Q of the grid); past HOPPER_D_MAX there is no plan."""
     for k in (1, 100, 128, 129, 256, 257, 1000, ops.K_MAX):
         for n_q in (1, 32, 33, 2048):
             plan = ops.scan_plan(d, k, n_q)
-            if plan is None:   # only a full query tile can be too wide
-                assert d > ops.HOPPER_D_MAX and n_q > 32, (d, k, n_q)
+            if plan is None:   # only rows past the widest planned
+                assert d > ops.HOPPER_D_MAX, (d, k, n_q)
                 continue
-            spread, stages, stage_keys = plan
-            assert spread == (n_q <= 32)
+            layout, stages, stage_keys = plan
+            resident = ops.SPREAD if n_q <= 32 else ops.RESIDENT
+            assert layout == (resident if ops.layout_plan(d, resident, k) else ops.STREAMED)
             assert 2 <= stages <= ops.MAX_STAGES
-            assert ops.scan_smem_bytes(d, spread, stages, stage_keys) <= ops.SMEM_LIMIT
+            assert ops.scan_smem_bytes(d, layout, stages, stage_keys) <= ops.SMEM_LIMIT
             assert stage_keys in (0, 2 * ops.state_pairs(k))
             assert stage_keys <= ops.STAGE_KEYS_MAX
             if stages < ops.MAX_STAGES:
-                assert ops.scan_smem_bytes(d, spread, stages + 1, stage_keys) > ops.SMEM_LIMIT
+                assert ops.scan_smem_bytes(d, layout, stages + 1, stage_keys) > ops.SMEM_LIMIT
 
 
 def test_scan_plan_at_the_served_width_is_the_one_the_kernel_states():
@@ -231,9 +235,15 @@ def test_scan_plan_at_the_served_width_is_the_one_the_kernel_states():
     (torch.bfloat16, 768, 1000, "hopper"),
     (torch.bfloat16, 20, 129, "hopper"),           # padded to 24 columns
     (torch.bfloat16, 33, 1, "hopper"),             # padded to 40 columns
+    (torch.bfloat16, 1216, 100, "hopper"),         # the widest resident tile
+    (torch.bfloat16, 1280, 100, "hopper"),         # streamed from here
+    (torch.bfloat16, 2048, 20, "hopper"),          # the LM retriever's eval search
+    (torch.bfloat16, 2048, 100, "hopper"),
+    (torch.bfloat16, 2560, 100, "hopper"),         # stablelm-3b's width
     (torch.bfloat16, ops.HOPPER_D_MAX, 100, "hopper"),
     (torch.bfloat16, ops.HOPPER_D_MAX + 8, 100, "fp32_widened"),
     (torch.float32, 768, 100, "fp32"),
+    (torch.float32, 2048, 20, "fp32"),
 ])
 def test_path_of_each_shape(dtype, d, k, path):
     assert ops.path_of(dtype, d, k) == path
@@ -241,11 +251,19 @@ def test_path_of_each_shape(dtype, d, k, path):
 
 
 def test_hopper_rows_are_limited_by_the_query_tile():
+    """A resident 64-row query tile fits up to RESIDENT_D_MAX (1216, the
+    widest rows the Hopper scan took before the streamed layout); wider
+    rows stream their query chunks, up to HOPPER_D_MAX; past it none."""
     for n_q in (1, 2048):
         assert ops.scan_plan(ops.HOPPER_D_MAX, 1, n_q) is not None
         assert ops.scan_plan(ops.HOPPER_D_MAX, ops.K_MAX, n_q) is not None
     assert ops.scan_plan(ops.HOPPER_D_MAX + 8, 1, 2048) is None
-    assert ops.HOPPER_D_MAX % 64 == 0 and ops.HOPPER_D_MAX >= 768
+    assert ops.HOPPER_D_MAX % 64 == 0 and ops.HOPPER_D_MAX >= 2560
+    assert ops.HOPPER_D_MAX == ops.STREAM_D_MAX == 8192
+    assert ops.RESIDENT_D_MAX == 1216
+    assert ops.layout_plan(ops.RESIDENT_D_MAX + 64, ops.RESIDENT, ops.K_MAX) is None
+    assert ops.scan_plan(ops.RESIDENT_D_MAX, ops.K_MAX, 2048)[0] == ops.RESIDENT
+    assert ops.scan_plan(ops.RESIDENT_D_MAX + 64, 1, 2048)[0] == ops.STREAMED
 
 
 def test_tma_ready_pads_rows_and_aligns_bases():
@@ -267,3 +285,106 @@ def test_reset_launches_clears_every_path():
     ops.reset_launches()
     assert ops.fused_topk.launches == 0
     assert ops.fused_topk.paths == dict.fromkeys(ops.PATHS, 0)
+
+
+# ---- rows past a resident query tile (the LM retriever's d = 2048) ---------
+
+LM_D = 2048
+
+
+def _parent_scan_plan(d, k, n_q):
+    """The scan plan before the streamed layout: the resident (spread)
+    tile, or None where it does not fit."""
+    spread = n_q <= ops.BLOCK_Q // 2
+    cap = 2 * ops.state_pairs(k)
+    for stage_keys in ((cap, 0) if cap <= ops.STAGE_KEYS_MAX else (0,)):
+        stages = min(ops.MAX_STAGES,
+                     (ops.SMEM_LIMIT - ops.scan_smem_bytes(d, spread, 0, stage_keys))
+                     // (ops.CONSUMERS * ops.CHUNK_P))
+        if stages >= 2:
+            return spread, stages, stage_keys
+    return None
+
+
+@pytest.mark.parametrize("n_q", [1, 32, 33, 64, 256, 2048])
+def test_plans_up_to_the_resident_width_are_unchanged(n_q):
+    """Every plan the scan had (d up to 1216, each k) is the same tuple, so
+    the resident kernel runs every one of them as before."""
+    for d in range(8, ops.RESIDENT_D_MAX + 1, 8):
+        for k in (1, 20, 100, 128, 129, 256, 257, 1000, 4096):
+            before = _parent_scan_plan(d, k, n_q)
+            if before is not None:
+                assert ops.scan_plan(d, k, n_q) == before, (d, k, n_q)
+            else:
+                assert d > 1024 and ops.scan_plan(d, k, n_q)[0] == ops.STREAMED
+
+
+@pytest.mark.parametrize("n_q", [1, 32, 33, 256, 2048])
+@pytest.mark.parametrize("k", [1, 20, 100, 1000])
+def test_scan_plan_at_the_lm_width(n_q, k):
+    """d = 2048: a served batch (at most 32 rows) keeps its spread tile
+    where two stages still fit, every other batch streams; each plan fits
+    SMEM_LIMIT and takes the Hopper path."""
+    layout, stages, stage_keys = ops.scan_plan(LM_D, k, n_q)
+    assert ops.scan_smem_bytes(LM_D, layout, stages, stage_keys) <= ops.SMEM_LIMIT
+    assert layout == (ops.SPREAD if n_q <= 32 else ops.STREAMED)
+    assert stages == (2 if layout == ops.SPREAD else 4)
+    assert stage_keys == (256 if k <= 128 else 0)
+    assert ops.path_of(torch.bfloat16, LM_D, k) == "hopper"
+
+
+def test_streamed_plan_is_the_one_the_kernel_states():
+    """The streamed layout's plans, byte for byte as the kernel's header
+    states them, and its layout codes as the source has them."""
+    src = KERNEL_SOURCE.read_text()
+    assert ops.scan_plan(LM_D, 100, 2048) == (ops.STREAMED, 4, 256)
+    assert ops.scan_plan(LM_D, 129, 2048) == (ops.STREAMED, 3, 512)
+    assert ops.scan_plan(LM_D, 1000, 2048) == (ops.STREAMED, 4, 0)
+    assert ops.scan_smem_bytes(LM_D, ops.STREAMED, 4, 256) == 222_856
+    assert ops.scan_smem_bytes(LM_D, ops.STREAMED, 3, 512) == 190_088
+    assert ops.scan_smem_bytes(LM_D, ops.STREAMED, 4, 0) == 206_472
+    assert ("k <= 128: 4 stages, 222,856 bytes; k <= 256: 3, 190,088" in src
+            and "(pools cut in global memory): 4, 206,472." in src)
+    assert re.search(r"constexpr int RESIDENT = 0, SPREAD = 1, STREAMED = 2;", src)
+    assert (ops.RESIDENT, ops.SPREAD, ops.STREAMED) == (0, 1, 2)
+    # nothing of the streamed plan depends on d
+    assert len({ops.scan_plan(d, 100, 2048) for d in range(1280, ops.HOPPER_D_MAX + 1, 64)}) == 1
+    assert ops.KERNELS[-1] == "topk_stream_kernel" and "topk_stream_kernel" in ops.BF16_KERNELS
+    assert "topk_stream_kernel(" in src
+
+
+@pytest.mark.parametrize("jax_fn", ["pallas_interpret", "ref"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("data", ["normal", "integers"])
+def test_lm_width_matches_jax(data, dtype, jax_fn):
+    """d = 2048 (the LM retriever's reps) with masked columns, through the
+    JAX package's fused_topk_scores (the Pallas kernel in interpret mode)
+    or its reference, and the port's fused_topk: small integers sum
+    exactly, so scores and ids are equal; normal rows scaled by 1/sqrt(d)
+    agree to the file's tolerance (ids equal: the top scores of 300 rows
+    are far apart)."""
+    rng = np.random.default_rng(2048)
+    if data == "integers":
+        q, p = rng.integers(-2, 3, size=(13, LM_D)), rng.integers(-2, 3, size=(300, LM_D))
+    else:
+        q, p = rng.normal(size=(13, LM_D)) / 45.0, rng.normal(size=(300, LM_D)) / 45.0
+    q, p = q.astype(np.float32), p.astype(np.float32)
+    if dtype == "bf16":
+        q, p = q.astype(ml_dtypes.bfloat16), p.astype(ml_dtypes.bfloat16)
+    valid = rng.random(300) > 0.3
+    k = 20
+    jv = jnp.asarray(valid)
+    if jax_fn == "ref":
+        ws, wi = jax_topk_ref(jnp.asarray(q), jnp.asarray(p), k, col_valid=jv)
+    else:
+        ws, wi = fused_topk_scores(jnp.asarray(q), jnp.asarray(p), k, col_valid=jv,
+                                   block_q=8, block_n=32)
+    tq, tp = torch.as_tensor(q.astype(np.float32)), torch.as_tensor(p.astype(np.float32))
+    if dtype == "bf16":
+        tq, tp = tq.bfloat16(), tp.bfloat16()
+    s, i = ops.fused_topk(tq, tp, k, col_valid=torch.as_tensor(valid))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    if data == "integers":
+        np.testing.assert_array_equal(s.numpy(), np.asarray(ws))
+    else:
+        np.testing.assert_allclose(s.numpy(), np.asarray(ws), rtol=RTOL, atol=ATOL)

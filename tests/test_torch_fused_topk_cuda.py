@@ -323,3 +323,64 @@ def test_no_bf16_kernel_uses_local_memory(dev, name):
     """The card reports 0 bytes of local memory (stack and spills) for each
     bf16 kernel."""
     assert ops.kernel_attributes(name)["local_bytes"] == 0
+
+
+# ---- rows past a resident query tile (the LM retriever's 2048) --------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n,d,k", [
+    (33, 5121, 1032, 100),              # resident, as before: d <= RESIDENT_D_MAX
+    (33, 5121, 1280, 100),              # streamed: the narrowest; N one past a tile
+    (70, 3000, 2048, 20),               # the LM width and eval k; ragged Q
+    (256, 4096, 2048, 20),              # the lm eval shape
+    (65, 3001, 2048, 129),              # k > 128: pools of 512 keys staged, 3 stages
+    (2047, 3000, 2560, 100),            # stablelm-3b's width; 32 query tiles
+    (1, 2000, 2048, 100),               # spread, resident at 2 stages
+    (40, 1000, ops.HOPPER_D_MAX, 10),   # the widest row the Hopper scan takes
+])
+def test_hopper_kernel_wide_rows_match_plain(dev, n_q, n, d, k):
+    q = _rand((n_q, d), torch.bfloat16, dev, 60)
+    p = _rand((n, d), torch.bfloat16, dev, 61)
+    ops.reset_launches()
+    _check(q, p, k)
+    assert ops.fused_topk.paths == {**dict.fromkeys(ops.PATHS, 0), "hopper": 1}
+    layout = ops.scan_plan(d, k, n_q)[0]
+    assert (layout == ops.STREAMED) == (d > ops.RESIDENT_D_MAX and n_q > 32), layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [7, 40, 300])
+@pytest.mark.parametrize("k", [20, 100, 129, 1000])
+def test_hopper_kernel_wide_rows_exact_ties_and_masked_tiles(dev, n_q, k):
+    """Small integers at d = 2048 (exact sums: ties go to the lowest id),
+    with two wholly masked index tiles and a masked tail: every slot equals
+    the plain version's. k = 1000 cuts the pools in global memory (spread
+    at 7 rows, streamed at 40 and 300), which random rows this dense cannot
+    check: too few of their slots are clear of the tolerance."""
+    g = torch.Generator(device=dev).manual_seed(62 + k)
+    base = torch.randint(-2, 3, (40, 2048), generator=g, device=dev)
+    p = base[torch.randint(0, 40, (3001,), generator=g, device=dev)].to(torch.bfloat16)
+    q = torch.randint(-2, 3, (n_q, 2048), generator=g, device=dev).to(torch.bfloat16)
+    valid = torch.ones(3001, dtype=torch.bool, device=dev)
+    valid[128:384] = False
+    valid[-500:] = False
+    _check(q, p, k, col_valid=valid, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,k", [(256, 20), (2048, 100), (32, 100)])
+def test_lm_width_takes_the_hopper_kernel(dev, n_q, k):
+    """The lm eval's search and Q = 2048 at d = 2048 (bf16) take the Hopper
+    kernel, and match the fp32_widened route they took before (the bf16
+    rows widened to the fp32 kernel)."""
+    q = _rand((n_q, 2048), torch.bfloat16, dev, 63)
+    p = _rand((4096, 2048), torch.bfloat16, dev, 64)
+    ops.reset_launches()
+    s, i = ops.fused_topk(q, p, k)
+    assert ops.fused_topk.paths == {**dict.fromkeys(ops.PATHS, 0), "hopper": 1}
+    ws, wi = ops.fused_topk(q.float(), p.float(), k)
+    rs, ri = topk_scores_ref(q, p, k + 1)
+    atol = 1e-4 * rs.abs().max().item()
+    for ss, ii in ((s, i), (ws, wi)):
+        err, bad, clear = topk_mismatch(ss, ii, rs, ri, atol)
+        assert err <= atol and bad == 0 and clear >= ii.numel() // 2
