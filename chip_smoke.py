@@ -30,11 +30,13 @@ Phases, one JSON line each:
                bf16), M=2048 again with every column valid, the same three
                at a contaccum_mined chunk's N=2096 (4 mined columns a
                query), the lm phase's chunk at d=2048 (M=8 and M=2048,
-               N=2064, 1000 masked and all valid, bf16: dP must take the
-               Hopper path, the split kernel at M=8 and the cluster kernel
-               at M=2048, timed beside the wmma kernels it took before;
-               the forward and dQ, above their Hopper kernels' widest row,
-               the wmma path), an fp32 case
+               N=2064, 1000 masked and all valid, bf16: the forward and
+               dP must take the Hopper path, the split kernels at M=8, the
+               many-row forward and the cluster dP at M=2048, and dQ at
+               M=8 its split kernel; each timed in turns with the wmma
+               kernels it took before and held to the plain version on
+               both routes, failing unless faster, the M=8 dQ also unless
+               faster than the dense backend), an fp32 case
                and a small ragged case; kernel, plain,
                library and bound times, forward and backward apart; the
                forward and dP at every M=2048 case and all three at every
@@ -137,8 +139,8 @@ Phases, one JSON line each:
                launches of exactly 16 chunks x 3 tower passes x LM_LAYERS x
                2 (remat) a step, all on the Hopper path; fused_infonce
                launches of exactly 2, 1 and 2 x 16 x steps (forward, dQ,
-               dP), dP all on the Hopper path, the forward and dQ all on
-               the wmma path (d = 2048 is past their Hopper kernels');
+               dP), all on the Hopper path, and no wmma loss kernel in the
+               profiled step (its loss kernels' ms by name);
                every eval search on the Hopper path; one step with
                attention_impl="chunked" and one on the dense loss backend
                against the flash, fused step from the same state and batch.
@@ -726,7 +728,7 @@ def phase_infonce_kernels(torch):
         g_pos = -torch.rand((m,), generator=g, device=dev)
         return q, p, labels.to(torch.int32), valid, g_lse, g_pos
 
-    def check(name, q, p, labels, valid, g_lse, g_pos, timed, parent_dp=False):
+    def check(name, q, p, labels, valid, g_lse, g_pos, timed, parent=False):
         ops.reset_launches()
         lse, pos, amax = ops.fused_infonce_fwd(q, p, labels, valid)
         dq = ops.fused_infonce_dq(q, p, labels, valid, lse, g_lse, g_pos)
@@ -744,8 +746,13 @@ def phase_infonce_kernels(torch):
         require(torch.equal(pos <= NEG_INF / 2, rp <= NEG_INF / 2),
                 f"{name}: pos at masked labels differs from the plain version")
         live = rp > NEG_INF / 2
-        stats_err = max((lse - rl).abs().max().item(), (amax - ra).abs().max().item(),
-                        (pos[live] - rp[live]).abs().max().item())
+
+        def stats_err_of(stats):
+            s_lse, s_pos, s_amax = stats
+            return max((s_lse - rl).abs().max().item(), (s_amax - ra).abs().max().item(),
+                       (s_pos[live] - rp[live]).abs().max().item())
+
+        stats_err = stats_err_of((lse, pos, amax))
         require(bool(torch.isfinite(lse).all()), f"{name}: non-finite lse")
         require(stats_err <= stats_tol, f"{name}: lse/pos/amax err {stats_err} > {stats_tol}")
         grad_rtol = GRAD_RTOL_BF16 if q.dtype == torch.bfloat16 else GRAD_RTOL_FP32
@@ -785,23 +792,40 @@ def phase_infonce_kernels(torch):
             out[kernel] = {"ms": device_ms(fn, 20), "plain_ms": device_ms(plain, 5),
                            "library_ms": device_ms(library, 5), "bound_ms": bound_ms,
                            "bound_by": bound_by, "ms_with_enqueue": cuda_ms(fn, 20)}
-        if parent_dp:
-            # dP on the wmma kernels it took before its Hopper path, in turns
-            # with the Hopper kernel (parent, Hopper, Hopper, parent)
-            parent = lambda: ops.grad_on_path("dp", "wmma", *args)    # noqa: E731
-            err = close_err(parent(), rdp, grad_rtol, f"{name} dp on the wmma path")
-            fn = lambda: ops.fused_infonce_dp(*args)                  # noqa: E731
-            turns = {"ms": [], "parent_ms": []}
-            for key, call in (("parent_ms", parent), ("ms", fn), ("ms", fn),
-                              ("parent_ms", parent)):
-                turns[key].append(device_ms(call, 20))
-            out["dp"].update({"ms_turns": turns["ms"], "parent_route": "wmma",
-                              "parent_ms": statistics.mean(turns["parent_ms"]),
-                              "parent_ms_turns": turns["parent_ms"],
-                              "parent_max_abs_err": err})
-            require(max(turns["ms"]) < min(turns["parent_ms"]),
-                    f"{name}: the Hopper dP ({turns['ms']} ms) is not faster than the wmma "
-                    f"kernels ({turns['parent_ms']} ms)")
+        if parent:
+            # each kernel on its Hopper path against the wmma kernels it took
+            # before, in turns (parent, Hopper, Hopper, parent), both held to
+            # the plain version
+            routes = {
+                "fwd": (lambda: ops.fused_infonce_fwd(q, p, labels, valid),
+                        lambda: ops.stats_on_path("wmma", q, p, labels, valid)),
+                "dq": (lambda: ops.fused_infonce_dq(*args),
+                       lambda: ops.grad_on_path("dq", "wmma", *args)),
+                "dp": (lambda: ops.fused_infonce_dp(*args),
+                       lambda: ops.grad_on_path("dp", "wmma", *args)),
+            }
+            for kernel, (fn, parent_fn) in routes.items():
+                if paths[kernel] != "hopper":
+                    continue
+                got = parent_fn()
+                if kernel == "fwd":
+                    err = stats_err_of(got)
+                    require(err <= stats_tol, f"{name} forward on the wmma path: err {err} > "
+                                              f"{stats_tol}")
+                else:
+                    err = close_err(got, rdq if kernel == "dq" else rdp, grad_rtol,
+                                    f"{name} {kernel} on the wmma path")
+                turns = {"ms": [], "parent_ms": []}
+                for key, call in (("parent_ms", parent_fn), ("ms", fn), ("ms", fn),
+                                  ("parent_ms", parent_fn)):
+                    turns[key].append(device_ms(call, 20))
+                out[kernel].update({"ms_turns": turns["ms"], "parent_route": "wmma",
+                                    "parent_ms": statistics.mean(turns["parent_ms"]),
+                                    "parent_ms_turns": turns["parent_ms"],
+                                    "parent_max_abs_err": err})
+                require(max(turns["ms"]) < min(turns["parent_ms"]),
+                        f"{name}: the Hopper {kernel} ({turns['ms']} ms) is not faster than the "
+                        f"wmma kernels ({turns['parent_ms']} ms)")
         return out
 
     result = {}
@@ -832,26 +856,33 @@ def phase_infonce_kernels(torch):
             *case(bank, n_mined, d, torch.bfloat16, n_masked,
                   n_own_mined + torch.arange(bank, device=dev)), timed=True)
     # the lm phase's chunk: the same rows and columns at internlm2-1.8b's
-    # d = LM_D: dP on its Hopper kernels (the split kernel at the local
-    # rows, the cluster kernel at the bank rows), the forward and dQ, past
-    # HOPPER_D_MAX, on the wmma path
+    # d = LM_D, every kernel on its Hopper path (the split kernels at the
+    # local rows; the many-row forward and the cluster dP at the bank rows,
+    # whose dQ has no caller and stays on wmma), each timed in turns with
+    # the wmma kernels it took before
     for suffix, n_masked in (("", N_BANK_MASKED), ("_all_valid", 0)):
         result["lm_local_rows" + suffix] = check(
             f"LM M=8{suffix}", *case(local, n_path, LM_D, torch.bfloat16, n_masked, labels8),
-            timed=True, parent_dp=True)
+            timed=True, parent=True)
         result["lm_bank_rows" + suffix] = check(
             f"LM M=2048{suffix}", *case(bank, n_path, LM_D, torch.bfloat16, n_masked,
-                                        labels_bank), timed=True, parent_dp=True)
+                                        labels_bank), timed=True, parent=True)
         for shape in ("lm_local_rows" + suffix, "lm_bank_rows" + suffix):
             for kernel in ("fwd", "dq", "dp"):
-                want = "hopper" if kernel == "dp" else "wmma"
+                want = "wmma" if kernel == "dq" and "bank" in shape else "hopper"
                 require(result[shape]["paths"][kernel] == want,
                         f"{shape} {kernel} took the {result[shape]['paths'][kernel]} path, "
                         f"not {want}")
-    result["lm_dp_plan"] = {"local_rows_ranks": ops.dp_small_ranks(LM_D),
-                            "local_rows_blocks": ops.hopper_blocks("dp", local, n_path, d=LM_D),
-                            "bank_rows_ranks": ops.dp_plan(bank)[0],
-                            "bank_rows_blocks": ops.hopper_blocks("dp", bank, n_path, d=LM_D)}
+        dq = result["lm_local_rows" + suffix]["dq"]
+        require(max(dq["ms_turns"]) < dq["library_ms"],
+                f"lm_local_rows{suffix}: the Hopper dQ ({dq['ms_turns']} ms) is not faster "
+                f"than the dense backend ({dq['library_ms']} ms)")
+    result["lm_plan"] = {"local_rows_ranks": ops.small_ranks(LM_D),
+                         **{f"local_rows_{k}_blocks": ops.hopper_blocks(k, local, n_path, d=LM_D)
+                            for k in ("fwd", "dq", "dp")},
+                         "bank_rows_dp_ranks": ops.dp_plan(bank)[0],
+                         "bank_rows_dp_blocks": ops.hopper_blocks("dp", bank, n_path, d=LM_D),
+                         "bank_rows_fwd_blocks": ops.hopper_blocks("fwd", bank, n_path, d=LM_D)}
     for shape, kernels in (("local_rows", ("fwd", "dq", "dp")), ("bank_rows", ("fwd", "dp")),
                            ("bank_rows_all_valid", ("fwd", "dp")),
                            ("local_rows_mined", ("fwd", "dq", "dp")),
@@ -1061,7 +1092,7 @@ def profile_step_share(torch, update, state, batch):
     if kernel_ms <= 0:
         return {"step_wall_ms": wall_ms, "device_ms": None, "infonce_ms": None,
                 "share_of_device": None, "busy_share": None, "flash_ms": None,
-                "top_kernels": []}
+                "top_kernels": [], "infonce_kernels": []}
     infonce_ms = sum(ms for key, ms, _ in kernels if "infonce" in key)
     flash_ms = sum(ms for key, ms, _ in kernels if "flash_fwd_kernel" in key)
     top = sorted(kernels, key=lambda k: -k[1])[:10]
@@ -1070,7 +1101,10 @@ def profile_step_share(torch, update, state, batch):
             "flash_ms": flash_ms, "flash_launches": sum(c for key, _, c in kernels
                                                         if "flash_fwd_kernel" in key),
             "kernel_launches": sum(c for _, _, c in kernels),
-            "top_kernels": [{"name": key[:80], "ms": ms, "count": c} for key, ms, c in top]}
+            "top_kernels": [{"name": key[:80], "ms": ms, "count": c} for key, ms, c in top],
+            "infonce_kernels": [{"name": key[:80], "ms": ms, "count": c}
+                                for key, ms, c in sorted(kernels, key=lambda k: -k[1])
+                                if "infonce" in key]}
 
 
 def mine_corpus():
@@ -1820,12 +1854,10 @@ def phase_lm(torch, topk_ops):
             f"flash_attention took {flash_paths}, not all the bf16 Hopper kernel")
     want = {"fwd": 2 * kk * LM_STEPS, "dq": kk * LM_STEPS, "dp": 2 * kk * LM_STEPS}
     require(launches == want, f"fused_infonce launches {launches} != {want}")
-    # dP on its Hopper kernels at d = 2048; the forward and dQ, past their
-    # Hopper kernels' widest rows, on the wmma kernels
+    # every forward, dQ and dP at d = 2048 on its Hopper kernels
     for kernel in ("fwd", "dq", "dp"):
-        want = "hopper" if kernel == "dp" else "wmma"
-        require(paths[kernel][want] == launches[kernel],
-                f"fused_infonce {kernel} took {paths[kernel]}, not all the {want} kernels")
+        require(paths[kernel]["hopper"] == launches[kernel],
+                f"fused_infonce {kernel} took {paths[kernel]}, not all the Hopper kernels")
     last = hist[-1]
     towers_apart = max((q - p).abs().max().item() for q, p in zip(
         tree_leaves(state.params["query"]), tree_leaves(state.params["passage"])))
@@ -1853,6 +1885,11 @@ def phase_lm(torch, topk_ops):
     share = profile_step_share(torch, update, state, parity_batch)
     require(bool(share.get("flash_launches")) and bool(share.get("flash_ms")),
             f"the profiled lm step shows no flash_fwd_kernel time: {share}")
+    # the loss kernels of the profiled step by name: none of the wmma kernels
+    wmma = ("infonce_fwd_kernel", "infonce_dq_kernel", "infonce_dp_kernel")
+    require(bool(share["infonce_kernels"]) and not any(
+        w in k["name"] for k in share["infonce_kernels"] for w in wmma),
+        f"the profiled lm step ran a wmma loss kernel: {share['infonce_kernels']}")
 
     # Top@k eval: the corpus and the eval queries through the flash towers,
     # the search through fused_topk (every call on the Hopper scan)
@@ -2291,6 +2328,8 @@ def main(argv=None) -> int:
     # runs only for the local queries); the phase line has both shapes
     source = "src/repro_torch/kernels/fused_infonce/csrc/fused_infonce.cu"
     tpu = "src/repro/kernels/fused_infonce/fused_infonce.py"
+    from repro_torch.kernels.fused_infonce import ops as infonce_ops
+
     for kernel, line, shape, err in (("fwd", 54, "bank_rows", "stats_max_abs_err"),
                                      ("dq", 205, "local_rows", "dq_max_abs_err"),
                                      ("dp", 229, "bank_rows", "dp_max_abs_err")):
@@ -2298,12 +2337,16 @@ def main(argv=None) -> int:
         by_path = {"train": train["launches"][kernel], "mine": mine["infonce_launches"][kernel],
                    "lm": lm["infonce_launches"][kernel]}
         lm_shapes = {"lm_shape": infonce["lm_" + shape]}
-        if kernel == "dp":   # the split kernel at the LM retriever's local rows
+        if kernel != "dq":   # the split kernels at the LM retriever's local rows
             lm_shapes["lm_local_rows_shape"] = infonce["lm_local_rows"]
         lines.append({
             "name": f"fused_infonce_{kernel}", "route": "cuda", "source": source,
             "replaces": f"{tpu}:{line}", "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            "cuda_kernels": [k for k in infonce_ops.HOPPER_KERNELS
+                             if f"_{kernel}_" in k or f"<{kernel}>" in k
+                             or (kernel == "fwd" and "merge" in k)
+                             or (kernel == "dq" and "reduce" in k)],
             "max_abs_err": infonce[shape][err], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": f"M={infonce[shape]['M']}, "

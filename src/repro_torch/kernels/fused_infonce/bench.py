@@ -3,8 +3,9 @@ contaccum_bf16 chunk: M = 8 local queries and M = 2048 query-bank rows, each
 against N = 2064 columns (8 positives, 8 hard negatives, 2048 bank rows) of
 d = 768; bf16 with the last 1000 bank columns masked (``chip_smoke.py``'s
 kernels case), bf16 with every column valid (the train phase after its
-warm-up), and fp32 with the mask. For each shape and each of the forward,
-dQ and dP: the kernel's device time, its kernels' times by name, the plain
+warm-up), fp32 with the mask, and the contaccum_mined chunk's N = 2096 (4
+mined columns a query; bf16 masked; ``--only mined``). For each shape and
+each of the forward, dQ and dP: the kernel's device time, its kernels' times by name, the plain
 version (ref.py, and autograd through it), the dense loss backend on the
 same inputs (``DenseLossBackend.chunk_stats`` and autograd: the
 yardstick), TFLOP/s over the valid columns, the path each call took where
@@ -14,11 +15,12 @@ operations over the valid columns over the operand type's peak: 989
 TFLOP/s bf16, 67 fp32 without tensor cores). One JSON line per shape and
 kernel, then the card's name and power limit. The LM retriever's chunk
 (internlm2-1.8b, d = 2048; ``--only lm`` times it alone): the same rows
-and columns, masked and all valid; its dP also on the ``wmma`` kernels it
-took before its Hopper path (``parent_ms``, ``ops.grad_on_path``), and
-its forward and dQ, which take them still.
+and columns, masked and all valid; each of its Hopper kernels also on the
+``wmma`` kernels it took before (``parent_ms``: ``ops.stats_on_path`` for
+the forward, ``ops.grad_on_path`` for dQ at M = 8 and dP; dQ at M = 2048
+has no caller and is on ``wmma`` either way).
 
-    PYTHONPATH=src python -m repro_torch.kernels.fused_infonce.bench [--reps 20] [--only lm]
+    PYTHONPATH=src python -m repro_torch.kernels.fused_infonce.bench [--reps 20] [--only lm|mined]
 
 ``ms`` is the device time of a call (``_timing.device_ms``: the calls
 queued behind a sleep kernel); ``kernels_ms`` sums each kernel's device time
@@ -30,7 +32,7 @@ each call took (``ops.fused_infonce_fwd.paths``, ``.dq.paths``,
 ``.dp.paths``). It uses only ``ops``, ``ref`` and the dense backend, so it
 also runs in an older tree of the port with this file copied into it
 (paths are then null where that tree counts none, and ``parent_ms``
-where it has no ``grad_on_path``).
+where it has no ``stats_on_path`` or ``grad_on_path``).
 
 Needs a CUDA device; builds the kernels at first use like any caller.
 """
@@ -38,6 +40,7 @@ Needs a CUDA device; builds the kernels at first use like any caller.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 
 import torch
@@ -46,22 +49,24 @@ from repro_torch.core.loss import DenseLossBackend
 from repro_torch.kernels._timing import card, device_ms
 from repro_torch.kernels.fused_infonce import ops, ref
 
-N_PATH, D, LM_D, N_MASKED = 2064, 768, 2048, 1000
+N_PATH, N_MINED, D, LM_D, N_MASKED = 2064, 2096, 768, 2048, 1000
 #: an H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, and the
 #: dense operations/s of each operand type (fp32 on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-#: (name, M, d, dtype, masked columns)
-SHAPES = (("local_rows", 8, D, torch.bfloat16, N_MASKED),
-          ("bank_rows", 2048, D, torch.bfloat16, N_MASKED),
-          ("local_rows_all_valid", 8, D, torch.bfloat16, 0),
-          ("bank_rows_all_valid", 2048, D, torch.bfloat16, 0),
-          ("local_rows_fp32", 8, D, torch.float32, N_MASKED),
-          ("bank_rows_fp32", 2048, D, torch.float32, N_MASKED),
-          ("lm_local_rows", 8, LM_D, torch.bfloat16, N_MASKED),
-          ("lm_bank_rows", 2048, LM_D, torch.bfloat16, N_MASKED),
-          ("lm_local_rows_all_valid", 8, LM_D, torch.bfloat16, 0),
-          ("lm_bank_rows_all_valid", 2048, LM_D, torch.bfloat16, 0))
+#: (name, M, N, d, dtype, masked columns)
+SHAPES = (("local_rows", 8, N_PATH, D, torch.bfloat16, N_MASKED),
+          ("bank_rows", 2048, N_PATH, D, torch.bfloat16, N_MASKED),
+          ("local_rows_all_valid", 8, N_PATH, D, torch.bfloat16, 0),
+          ("bank_rows_all_valid", 2048, N_PATH, D, torch.bfloat16, 0),
+          ("local_rows_fp32", 8, N_PATH, D, torch.float32, N_MASKED),
+          ("bank_rows_fp32", 2048, N_PATH, D, torch.float32, N_MASKED),
+          ("mined_local_rows", 8, N_MINED, D, torch.bfloat16, N_MASKED),
+          ("mined_bank_rows", 2048, N_MINED, D, torch.bfloat16, N_MASKED),
+          ("lm_local_rows", 8, N_PATH, LM_D, torch.bfloat16, N_MASKED),
+          ("lm_bank_rows", 2048, N_PATH, LM_D, torch.bfloat16, N_MASKED),
+          ("lm_local_rows_all_valid", 8, N_PATH, LM_D, torch.bfloat16, 0),
+          ("lm_bank_rows_all_valid", 2048, N_PATH, LM_D, torch.bfloat16, 0))
 
 
 def profile_kernels(fn, reps: int) -> dict:
@@ -94,13 +99,14 @@ def bound_ms(kernel: str, m: int, n: int, n_valid: int, d: int, dtype) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _case(m, d, dtype, n_masked, dev, g):
+def _case(m, n, d, dtype, n_masked, dev, g):
     q = (torch.randn((m, d), generator=g, device=dev) * 0.2).to(dtype)
-    p = (torch.randn((N_PATH, d), generator=g, device=dev) * 0.2).to(dtype)
-    valid = torch.ones((N_PATH,), dtype=torch.bool, device=dev)
+    p = (torch.randn((n, d), generator=g, device=dev) * 0.2).to(dtype)
+    valid = torch.ones((n,), dtype=torch.bool, device=dev)
     if n_masked:
         valid[-n_masked:] = False
-    labels = (torch.arange(m, device=dev) if m == 8 else 16 + torch.arange(m, device=dev))
+    # the local rows' own positives, or each bank row's column after a chunk's own
+    labels = torch.arange(m, device=dev) + (0 if m == 8 else n - 2048)
     g_lse = torch.rand((m,), generator=g, device=dev)
     g_pos = -torch.rand((m,), generator=g, device=dev)
     return q, p, labels.to(torch.int32), valid, g_lse, g_pos
@@ -126,8 +132,9 @@ def _took(counter, before):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("lm",), default=None,
-                    help="time only the LM retriever's chunk (d = 2048)")
+    ap.add_argument("--only", choices=("lm", "mined"), default=None,
+                    help="time only the LM retriever's chunk (d = 2048) or the "
+                         "contaccum_mined chunk (N = 2096)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench.py needs a CUDA device")
@@ -136,14 +143,16 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(0)
     dense = DenseLossBackend()
     smi = card()
-    parent_dp = getattr(ops, "grad_on_path", None)
-    for name, m, d, dtype, n_masked in SHAPES:
+    on_path = {"fwd": getattr(ops, "stats_on_path", None), "dq": getattr(ops, "grad_on_path", None),
+               "dp": getattr(ops, "grad_on_path", None)}
+    for name, m, n, d, dtype, n_masked in SHAPES:
         if args.only and not name.startswith(args.only):
             continue
-        q, p, labels, valid, g_lse, g_pos = _case(m, d, dtype, n_masked, dev, g)
+        q, p, labels, valid, g_lse, g_pos = _case(m, n, d, dtype, n_masked, dev, g)
         lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
         args_ = (q, p, labels, valid, lse, g_lse, g_pos)
         n_valid = int(valid.sum().item())
+
         def plain(a, b):
             return ref.infonce_stats_ref(a, b, labels, valid)
 
@@ -166,12 +175,14 @@ def main(argv=None):
             torch.cuda.synchronize()
             took = _took(counter, before)
             ms = device_ms(fn, args.reps)
-            bound, bound_by = bound_ms(kernel, m, N_PATH, n_valid, d, dtype)
-            parent_ms = None
-            if kernel == "dp" and d == LM_D and parent_dp is not None:
-                parent_ms = device_ms(lambda: parent_dp("dp", "wmma", *args_), args.reps)
+            bound, bound_by = bound_ms(kernel, m, n, n_valid, d, dtype)
+            parent_ms, parent = None, on_path[kernel]
+            if d == LM_D and parent is not None and (kernel != "dq" or m <= ops.SMALL_M):
+                call = (functools.partial(parent, "wmma", q, p, labels, valid) if kernel == "fwd"
+                        else functools.partial(parent, kernel, "wmma", *args_))
+                parent_ms = device_ms(call, args.reps)
             print(json.dumps({
-                "shape": name, "kernel": kernel, "M": m, "N": N_PATH, "n_valid": n_valid, "d": d,
+                "shape": name, "kernel": kernel, "M": m, "N": n, "n_valid": n_valid, "d": d,
                 "dtype": str(dtype).removeprefix("torch."), "ms": ms,
                 "parent_ms": parent_ms, "tflops": flop * m * n_valid * d / ms / 1e9,
                 "kernels_ms": profile_kernels(fn, args.reps),

@@ -4,10 +4,13 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/fused_infonce/fused_infonce.py:
 //   forward  _fwd_kernel (:54) -> bf16: hp::infonce_fwd_small_kernel at up to 16
-//                                 query rows, hp::infonce_fwd_rows_kernel above (+
+//                                 query rows (hp::infonce_fwd_split_kernel past d =
+//                                 1024), hp::infonce_fwd_rows_kernel above (+
 //                                 infonce_stats_merge_kernel); else infonce_fwd_kernel
-//   dQ       _dq_kernel (:205) -> bf16: hp::infonce_small_kernel<true> (+
-//                                 infonce_grad_reduce_kernel); else infonce_dq_kernel
+//   dQ       _dq_kernel (:205) -> bf16: hp::infonce_small_kernel<true> at up to 16
+//                                 query rows (hp::infonce_dq_split_kernel past d =
+//                                 1024) (+ infonce_grad_reduce_kernel); else
+//                                 infonce_dq_kernel
 //   dP       _dp_kernel (:229) -> bf16: hp::infonce_small_kernel<false> at up to 16
 //                                 query rows (hp::infonce_dp_split_kernel past d =
 //                                 1024), hp::infonce_dp_cluster_kernel above;
@@ -80,20 +83,23 @@
 //    stream of Q and P tiles through a ring of about 100 KB (the strip takes
 //    the rest of shared memory); the tensor cores run at about a quarter of
 //    their peak.
-//  - dP past d = 1024 (16 d-chunks; the LM retriever's 2048): at M > 16 the
-//    cluster kernel as above (3 ranks, each on 10-11 of the 32 chunks in
-//    groups of up to 4; nothing in its plan depends on d). At M <= 16 the
-//    small kernel's P tile (10 KB a d-chunk with the queries) no longer
-//    fits: infonce_dp_split_kernel puts a cluster of ceil(nc / 16) blocks
-//    on each passage tile, each rank on its share of the d-chunks (partial
-//    scores summed through distributed shared memory, then its columns of
-//    dP); see the kernel.
+//  - Past d = 1024 (16 d-chunks; the LM retriever's 2048), up to 8192: at
+//    M > 16 the cluster dP and the rows forward as above (nothing in their
+//    plans depends on d: the dP's 3 ranks each take 10-11 of the 32 chunks
+//    in groups of up to 4; the forward's ring streams 32 chunks a query
+//    tile). At M <= 16 the small kernels' P tile (10 KB a d-chunk with the
+//    queries) no longer fits a block: the split kernels
+//    (infonce_fwd_split_kernel, infonce_dq_split_kernel,
+//    infonce_dp_split_kernel) put a cluster of ceil(nc / 16) blocks on each
+//    passage tile, each rank on its share of the d-chunks; the partial
+//    scores are summed through distributed shared memory in rank order,
+//    then each rank writes its columns of dP or of dQ's partial, and rank 0
+//    the forward's partials; see the kernels.
 //  - A dQ or dP block whose passages are all masked writes zeros and
 //    computes nothing.
 //
 // The fp32 kernels and the bf16 shapes the Hopper kernels do not take (d
-// not a multiple of 8, or above 1024 for the forward and dQ and above 8192
-// for dP; dQ above 16 rows, dP above 6144 rows)
+// not a multiple of 8 or above 8192; dQ above 16 rows, dP above 6144 rows)
 // keep the first design: 64 x 64 score tiles on wmma bf16 16x16x16 (fp32
 // inputs: a CUDA-core FMA loop, no TF32), looping over d in chunks of 64
 // with synchronous loads; the backward kernels first compute the block's
@@ -792,7 +798,7 @@ using namespace hopper;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int PB = 64;            // passages a block: wgmma's 64-row side
 constexpr int BOX = 64 * 128;     // a 64 x 64 bf16 box, 128-byte swizzled (8 KB)
-constexpr int NC_MAX = 16;        // d-chunks of 64: d up to 1024
+constexpr int NC_MAX = 16;        // d-chunks of 64 a small block: d up to 1024
 
 // ---- dP at many query rows: a cluster of `ranks` blocks on one tile of
 // 64 passages, rank r holding the coefficients of query rows r * rq ..
@@ -825,9 +831,10 @@ __host__ __device__ constexpr int small_off_qv(int nc) { return small_off_c(nc) 
 __host__ __device__ constexpr int small_off_bar(int nc) { return small_off_qv(nc) + 4 * SQ * 4; }
 __host__ __device__ constexpr int small_smem(int nc) { return small_off_bar(nc) + 8 * nc + 1024; }
 static_assert(small_smem(NC_MAX) <= 232448, "shared memory over the 227 KB a block may use");
-// dP at up to SQ query rows past NC_MAX d-chunks: a rank of the cluster
-// holds the small kernel's layout for its nc <= NC_MAX chunks, then each
-// thread's 8 partial scores (4 KB a block) for the other ranks to read
+// The split kernels (up to SQ query rows past NC_MAX d-chunks): a rank of
+// the cluster holds the small kernels' layout for its nc <= NC_MAX chunks,
+// then each thread's 8 partial scores (4 KB a block) for the other ranks to
+// read
 __host__ __device__ constexpr int split_off_x(int nc) { return (small_off_bar(nc) + 8 * nc + 15) / 16 * 16; }
 __host__ __device__ constexpr int split_smem(int nc) { return split_off_x(nc) + 128 * 32 + 1024; }
 static_assert(split_smem(NC_MAX) <= 232448, "shared memory over the 227 KB a block may use");
@@ -1274,6 +1281,86 @@ __device__ __forceinline__ void small_dp_tile(uint8_t* smem, uint32_t base, cons
   }
 }
 
+// This thread's 8 coefficients (passages n0 + pl and + 8, queries 8 i + 2 t4
+// + e % 2, in acc's layout) from its scores, the query values at qv
+// (load_query_values of SQ rows).
+__device__ __forceinline__ void small_coefs(const float (&acc)[8], const float* qv, float k1,
+                                            const uint8_t* col_valid, int n0, int N, int pl, int t4,
+                                            float (&cf)[8]) {
+  const int* qlab = reinterpret_cast<const int*>(qv + 3 * SQ);
+  const bool va = passage_valid(col_valid, n0 + pl, N);
+  const bool vb = passage_valid(col_valid, n0 + pl + 8, N);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = 8 * i + 2 * t4 + (e & 1), p = n0 + pl + 8 * (e >> 1);
+      cf[4 * i + e] = coef(acc[4 * i + e], k1, qv[q], qv[SQ + q], qv[2 * SQ + q], qlab[q] == p,
+                           (e >> 1) ? vb : va);
+    }
+}
+
+// dQ's fp32 partial (M, d) of a wholly masked passage tile, columns [c0, c1),
+// set to 0 (what the coefficient gives there).
+__device__ __forceinline__ void zero_partial(float* part, int M, int d, int c0, int c1) {
+  const int w = c1 - c0;
+  for (int x = threadIdx.x; x < M * w; x += blockDim.x) part[size_t(x / w) * d + c0 + x % w] = 0.f;
+}
+
+// dQ^T of the passage tile over d-chunks [c_lo, c_lo + nc) (P chunk c of
+// shared memory at c BOX) from this thread's 8 coefficients: C^T goes to
+// shared memory as a K-major B (row q: 64 passages, 128-byte swizzled, in
+// the coefficient area) and dQ^T (64 d x 16) = P^T C^T (P the MN-major A),
+// four d-chunks a round, written as columns of the tile's fp32 partial
+// part (M, d).
+__device__ __forceinline__ void small_dq_tile(uint8_t* smem, uint32_t base, const float (&cf)[8],
+                                              int nc, int c_lo, int M, int d, int pl, int t4,
+                                              float* part) {
+  uint8_t* cs = smem + small_off_c(nc);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = 8 * i + 2 * t4 + (e & 1), p = pl + 8 * (e >> 1);
+      const int at = q * 128 + (((p >> 3) ^ (q & 7)) << 4) + (p & 7) * 2;
+      *reinterpret_cast<__nv_bfloat16*>(cs + at) = __float2bfloat16(cf[4 * i + e]);
+    }
+  fence_proxy_async();
+  __syncthreads();
+  const uint32_t p_s = base, c_s = base + small_off_c(nc);
+  // dQ^T chunk: register 4i + e is d-row 64 c + 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2
+  for (int c0 = 0; c0 < nc; c0 += 4) {
+    float o[4][8];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[h][i] = 0.f;
+      fence_regs<8>(o[h]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 4; ++h)   // past the last chunk: the last again, not stored
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n16<1>(o[h], desc_sw128(p_s + min(c0 + h, nc - 1) * BOX + kk * 2048, BOX, 1024),
+                        desc_sw128(c_s + kk * 32, 16, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      fence_regs<8>(o[h]);
+      if (c0 + h >= nc) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 64 * (c_lo + c0 + h) + pl + 8 * (e >> 1), q = 8 * i + 2 * t4 + (e & 1);
+          if (q < M && col < d) part[size_t(q) * d + col] = o[h][4 * i + e];
+        }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dQ and dP at up to SQ query rows: one block (one warpgroup) per 64
 // passages. Thread 0 loads the whole P tile and the queries by TMA, every
@@ -1282,10 +1369,10 @@ __device__ __forceinline__ void small_dp_tile(uint8_t* smem, uint32_t base, cons
 // rows past M are TMA's zeros), coefficients in registers, then
 //   dP: the coefficients are the register A operand of one k-step a
 //       d-chunk: dP tile = C^T Q (Q the MN-major B), staged in bf16 where
-//       the P tile was and written out in 16-byte stores;
+//       the P tile was and written out in 16-byte stores (small_dp_tile);
 //   dQ: C^T goes to shared memory as a K-major B and dQ^T (64 d x 16) =
-//       P^T C^T (P the MN-major A), written as this block's fp32 partial;
-//       the reduce kernel sums the partials in block order.
+//       P^T C^T (P the MN-major A), written as this block's fp32 partial
+//       (small_dq_tile); the reduce kernel sums the partials in block order.
 // ---------------------------------------------------------------------------
 template <bool DQ>
 __global__ void __launch_bounds__(128, 1)
@@ -1306,7 +1393,7 @@ infonce_small_kernel(const __grid_constant__ CUtensorMap tq,
   const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
   if (!__syncthreads_or(any)) {   // a wholly masked tile: its products are 0
     if (DQ) {
-      for (int x = tid; x < M * d; x += 128) part[x] = 0.f;
+      zero_partial(part, M, d, 0, d);
     } else {
       zero_rows(dp, n0, N, d, 0, d, 128);
     }
@@ -1314,134 +1401,83 @@ infonce_small_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   float* qv = reinterpret_cast<float*>(smem + small_off_qv(nc));
-  const int* qlab = reinterpret_cast<const int*>(qv + 3 * SQ);
   load_query_values(qv, SQ, 0, M, labels, lse, g_lse, g_pos, inv_tau, tid, 128);
-  const uint32_t p_s = base;
   // S^T: register 4i + e is passage 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2
   float acc[8];
   small_scores(&tq, &tp, base, nc, n0, acc);
 
   const int pl = 16 * v + g;   // this thread's passages: n0 + pl and + 8
-  const bool va = passage_valid(col_valid, n0 + pl, N);
-  const bool vb = passage_valid(col_valid, n0 + pl + 8, N);
   float cf[8];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q = 8 * i + 2 * t4 + (e & 1), p = n0 + pl + 8 * (e >> 1);
-      cf[4 * i + e] = coef(acc[4 * i + e], k1, qv[q], qv[SQ + q], qv[2 * SQ + q], qlab[q] == p,
-                           (e >> 1) ? vb : va);
-    }
-
-  if constexpr (!DQ) {
+  small_coefs(acc, qv, k1, col_valid, n0, N, pl, t4, cf);
+  if constexpr (DQ)
+    small_dq_tile(smem, base, cf, nc, 0, M, d, pl, t4, part);
+  else
     small_dp_tile(smem, base, cf, nc, 0, n0, N, d, pl, t4, dp);
-  } else {
-    // C^T as a K-major B: row q (128 bytes: 64 passages), 128-byte swizzled
-    uint8_t* cs = smem + small_off_c(nc);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = 8 * i + 2 * t4 + (e & 1), p = pl + 8 * (e >> 1);
-        const int at = q * 128 + (((p >> 3) ^ (q & 7)) << 4) + (p & 7) * 2;
-        *reinterpret_cast<__nv_bfloat16*>(cs + at) = __float2bfloat16(cf[4 * i + e]);
-      }
-    fence_proxy_async();
-    __syncthreads();
-    const uint32_t c_s = base + small_off_c(nc);
-    // dQ^T chunk: register 4i + e is d-row 64 c + 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2
-    for (int c0 = 0; c0 < nc; c0 += 4) {
-      float o[4][8];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) o[h][i] = 0.f;
-        fence_regs<8>(o[h]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int h = 0; h < 4; ++h)   // past the last chunk: the last again, not stored
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n16<1>(o[h], desc_sw128(p_s + min(c0 + h, nc - 1) * BOX + kk * 2048, BOX, 1024),
-                          desc_sw128(c_s + kk * 32, 16, 1024), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        fence_regs<8>(o[h]);
-        if (c0 + h >= nc) continue;
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = 64 * (c0 + h) + pl + 8 * (e >> 1), q = 8 * i + 2 * t4 + (e & 1);
-            if (q < M && col < d) part[size_t(q) * d + col] = o[h][4 * i + e];
-          }
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
-// dP at up to SQ query rows on rows of more than NC_MAX d-chunks, where the
-// small kernel's P tile (10 KB a d-chunk with the queries) no longer fits a
-// block: a cluster of `ranks` blocks on one tile of 64 passages, rank r
-// taking d-chunks [r nc / ranks, (r + 1) nc / ranks) (at most NC_MAX: 2
-// ranks of 16 at d = 2048, 3 of 13-14 at 2560). Each rank loads its share
-// of the P tile and of the queries by TMA exactly as the small kernel does
-// all of them, and accumulates its partial S^T (wgmma m64n16) over its
-// share. The partials (64 x 16 fp32, 4 KB a rank) are summed through
-// distributed shared memory in rank order, so every rank forms the same
-// scores and the same bf16 coefficients in registers, and each rank writes
-// its own columns of dP as the small kernel writes all of them (C^T Q, the
-// tile staged in bf16 where its P chunks were). P is read once and dP
-// written once; what bounds it is those bytes (2 x 8.4 MB at d = 2048, N =
-// 2064: 5.0 us), with twice the small kernel's blocks (66) to carry them.
+// The split kernels: dP, dQ and the forward at up to SQ query rows on rows
+// of more than NC_MAX d-chunks, where the small kernels' P tile (10 KB a
+// d-chunk with the queries) no longer fits a block. A cluster of `ranks`
+// blocks on one tile of 64 passages, rank r taking d-chunks [r nc / ranks,
+// (r + 1) nc / ranks) (at most NC_MAX: 2 ranks of 16 at d = 2048, 3 of
+// 13-14 at 2560). Each rank loads its share of the P tile and of the
+// queries by TMA exactly as the small kernels do all of them, and
+// accumulates its partial S^T (wgmma m64n16) over its share. The partials
+// (64 x 16 fp32, 4 KB a rank) are summed through distributed shared memory
+// in rank order, so every rank holds the same scores (split_scores). Then
+//   dP: every rank forms the same bf16 coefficients in registers and writes
+//       its own columns of dP as the small kernel writes all of them (C^T
+//       Q, the tile staged in bf16 where its P chunks were);
+//   dQ: every rank forms the same coefficients and writes its own columns
+//       of the tile's fp32 partial (P_r^T C^T from the chunks it holds);
+//       the reduce kernel sums the partials in block order, as after the
+//       small kernel;
+//   the forward: rank 0 writes the tile's (max, sum-exp, pos) partial of
+//       each row from the summed scores (tile_partials); the others write
+//       nothing.
+// P is read once; what bounds each is those bytes (8.4 MB at d = 2048, N =
+// 2064: 2.5 us; dP also writes as many), with twice the small kernels'
+// blocks (66) to carry them.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(128, 1)
-infonce_dp_split_kernel(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
-                        const uint8_t* __restrict__ col_valid, const float* __restrict__ lse,
-                        const float* __restrict__ g_lse, const float* __restrict__ g_pos,
-                        __nv_bfloat16* __restrict__ dp, int M, int N, int d, float k1,
-                        float inv_tau) {
-  extern __shared__ __align__(1024) uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t base = smem_u32(smem);
-  const int ranks = int(cluster_nctarank()), rank = int(cluster_ctarank());
-  const int n0 = (blockIdx.x / ranks) * PB;
+struct SplitShare {
+  int ranks, rank, tile;   // the cluster's size, this block's rank and passage tile
+  int c_lo, nc;            // this rank's d-chunks [c_lo, c_lo + nc)
+  int nc_max;              // the largest share of any rank (the shared-memory plan's)
+};
+
+__device__ __forceinline__ SplitShare split_share(int d) {
+  SplitShare s;
+  s.ranks = int(cluster_nctarank());
+  s.rank = int(cluster_ctarank());
+  s.tile = blockIdx.x / s.ranks;
   const int nc_all = (d + 63) / 64;
-  const int c_lo = rank * nc_all / ranks, nc = (rank + 1) * nc_all / ranks - c_lo;
-  const int tid = threadIdx.x, v = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  s.c_lo = s.rank * nc_all / s.ranks;
+  s.nc = (s.rank + 1) * nc_all / s.ranks - s.c_lo;
+  s.nc_max = (nc_all + s.ranks - 1) / s.ranks;
+  return s;
+}
 
-  // a wholly masked passage tile: its dP rows are 0 (every rank of the
-  // cluster sees the same tile and leaves here, before any cluster barrier)
-  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
-  if (!__syncthreads_or(any)) {
-    zero_rows(dp, n0, N, d, 64 * c_lo, min(d, 64 * (c_lo + nc)), 128);
-    return;
-  }
-
-  float* qv = reinterpret_cast<float*>(smem + small_off_qv(nc));
-  const int* qlab = reinterpret_cast<const int*>(qv + 3 * SQ);
-  load_query_values(qv, SQ, 0, M, labels, lse, g_lse, g_pos, inv_tau, tid, 128);
-  // this rank's partial S^T: register 4i + e is passage 16 v + g + 8 (e /
-  // 2), query 8 i + 2 t4 + e % 2
+// The scores of the split kernels into acc (the small kernels' register
+// layout: 4i + e is passage 16 v + g + 8 (e / 2), query 8 i + 2 t4 + e % 2),
+// the same on every rank. Leaves with this rank's phase-2 cluster arrival
+// made (it reads no more partials): the caller ends with cluster_wait(), so
+// that no rank leaves while another may read its partial.
+__device__ __forceinline__ void split_scores(const CUtensorMap* tq, const CUtensorMap* tp,
+                                             uint8_t* smem, uint32_t base, const SplitShare& s,
+                                             int n0, float (&acc)[8]) {
   float part[8];
-  small_scores(&tq, &tp, base, nc, n0, part, c_lo);
+  small_scores(tq, tp, base, s.nc, n0, part, s.c_lo);
   // at one offset in every rank (the ranks' shares differ by a chunk at most)
-  const int x_off = split_off_x((nc_all + ranks - 1) / ranks) + tid * 32;
+  const int x_off = split_off_x(s.nc_max) + threadIdx.x * 32;
   const uint32_t x_s = base + x_off;
   *reinterpret_cast<float4*>(smem + x_off) = make_float4(part[0], part[1], part[2], part[3]);
   *reinterpret_cast<float4*>(smem + x_off + 16) = make_float4(part[4], part[5], part[6], part[7]);
   cluster_arrive();   // phase 1: this rank's partial is written
   cluster_wait();     // and every rank's
-  float acc[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  for (int r = 0; r < ranks; ++r) {   // rank order: every rank sums the same way
+  for (int r = 0; r < s.ranks; ++r) {   // rank order: every rank sums the same way
     const uint4 lo = ld_cluster_v4(x_s, r), hi = ld_cluster_v4(x_s + 16, r);
     acc[0] += __uint_as_float(lo.x);
     acc[1] += __uint_as_float(lo.y);
@@ -1453,21 +1489,73 @@ infonce_dp_split_kernel(const __grid_constant__ CUtensorMap tq,
     acc[7] += __uint_as_float(hi.w);
   }
   cluster_arrive_relaxed();   // phase 2: this rank reads no more partials
+}
 
+// dP (split): each rank its columns of the tile's dP rows.
+__global__ void __launch_bounds__(128, 1)
+infonce_dp_split_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
+                        const uint8_t* __restrict__ col_valid, const float* __restrict__ lse,
+                        const float* __restrict__ g_lse, const float* __restrict__ g_pos,
+                        __nv_bfloat16* __restrict__ dp, int M, int N, int d, float k1,
+                        float inv_tau) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const SplitShare s = split_share(d);
+  const int n0 = s.tile * PB;
+  const int tid = threadIdx.x, v = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+
+  // a wholly masked passage tile: its dP rows are 0 (every rank of the
+  // cluster sees the same tile and leaves here, before any cluster barrier)
+  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {
+    zero_rows(dp, n0, N, d, 64 * s.c_lo, min(d, 64 * (s.c_lo + s.nc)), 128);
+    return;
+  }
+
+  float* qv = reinterpret_cast<float*>(smem + small_off_qv(s.nc));
+  load_query_values(qv, SQ, 0, M, labels, lse, g_lse, g_pos, inv_tau, tid, 128);
+  float acc[8];
+  split_scores(&tq, &tp, smem, base, s, n0, acc);
   const int pl = 16 * v + g;   // this thread's passages: n0 + pl and + 8
-  const bool va = passage_valid(col_valid, n0 + pl, N);
-  const bool vb = passage_valid(col_valid, n0 + pl + 8, N);
   float cf[8];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q = 8 * i + 2 * t4 + (e & 1), p = n0 + pl + 8 * (e >> 1);
-      cf[4 * i + e] = coef(acc[4 * i + e], k1, qv[q], qv[SQ + q], qv[2 * SQ + q], qlab[q] == p,
-                           (e >> 1) ? vb : va);
-    }
-  small_dp_tile(smem, base, cf, nc, c_lo, n0, N, d, pl, t4, dp);
+  small_coefs(acc, qv, k1, col_valid, n0, N, pl, t4, cf);
+  small_dp_tile(smem, base, cf, s.nc, s.c_lo, n0, N, d, pl, t4, dp);
   cluster_wait();   // no rank leaves while another may read its partial
+}
+
+// dQ (split): each rank its columns of the tile's fp32 partial (tiles, M, d).
+__global__ void __launch_bounds__(128, 1)
+infonce_dq_split_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
+                        const uint8_t* __restrict__ col_valid, const float* __restrict__ lse,
+                        const float* __restrict__ g_lse, const float* __restrict__ g_pos,
+                        float* __restrict__ partial, int M, int N, int d, float k1,
+                        float inv_tau) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const SplitShare s = split_share(d);
+  const int n0 = s.tile * PB;
+  const int tid = threadIdx.x, v = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  float* part = partial + size_t(s.tile) * M * d;
+
+  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {   // as in the dP split kernel: every rank leaves here
+    zero_partial(part, M, d, 64 * s.c_lo, min(d, 64 * (s.c_lo + s.nc)));
+    return;
+  }
+
+  float* qv = reinterpret_cast<float*>(smem + small_off_qv(s.nc));
+  load_query_values(qv, SQ, 0, M, labels, lse, g_lse, g_pos, inv_tau, tid, 128);
+  float acc[8];
+  split_scores(&tq, &tp, smem, base, s, n0, acc);
+  const int pl = 16 * v + g;
+  float cf[8];
+  small_coefs(acc, qv, k1, col_valid, n0, N, pl, t4, cf);
+  small_dq_tile(smem, base, cf, s.nc, s.c_lo, M, d, pl, t4, part);
+  cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -1651,6 +1739,39 @@ infonce_fwd_small_kernel(const __grid_constant__ CUtensorMap tq,
                    blockIdx.x, M, [] { __syncthreads(); });
 }
 
+// The forward at up to SQ query rows past NC_MAX d-chunks (see the split
+// kernels above): rank 0 of each cluster writes the tile's partials from
+// the summed scores; a wholly masked tile's are written once, by rank 0,
+// before any cluster barrier. Every rank triggers the merge once the
+// scores are summed (the merge waits for this grid's end all the same).
+__global__ void __launch_bounds__(128, 1)
+infonce_fwd_split_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tp, const int* __restrict__ labels,
+                         const uint8_t* __restrict__ col_valid, float* __restrict__ part, int M,
+                         int N, int d, float inv_tau, float k1) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const SplitShare s = split_share(d);
+  const int n0 = s.tile * PB, tiles = gridDim.x / s.ranks;
+  const int tid = threadIdx.x;
+
+  const int any = tid < PB && passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {
+    if (s.rank == 0) masked_partials(part, labels, tiles, s.tile, n0, N, M, 0, M, 128);
+    return;
+  }
+  float* scratch = reinterpret_cast<float*>(smem + small_off_c(s.nc));
+  if (tid < SQ) reinterpret_cast<int*>(scratch)[tid] = tid < M ? labels[tid] : -1;
+  float acc[8];
+  split_scores(&tq, &tp, smem, base, s, n0, acc);
+  grid_dependents_launch();
+  if (s.rank == 0)
+    tile_partials<2>(acc, scratch, tid, 0, M, n0, N, col_valid, inv_tau, k1, part, tiles, s.tile,
+                     M, [] { __syncthreads(); });
+  cluster_wait();   // no rank leaves while another may read its partial
+}
+
 // The forward at more query rows. Grid: passage tiles x row groups of rq
 // rows (a multiple of TQ; ops.fwd_plan), block b on tile b / groups. A
 // producer warp feeds two consumer warpgroups through an SF-stage ring
@@ -1730,15 +1851,19 @@ cudaError_t map2d(CUtensorMap* map, const void* ptr, int cols, int rows, int box
 }
 
 struct ClusterTag {};
-struct SplitTag {};
 template <bool DQ> struct SmallTag {};
+template <int KIND> struct SplitTag {};   // 0 the forward, 1 dQ, 2 dP
+struct FwdSmallTag {};
+struct FwdRowsTag {};
 
-cudaLaunchConfig_t cluster_config(int col_tiles, int ranks, cudaStream_t st,
+// A launch of `tiles` x `ranks` blocks of `threads`, in clusters of `ranks`
+// blocks along x
+cudaLaunchConfig_t cluster_config(int tiles, int ranks, int threads, int smem, cudaStream_t st,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(unsigned(col_tiles * ranks));
-  cfg.blockDim = dim3(CLUSTER_THREADS);
-  cfg.dynamicSmemBytes = SMEM_CLUSTER;
+  cfg.gridDim = dim3(unsigned(tiles * ranks));
+  cfg.blockDim = dim3(unsigned(threads));
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = unsigned(ranks);
@@ -1766,76 +1891,80 @@ cudaError_t dp_cluster(const void* q, const void* p, const int* labels, const ui
                                          SMEM_CLUSTER)) != cudaSuccess)
     return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config((N + PB - 1) / PB, ranks, st, attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config((N + PB - 1) / PB, ranks, CLUSTER_THREADS, SMEM_CLUSTER, st, attr);
   err = cudaLaunchKernelEx(&cfg, infonce_dp_cluster_kernel, tq, tp, labels, col_valid, lse, g_lse,
                            g_pos, static_cast<__nv_bfloat16*>(out), M, N, d, rq, inv_tau * LOG2E,
                            inv_tau);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// dP at up to SQ query rows in clusters of `ranks` blocks a passage tile,
-// each rank on at most NC_MAX of the d-chunks
-cudaError_t dp_split(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
-                     const float* lse, const float* g_lse, const float* g_pos, void* out, int M,
-                     int N, int d, int ranks, float inv_tau, cudaStream_t st) {
+// At up to SQ query rows: ranks 1 is the small kernels' block (d up to 64
+// NC_MAX), else the split kernels' clusters of 2 to RANKS_MAX ranks, each
+// on 1 to NC_MAX of the d-chunks (ops.small_ranks).
+bool small_plan_fits(int M, int d, int ranks) {
   const int nc = (d + 63) / 64;
-  if (M > SQ || ranks < 2 || ranks > RANKS_MAX || ranks > nc || (nc + ranks - 1) / ranks > NC_MAX)
-    return cudaErrorInvalidValue;
-  CUtensorMap tq, tp;
-  cudaError_t err;
-  if ((err = map2d(&tq, q, d, M, SQ)) != cudaSuccess ||
-      (err = map2d(&tp, p, d, N, PB)) != cudaSuccess)
-    return err;
-  if ((err = allow_smem_once<SplitTag>(reinterpret_cast<const void*>(infonce_dp_split_kernel),
-                                       split_smem(NC_MAX))) != cudaSuccess)
-    return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(unsigned((N + PB - 1) / PB * ranks));
-  cfg.blockDim = dim3(128);
-  cfg.dynamicSmemBytes = split_smem((nc + ranks - 1) / ranks);
-  cfg.stream = st;
+  if (M > SQ) return false;
+  if (ranks == 1) return nc <= NC_MAX;
+  return ranks >= 2 && ranks <= RANKS_MAX && ranks <= nc && (nc + ranks - 1) / ranks <= NC_MAX;
+}
+
+// A split kernel (kind KIND) on each tile of 64 passages in clusters of
+// `ranks` blocks; a refused cluster launch returns its error.
+template <int KIND, class Kernel, class... Args>
+cudaError_t launch_split(Kernel kernel, int N, int d, int ranks, cudaStream_t st, Args... args) {
+  cudaError_t err = allow_smem_once<SplitTag<KIND>>(reinterpret_cast<const void*>(kernel),
+                                                    split_smem(NC_MAX));
+  if (err != cudaSuccess) return err;
+  const int nc = (d + 63) / 64;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = unsigned(ranks);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, infonce_dp_split_kernel, tq, tp, labels, col_valid, lse, g_lse,
-                           g_pos, static_cast<__nv_bfloat16*>(out), M, N, d, inv_tau * LOG2E,
-                           inv_tau);
+  const cudaLaunchConfig_t cfg = cluster_config((N + PB - 1) / PB, ranks, 128,
+                                                split_smem((nc + ranks - 1) / ranks), st, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// dQ or dP at up to SQ query rows: the small kernel (ranks 1) or the split
+// kernel in clusters of `ranks` blocks a passage tile. out: dQ's fp32
+// partials (tiles, M, d), or dP (N, d) bf16.
 template <bool DQ>
 cudaError_t small(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
                   const float* lse, const float* g_lse, const float* g_pos, void* out, int M,
-                  int N, int d, float inv_tau, cudaStream_t st) {
-  if (M > SQ || d > 64 * NC_MAX) return cudaErrorInvalidValue;
+                  int N, int d, int ranks, float inv_tau, cudaStream_t st) {
+  if (!small_plan_fits(M, d, ranks)) return cudaErrorInvalidValue;
   CUtensorMap tq, tp;
   cudaError_t err;
   if ((err = map2d(&tq, q, d, M, SQ)) != cudaSuccess ||
       (err = map2d(&tp, p, d, N, PB)) != cudaSuccess)
     return err;
+  const float k1 = inv_tau * LOG2E;
+  if (ranks > 1) {
+    if constexpr (DQ)
+      return launch_split<1>(infonce_dq_split_kernel, N, d, ranks, st, tq, tp, labels, col_valid,
+                             lse, g_lse, g_pos, static_cast<float*>(out), M, N, d, k1, inv_tau);
+    else
+      return launch_split<2>(infonce_dp_split_kernel, N, d, ranks, st, tq, tp, labels, col_valid,
+                             lse, g_lse, g_pos, static_cast<__nv_bfloat16*>(out), M, N, d, k1,
+                             inv_tau);
+  }
   const auto kernel = infonce_small_kernel<DQ>;
   if ((err = allow_smem_once<SmallTag<DQ>>(reinterpret_cast<const void*>(kernel),
                                            small_smem(NC_MAX))) != cudaSuccess)
     return err;
   const int smem = small_smem((d + 63) / 64);
   infonce_small_kernel<DQ><<<(N + PB - 1) / PB, 128, smem, st>>>(
-      tq, tp, labels, col_valid, lse, g_lse, g_pos, out, M, N, d, inv_tau * LOG2E, inv_tau);
+      tq, tp, labels, col_valid, lse, g_lse, g_pos, out, M, N, d, k1, inv_tau);
   return cudaGetLastError();
 }
 
-struct FwdSmallTag {};
-struct FwdRowsTag {};
-
 // The forward's Hopper kernel, then the merge of each row's tile partials
-// (part: (3, M, tiles) fp32).
+// (part: (3, M, tiles) fp32). M <= SQ: the small kernel (ranks 1) or the
+// split kernel (clusters of `ranks`); above, the rows kernel in groups of
+// rq rows at any d.
 cudaError_t fwd_tiles(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
                       float* lse, float* pos, float* amax, float* part, int M, int N, int d, int rq,
-                      float inv_tau, cudaStream_t st) {
-  if (d > 64 * NC_MAX || (M > SQ && (rq < TQ || rq % TQ))) return cudaErrorInvalidValue;
+                      int ranks, float inv_tau, cudaStream_t st) {
+  if (M <= SQ ? !small_plan_fits(M, d, ranks) : (rq < TQ || rq % TQ)) return cudaErrorInvalidValue;
   CUtensorMap tq, tp;
   cudaError_t err;
   if ((err = map2d(&tq, q, d, M, M <= SQ ? SQ : 64)) != cudaSuccess ||
@@ -1843,20 +1972,25 @@ cudaError_t fwd_tiles(const void* q, const void* p, const int* labels, const uin
     return err;
   const int tiles = (N + PB - 1) / PB;
   const float k1 = inv_tau * LOG2E;
-  if (M <= SQ) {
+  if (M <= SQ && ranks > 1) {
+    err = launch_split<0>(infonce_fwd_split_kernel, N, d, ranks, st, tq, tp, labels, col_valid,
+                          part, M, N, d, inv_tau, k1);
+  } else if (M <= SQ) {
     if ((err = allow_smem_once<FwdSmallTag>(reinterpret_cast<const void*>(infonce_fwd_small_kernel),
                                             small_smem(NC_MAX))) != cudaSuccess)
       return err;
     infonce_fwd_small_kernel<<<tiles, 128, small_smem((d + 63) / 64), st>>>(
         tq, tp, labels, col_valid, part, M, N, d, inv_tau, k1);
+    err = cudaGetLastError();
   } else {
     if ((err = allow_smem_once<FwdRowsTag>(reinterpret_cast<const void*>(infonce_fwd_rows_kernel),
                                            SMEM_FWD)) != cudaSuccess)
       return err;
     infonce_fwd_rows_kernel<<<tiles * ((M + rq - 1) / rq), CLUSTER_THREADS, SMEM_FWD, st>>>(
         tq, tp, labels, col_valid, part, M, N, d, rq, inv_tau, k1);
+    err = cudaGetLastError();
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (err != cudaSuccess) return err;
   // the merge as a programmatic dependent: launched while the tiles run,
   // it waits in griddepcontrol.wait for their partials
   cudaLaunchConfig_t cfg = {};
@@ -1902,17 +2036,20 @@ int fused_infonce_fwd_launch(const void* q, const void* p, const void* labels,
 }
 
 // The bf16 forward on Hopper (q and p row-major, 16-byte aligned bases, d a
-// multiple of 8 up to 1024): M up to 16 takes infonce_fwd_small_kernel (rq
-// unused), else infonce_fwd_rows_kernel in row groups of rq rows (a
-// multiple of 256; ops.fwd_plan). part: fp32 (3, M, (N + 63) / 64) scratch.
+// multiple of 8). M up to 16: ranks 1 takes infonce_fwd_small_kernel (d up
+// to 1024), ranks 2-8 infonce_fwd_split_kernel in clusters of `ranks`
+// blocks, each on at most 16 of the d-chunks (ops.small_ranks); rq unused.
+// Else infonce_fwd_rows_kernel in row groups of rq rows (a multiple of 256;
+// ops.fwd_plan) at any d; ranks unused. part: fp32 (3, M, (N + 63) / 64)
+// scratch.
 int fused_infonce_fwd_hopper_launch(const void* q, const void* p, const void* labels,
                                     const void* col_valid, void* lse, void* pos, void* amax,
-                                    void* part, int M, int N, int d, int rq, float inv_tau,
-                                    void* stream) {
+                                    void* part, int M, int N, int d, int rq, int ranks,
+                                    float inv_tau, void* stream) {
   return int(hp::fwd_tiles(q, p, static_cast<const int*>(labels),
                            static_cast<const uint8_t*>(col_valid), static_cast<float*>(lse),
                            static_cast<float*>(pos), static_cast<float*>(amax),
-                           static_cast<float*>(part), M, N, d, rq, inv_tau,
+                           static_cast<float*>(part), M, N, d, rq, ranks, inv_tau,
                            static_cast<cudaStream_t>(stream)));
 }
 
@@ -1959,7 +2096,7 @@ int fused_infonce_dp_launch(const void* q, const void* p, const void* labels,
 // The Hopper dP, bf16 only (q and p row-major, 16-byte aligned bases, d a
 // multiple of 8). M up to 16: ranks 1 takes the small kernel (d up to
 // 1024; rq unused), ranks 2-8 infonce_dp_split_kernel in clusters of
-// `ranks` blocks, each on at most 16 of the d-chunks (ops.dp_small_ranks).
+// `ranks` blocks, each on at most 16 of the d-chunks (ops.small_ranks).
 // Else infonce_dp_cluster_kernel in clusters of `ranks` blocks, rank r
 // holding the coefficients of query rows [r rq, (r + 1) rq) (rq a multiple
 // of TQ (256), at most RQ_MAX (768), ranks at most 8; ops.dp_plan), at any
@@ -1973,25 +2110,25 @@ int fused_infonce_dp_hopper_launch(const void* q, const void* p, const void* lab
   const auto valid = static_cast<const uint8_t*>(col_valid);
   const auto l = static_cast<const float*>(lse), gl = static_cast<const float*>(g_lse),
              gp = static_cast<const float*>(g_pos);
-  if (M <= hp::SQ && ranks == 1)
-    return int(hp::small<false>(q, p, lab, valid, l, gl, gp, out, M, N, d, inv_tau, st));
   if (M <= hp::SQ)
-    return int(hp::dp_split(q, p, lab, valid, l, gl, gp, out, M, N, d, ranks, inv_tau, st));
+    return int(hp::small<false>(q, p, lab, valid, l, gl, gp, out, M, N, d, ranks, inv_tau, st));
   return int(hp::dp_cluster(q, p, lab, valid, l, gl, gp, out, M, N, d, ranks, rq, inv_tau, st));
 }
 
-// dQ at M up to 16: the small kernel writes one fp32 partial (M, d) per 64
-// passages into `partial` ((N + 63) / 64, M, d), then the reduce kernel sums
-// them in block order into out (M, d) bf16.
+// dQ at M up to 16: the small kernel (ranks 1, d up to 1024) or
+// infonce_dq_split_kernel (clusters of `ranks` blocks, each rank writing its
+// columns; ops.small_ranks) writes one fp32 partial (M, d) per 64 passages
+// into `partial` ((N + 63) / 64, M, d), then the reduce kernel sums them in
+// block order into out (M, d) bf16.
 int fused_infonce_dq_hopper_launch(const void* q, const void* p, const void* labels,
                                    const void* col_valid, const void* lse, const void* g_lse,
                                    const void* g_pos, void* out, void* partial, int M, int N,
-                                   int d, float inv_tau, void* stream) {
+                                   int d, int ranks, float inv_tau, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = hp::small<true>(
       q, p, static_cast<const int*>(labels), static_cast<const uint8_t*>(col_valid),
       static_cast<const float*>(lse), static_cast<const float*>(g_lse),
-      static_cast<const float*>(g_pos), partial, M, N, d, inv_tau, st);
+      static_cast<const float*>(g_pos), partial, M, N, d, ranks, inv_tau, st);
   if (err != cudaSuccess) return int(err);
   const size_t total = size_t(M) * d;
   infonce_grad_reduce_kernel<__nv_bfloat16><<<reduce_blocks(total), THREADS, 0, st>>>(
@@ -2008,7 +2145,8 @@ int fused_infonce_dp_max_clusters(int ranks) {
           reinterpret_cast<const void*>(hp::infonce_dp_cluster_kernel), hp::SMEM_CLUSTER);
   if (err != cudaSuccess) return -int(err);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = hp::cluster_config(1, ranks, nullptr, attr);
+  const cudaLaunchConfig_t cfg =
+      hp::cluster_config(1, ranks, hp::CLUSTER_THREADS, hp::SMEM_CLUSTER, nullptr, attr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(
       &n, reinterpret_cast<const void*>(hp::infonce_dp_cluster_kernel), &cfg);
@@ -2034,6 +2172,8 @@ int fused_infonce_kernel_attributes(int which, int* regs, int* local) {
       reinterpret_cast<const void*>(hp::infonce_fwd_small_kernel),
       reinterpret_cast<const void*>(hp::infonce_fwd_rows_kernel),
       reinterpret_cast<const void*>(hp::infonce_dp_split_kernel),
+      reinterpret_cast<const void*>(hp::infonce_fwd_split_kernel),
+      reinterpret_cast<const void*>(hp::infonce_dq_split_kernel),
   };
   if (which < 0 || which >= int(sizeof(kernels) / sizeof(kernels[0])))
     return int(cudaErrorInvalidValue);

@@ -17,9 +17,9 @@ built from source at its first launch.
 The three count the path of each call in ``fused_infonce_fwd.paths``,
 ``fused_infonce_dq.paths`` and ``fused_infonce_dp.paths`` (``path_of``):
 
-- ``"hopper"``: bf16 operands with d a multiple of 8 up to ``HOPPER_D_MAX``,
-  ``DP_D_MAX`` for dP (TMA reads rows of a multiple of 16 bytes; a base that
-  is not 16-byte aligned is copied first). The forward, at any M: each block takes one
+- ``"hopper"``: bf16 operands with d a multiple of 8 up to ``HOPPER_D_MAX``
+  (TMA reads rows of a multiple of 16 bytes; a base that is not 16-byte
+  aligned is copied first). The forward, at any M: each block takes one
   tile of 64 passages and writes each of its query rows' partial (max,
   sum-exp, pos) over that tile, taken from the score registers; a second
   kernel merges each row's partials (launched as a programmatic dependent,
@@ -38,22 +38,25 @@ The three count the path of each call in ``fused_infonce_fwd.paths``,
   turns the scores of its query rows into bf16 coefficients in registers
   and keeps them in shared memory, then computes its share of d for every
   query row, reading the other ranks' coefficients through distributed
-  shared memory; one launch, no fp32 partial in device memory. dP past
-  ``HOPPER_D_MAX`` (the LM retriever's d = 2048): the cluster kernel at
-  more rows as it is; at up to ``SMALL_M`` rows clusters of
-  ``dp_small_ranks(d)`` blocks on each tile of 64 passages, each rank on
-  its share of the d-chunks (at most 16), the partial scores summed through
-  distributed shared memory, each rank writing its columns. On an H100
-  the bounds are the bytes of P at the local rows (1-2 us) and the tensor
-  cores at the bank rows (6.6 us forward, 13 us dP); the local-row kernels
-  are held back by latency (33 blocks), the bank-row kernels by each
-  block's stream of Q and P from L2 (PERF.md).
-- ``"wmma"``: other bf16 shapes (d not a multiple of 8, the forward and dQ
-  above ``HOPPER_D_MAX``, dP above ``DP_D_MAX``, dQ above ``SMALL_M`` rows,
-  dP above ``MAX_RANKS * RANK_ROWS`` rows): the first kernels (``wmma``
-  tiles, synchronous loads, fp32 partials and a merge or reduce kernel when
-  the long axis is split). ``grad_on_path`` runs a gradient on a path
-  named by the caller, to time one route beside another.
+  shared memory; one launch, no fp32 partial in device memory. Past
+  ``SMALL_D_MAX`` (one block of the small kernels: 16 d-chunks of 64; the
+  LM retriever's d = 2048): the many-row forward and the cluster dP as
+  they are (nothing in their plans depends on d); at up to ``SMALL_M``
+  rows the forward, dQ and dP take clusters of ``small_ranks(d)`` blocks
+  on each tile of 64 passages, each rank on its share of the d-chunks (at
+  most 16), the partial scores summed through distributed shared memory in
+  rank order; each rank then writes its columns of dP or of dQ's partial,
+  and rank 0 the forward's partials. On an H100 the bounds are the bytes of
+  P at the local rows (1-2 us at d = 768) and the tensor cores at the bank
+  rows (6.6 us forward, 13 us dP); the local-row kernels are held back by
+  latency (33 or 66 blocks), the bank-row kernels by each block's stream of
+  Q and P from L2 (PERF.md).
+- ``"wmma"``: other bf16 shapes (d not a multiple of 8 or above
+  ``HOPPER_D_MAX``, dQ above ``SMALL_M`` rows, dP above ``MAX_RANKS *
+  RANK_ROWS`` rows): the first kernels (``wmma`` tiles, synchronous loads,
+  fp32 partials and a merge or reduce kernel when the long axis is split).
+  ``stats_on_path`` runs the forward and ``grad_on_path`` a gradient on a
+  path named by the caller, to time one route beside another.
 - ``"fp32"``: fp32 operands (or bf16 with fp32): CUDA-core FMAs, no TF32.
 
 A block whose 64 passages are all masked computes nothing: dQ and dP write
@@ -96,13 +99,13 @@ PASSAGE_TILE = 64
 PASS1_TILE, RANK_ROWS = 256, 768
 #: the portable cluster size
 MAX_RANKS = 8
-#: the widest bf16 row the Hopper forward and dQ take, and one block of the
-#: small dP (16 d-chunks of 64)
-HOPPER_D_MAX = 1024
-#: the widest bf16 row the Hopper dP takes: at up to SMALL_M rows a cluster
-#: of at most MAX_RANKS blocks, each on at most 16 d-chunks (the cluster
-#: kernel at more rows takes any d)
-DP_D_MAX = MAX_RANKS * HOPPER_D_MAX
+#: the widest bf16 row one block of the small kernels (forward, dQ, dP at up
+#: to SMALL_M rows) holds: 16 d-chunks of 64
+SMALL_D_MAX = 1024
+#: the widest bf16 row the Hopper forward, dQ and dP take: at up to SMALL_M
+#: rows a cluster of at most MAX_RANKS blocks, each on at most 16 d-chunks
+#: (the many-row forward and the cluster dP take any d)
+HOPPER_D_MAX = MAX_RANKS * SMALL_D_MAX
 PATHS = ("hopper", "wmma", "fp32")
 #: every kernel of the library, in fused_infonce_kernel_attributes' order
 KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stats_merge_kernel",
@@ -110,13 +113,15 @@ KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stat
            "infonce_dp_kernel<fp32>", "infonce_grad_reduce_kernel<bf16>",
            "infonce_grad_reduce_kernel<fp32>", "infonce_dp_cluster_kernel",
            "infonce_small_kernel<dq>", "infonce_small_kernel<dp>", "infonce_fwd_small_kernel",
-           "infonce_fwd_rows_kernel", "infonce_dp_split_kernel")
+           "infonce_fwd_rows_kernel", "infonce_dp_split_kernel", "infonce_fwd_split_kernel",
+           "infonce_dq_split_kernel")
 #: the kernels the train paths' forward, dQ and dP run (bf16, Hopper path;
-#: the split dP at the LM retriever's local rows)
+#: the split kernels at the LM retriever's local rows)
 HOPPER_KERNELS = ("infonce_fwd_small_kernel", "infonce_fwd_rows_kernel",
                   "infonce_stats_merge_kernel", "infonce_dp_cluster_kernel",
                   "infonce_small_kernel<dq>", "infonce_small_kernel<dp>",
-                  "infonce_grad_reduce_kernel<bf16>", "infonce_dp_split_kernel")
+                  "infonce_grad_reduce_kernel<bf16>", "infonce_dp_split_kernel",
+                  "infonce_fwd_split_kernel", "infonce_dq_split_kernel")
 #: SMs of an H100 SXM: the card the forward's default row plan fills
 H100_SMS = 132
 
@@ -133,8 +138,8 @@ def _library() -> ctypes.CDLL:
     for fn in (lib.fused_infonce_dq_launch, lib.fused_infonce_dp_launch):
         fn.argtypes = [ptr] * 9 + [i32] * 5 + [ctypes.c_float, i32, i32, ptr]
     lib.fused_infonce_dp_hopper_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_float, ptr]
-    lib.fused_infonce_dq_hopper_launch.argtypes = [ptr] * 9 + [i32] * 3 + [ctypes.c_float, ptr]
-    lib.fused_infonce_fwd_hopper_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ctypes.c_float, ptr]
+    lib.fused_infonce_dq_hopper_launch.argtypes = [ptr] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
+    lib.fused_infonce_fwd_hopper_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_float, ptr]
     for fn in (lib.fused_infonce_fwd_launch, lib.fused_infonce_dq_launch,
                lib.fused_infonce_dp_launch, lib.fused_infonce_dp_hopper_launch,
                lib.fused_infonce_dq_hopper_launch, lib.fused_infonce_fwd_hopper_launch):
@@ -178,14 +183,14 @@ def dp_plan(m: int) -> Tuple[int, int]:
     return -(-m // rq), rq
 
 
-def dp_small_ranks(d: int) -> int:
-    """Blocks a passage tile of the Hopper dP at up to SMALL_M query rows:
-    1 (the small kernel) up to HOPPER_D_MAX, else a cluster of as many as
-    keep each rank's share of the d-chunks at 16 or fewer (2 at d = 2048, 3
-    at 2560)."""
-    if d > DP_D_MAX:
-        raise ValueError(f"the Hopper dP takes d <= {DP_D_MAX}")
-    return max(1, -(-d // HOPPER_D_MAX))
+def small_ranks(d: int) -> int:
+    """Blocks a passage tile of the Hopper forward, dQ and dP at up to
+    SMALL_M query rows: 1 (the small kernels) up to SMALL_D_MAX, else a
+    cluster of the split kernels of as many as keep each rank's share of
+    the d-chunks at 16 or fewer (2 at d = 2048, 3 at 2560)."""
+    if d > HOPPER_D_MAX:
+        raise ValueError(f"the Hopper kernels take d <= {HOPPER_D_MAX}")
+    return max(1, -(-d // SMALL_D_MAX))
 
 
 def fwd_plan(m: int, n: int, sm_count: int = H100_SMS) -> int:
@@ -207,9 +212,9 @@ def hopper_blocks(kind: str, m: int, n: int, sm_count: int = H100_SMS, d: int = 
     (the merge and reduce kernels aside); the forward's row groups as on a
     card of ``sm_count`` SMs."""
     tiles = -(-n // PASSAGE_TILE)
-    if kind == "dp" and m <= SMALL_M:
-        return tiles * dp_small_ranks(d)
-    if kind == "dq" or m <= SMALL_M:
+    if m <= SMALL_M:
+        return tiles * small_ranks(d)
+    if kind == "dq":
         return tiles
     if kind == "fwd":
         return tiles * -(-m // fwd_plan(m, n, sm_count))
@@ -222,7 +227,7 @@ def path_of(kind: str, dtype: torch.dtype, m: int, d: int) -> str:
     rows of d."""
     if dtype != torch.bfloat16:
         return "fp32"
-    if d % 8 or d > (DP_D_MAX if kind == "dp" else HOPPER_D_MAX):
+    if d % 8 or d > HOPPER_D_MAX:
         return "wmma"
     if kind == "fwd":
         return "hopper"
@@ -331,23 +336,33 @@ def fused_infonce_fwd(
     if q.device.type == "cpu":
         with torch.no_grad():
             return infonce_stats_ref(q, p, labels, col_valid, inv_tau=inv_tau)
+    stats, path = _fwd(q, p, labels, col_valid, inv_tau)
+    fused_infonce_fwd.launches += 1
+    fused_infonce_fwd.paths[path] += 1
+    return stats
+
+
+def _fwd(q, p, labels, col_valid, inv_tau, path=None):
+    """((lse, pos, amax), the path it took): ``path_of``'s, or ``path`` where
+    given."""
     lib = _library()
     q, p, ct, vec = _operands(q, p)
     m, d = q.shape
     n = p.shape[0]
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    path = path_of("fwd", ct, m, d)
+    path = path or path_of("fwd", ct, m, d)
     mask = None if col_valid is None else col_valid.data_ptr()
     lse, pos, amax = (torch.empty((m,), dtype=STATS_DTYPE, device=dev) for _ in range(3))
     if path == "hopper":
         q, p = _tma_ready(q), _tma_ready(p)
         part = torch.empty((3, m, -(-n // PASSAGE_TILE)), dtype=STATS_DTYPE, device=dev)
+        rq, ranks = (fwd_plan(m, n, sms), 0) if m > SMALL_M else (0, small_ranks(d))
         with torch.cuda.device(dev):
             err = lib.fused_infonce_fwd_hopper_launch(
                 q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask,
                 lse.data_ptr(), pos.data_ptr(), amax.data_ptr(), part.data_ptr(),
-                m, n, d, fwd_plan(m, n, sms) if m > SMALL_M else 0, float(inv_tau), _stream(dev),
+                m, n, d, rq, ranks, float(inv_tau), _stream(dev),
             )
     else:
         splits, per = split_plan(-(-n // BLOCK_N), -(-m // BLOCK_M), sms)
@@ -359,9 +374,19 @@ def fused_infonce_fwd(
                 m, n, d, splits, per, float(inv_tau), _DTYPE_CODES[ct], vec, _stream(dev),
             )
     _raise_on(err, f"fused_infonce forward ({path})", lib)
-    fused_infonce_fwd.launches += 1
-    fused_infonce_fwd.paths[path] += 1
-    return lse, pos, amax
+    return (lse, pos, amax), path
+
+
+def stats_on_path(path, q, p, labels, col_valid=None, inv_tau=1.0):
+    """The forward's (lse, pos, amax) of CUDA operands through the kernels
+    of ``path`` ("hopper" or "wmma" for bf16), whatever ``path_of`` picks: a
+    route timed beside another in one run (``bench.py``, ``chip_smoke.py``);
+    not counted in the launch counts. Raises where that path's kernel does
+    not take the shape."""
+    _check(q, p, labels, col_valid)
+    if q.device.type != "cuda" or path not in PATHS:
+        raise ValueError(f"stats_on_path runs CUDA operands on one of {PATHS}")
+    return _fwd(q, p, labels, col_valid, inv_tau, path)[0]
 
 
 def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau, path=None):
@@ -384,10 +409,11 @@ def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau, path=None)
                 partial = torch.empty((-(-n // PASSAGE_TILE), m, d), dtype=STATS_DTYPE, device=dev)
                 err = lib.fused_infonce_dq_hopper_launch(
                     q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask, *stats,
-                    out.data_ptr(), partial.data_ptr(), m, n, d, float(inv_tau), _stream(dev),
+                    out.data_ptr(), partial.data_ptr(), m, n, d, small_ranks(d), float(inv_tau),
+                    _stream(dev),
                 )
             else:
-                ranks, rq = dp_plan(m) if m > SMALL_M else (dp_small_ranks(d), 0)
+                ranks, rq = dp_plan(m) if m > SMALL_M else (small_ranks(d), 0)
                 err = lib.fused_infonce_dp_hopper_launch(
                     q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask, *stats,
                     out.data_ptr(), m, n, d, ranks, rq, float(inv_tau), _stream(dev),

@@ -412,13 +412,20 @@ def test_fwd_plan_refuses_the_small_kernels_rows():
     ("dp", torch.bfloat16, 8, 1032, "hopper"),      # wider than one block's tile: the split kernel
     ("dp", torch.bfloat16, 8, 2048, "hopper"),      # the LM retriever's local rows
     ("dp", torch.bfloat16, 2048, 2048, "hopper"),   # and its query-bank rows
-    ("dq", torch.bfloat16, 8, 2048, "wmma"),        # the forward and dQ keep HOPPER_D_MAX
-    ("fwd", torch.bfloat16, 8, 2048, "wmma"),
-    ("fwd", torch.bfloat16, 2048, 2048, "wmma"),
-    ("dp", torch.bfloat16, 16, ops.DP_D_MAX, "hopper"),
-    ("dp", torch.bfloat16, 17, ops.DP_D_MAX, "hopper"),
-    ("dp", torch.bfloat16, 8, ops.DP_D_MAX + 8, "wmma"),
-    ("dp", torch.bfloat16, 2048, ops.DP_D_MAX + 8, "wmma"),
+    ("dq", torch.bfloat16, 8, 2048, "hopper"),      # the split dQ at the LM's local rows
+    ("fwd", torch.bfloat16, 8, 2048, "hopper"),     # the split forward
+    ("fwd", torch.bfloat16, 2048, 2048, "hopper"),  # the many-row forward at any d
+    ("dq", torch.bfloat16, 2048, 2048, "wmma"),     # dQ of many rows: no caller
+    ("dp", torch.bfloat16, 16, ops.HOPPER_D_MAX, "hopper"),
+    ("dp", torch.bfloat16, 17, ops.HOPPER_D_MAX, "hopper"),
+    ("dp", torch.bfloat16, 8, ops.HOPPER_D_MAX + 8, "wmma"),
+    ("dp", torch.bfloat16, 2048, ops.HOPPER_D_MAX + 8, "wmma"),
+    ("fwd", torch.bfloat16, 16, ops.HOPPER_D_MAX, "hopper"),
+    ("fwd", torch.bfloat16, 17, ops.HOPPER_D_MAX, "hopper"),
+    ("fwd", torch.bfloat16, 8, ops.HOPPER_D_MAX + 8, "wmma"),
+    ("fwd", torch.bfloat16, 2048, ops.HOPPER_D_MAX + 8, "wmma"),
+    ("dq", torch.bfloat16, 16, ops.HOPPER_D_MAX, "hopper"),
+    ("dq", torch.bfloat16, 8, ops.HOPPER_D_MAX + 8, "wmma"),
     ("dq", torch.bfloat16, 8, 20, "wmma"),          # rows of 40 bytes: no TMA
     ("dp", torch.bfloat16, 2048, 36, "wmma"),
     ("dq", torch.float32, 8, 768, "fp32"),
@@ -427,7 +434,7 @@ def test_fwd_plan_refuses_the_small_kernels_rows():
     ("fwd", torch.bfloat16, 2048, 768, "hopper"),
     ("fwd", torch.bfloat16, 17, 96, "hopper"),
     ("fwd", torch.bfloat16, 9000, 1024, "hopper"),  # any M
-    ("fwd", torch.bfloat16, 8, 1032, "wmma"),       # wider than HOPPER_D_MAX
+    ("fwd", torch.bfloat16, 8, 1032, "hopper"),     # wider than one small block: the split kernel
     ("fwd", torch.bfloat16, 2048, 36, "wmma"),      # rows of 72 bytes: no TMA
     ("fwd", torch.float32, 2048, 768, "fp32"),
 ])
@@ -447,59 +454,86 @@ def test_reset_launches_clears_every_path():
     assert ops.fused_infonce_dp.launches == 0
 
 
-# ---- dP past HOPPER_D_MAX (the LM retriever's d = 2048) ----------------------
+# ---- past SMALL_D_MAX (the LM retriever's d = 2048) --------------------------
 
 LM_D = 2048
 
 
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 2048])
 def test_path_of_dp_at_the_lm_width(m):
-    """d = 2048: dP on the Hopper path at every M, the forward and dQ on
-    wmma (they keep HOPPER_D_MAX)."""
+    """d = 2048: the forward and dP on the Hopper path at every M, dQ at up
+    to SMALL_M rows (above, dQ has no caller and keeps wmma); one name,
+    HOPPER_D_MAX, for the widest Hopper row of all three."""
     assert ops.path_of("dp", torch.bfloat16, m, LM_D) == "hopper"
-    assert ops.path_of("fwd", torch.bfloat16, m, LM_D) == "wmma"
-    assert ops.path_of("dq", torch.bfloat16, m, LM_D) == "wmma"
-    assert ops.HOPPER_D_MAX == 1024 and ops.DP_D_MAX == 8192
+    assert ops.path_of("fwd", torch.bfloat16, m, LM_D) == "hopper"
+    assert ops.path_of("dq", torch.bfloat16, m, LM_D) == (
+        "hopper" if m <= ops.SMALL_M else "wmma")
+    assert ops.SMALL_D_MAX == 1024 and ops.HOPPER_D_MAX == 8192
+
+
+def _split_shares(d):
+    """Rank r's d-chunks of the split kernels: [r nc / ranks, (r + 1) nc /
+    ranks) (csrc: split_share)."""
+    nc, ranks = -(-d // 64), ops.small_ranks(d)
+    return nc, [range(r * nc // ranks, (r + 1) * nc // ranks) for r in range(ranks)]
 
 
 @pytest.mark.parametrize("d", [8, 768, 1024, 1032, 1088, 1280, 2048, 2560, 4096, 8192])
 def test_split_dp_ranks_cover_every_d_chunk_once(d):
-    """At up to SMALL_M rows past HOPPER_D_MAX a cluster of dp_small_ranks(d)
+    """At up to SMALL_M rows past SMALL_D_MAX a cluster of small_ranks(d)
     blocks takes each passage tile, rank r the d-chunks [r nc / ranks, (r +
     1) nc / ranks): together every chunk once, each rank at least one and
     at most 16 (one block's tile, the kernel's NC_MAX); one rank (the small
-    kernel) up to HOPPER_D_MAX; at most MAX_RANKS (a portable cluster)."""
-    nc = -(-d // 64)
-    ranks = ops.dp_small_ranks(d)
-    assert (ranks == 1) == (d <= ops.HOPPER_D_MAX) and ranks <= ops.MAX_RANKS
-    shares = [range(r * nc // ranks, (r + 1) * nc // ranks) for r in range(ranks)]
+    kernel) up to SMALL_D_MAX; at most MAX_RANKS (a portable cluster)."""
+    nc, shares = _split_shares(d)
+    ranks = len(shares)
+    assert (ranks == 1) == (d <= ops.SMALL_D_MAX) and ranks <= ops.MAX_RANKS
     assert [c for share in shares for c in share] == list(range(nc))
-    assert all(1 <= len(share) <= ops.HOPPER_D_MAX // 64 for share in shares)
+    assert all(1 <= len(share) <= ops.SMALL_D_MAX // 64 for share in shares)
     assert ops.hopper_blocks("dp", 8, PATH_N, d=d) == 33 * ranks
     assert {2048: 2, 2560: 3}.get(d, ranks) == ranks
 
 
+@pytest.mark.parametrize("d", [1032, 1088, 2048, 2560, 4096, 8192])
+@pytest.mark.parametrize("kind", ["fwd", "dq"])
+def test_split_fwd_and_dq_ranks_cover_every_d_chunk_once(kind, d):
+    """The forward's and dQ's split kernels at up to SMALL_M rows take the
+    dP split's plan: small_ranks(d) ranks a passage tile, together every
+    d-chunk once, each rank 1 to 16 of them; 66 blocks at the LM chunk (d
+    = 2048, N = 2064), 33 clusters of 2."""
+    nc, shares = _split_shares(d)
+    assert [c for share in shares for c in share] == list(range(nc))
+    assert all(1 <= len(share) <= ops.SMALL_D_MAX // 64 for share in shares)
+    assert 2 <= len(shares) <= ops.MAX_RANKS
+    for m in (1, 8, ops.SMALL_M):
+        assert ops.path_of(kind, torch.bfloat16, m, d) == "hopper"
+        assert ops.hopper_blocks(kind, m, PATH_N, d=d) == 33 * len(shares)
+    if d == LM_D:
+        assert ops.hopper_blocks(kind, 8, PATH_N, d=d) == 66
+
+
 def test_split_dp_refuses_rows_past_its_widest():
     with pytest.raises(ValueError):
-        ops.dp_small_ranks(ops.DP_D_MAX + 8)
+        ops.small_ranks(ops.HOPPER_D_MAX + 8)
 
 
 def test_split_dp_shared_memory_fits_a_block():
-    """The split kernel's plan (csrc: split_smem) at its largest share of 16
-    d-chunks: the small kernel's tile of P and queries (10 KB a chunk), the
-    coefficient area, the query values and barriers, then 4 KB of partial
-    scores, under the 227 KB a block may use; the source states the same
-    constants."""
+    """The split kernels' plan (csrc: split_smem) at their largest share of
+    16 d-chunks: the small kernel's tile of P and queries (10 KB a chunk),
+    the coefficient area, the query values and barriers, then 4 KB of
+    partial scores, under the 227 KB a block may use; the source states the
+    same constants and has the three split kernels (forward, dQ, dP)."""
     src = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
            / "fused_infonce" / "csrc" / "fused_infonce.cu").read_text()
-    nc = ops.HOPPER_D_MAX // 64
+    nc = ops.SMALL_D_MAX // 64
     small_bar = nc * (8192 + 2048) + 16 * 128 + 4 * 16 * 4
     split = -(-(small_bar + 8 * nc) // 16) * 16 + 128 * 32 + 1024
     assert split <= 232_448
     assert "constexpr int NC_MAX = 16;" in src and "infonce_dp_split_kernel(" in src
     assert "split_smem(int nc) { return split_off_x(nc) + 128 * 32 + 1024; }" in src
-    assert ops.KERNELS[-1] == "infonce_dp_split_kernel"
-    assert "infonce_dp_split_kernel" in ops.HOPPER_KERNELS
+    split = ("infonce_dp_split_kernel", "infonce_fwd_split_kernel", "infonce_dq_split_kernel")
+    assert ops.KERNELS[-3:] == split
+    assert all(f"{name}(" in src and name in ops.HOPPER_KERNELS for name in split)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -525,3 +559,27 @@ def test_dp_at_the_lm_width_matches_jax(m, dtype):
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     else:
         assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+def test_stats_and_vjp_at_the_lm_width_match_jax_bf16():
+    """d = 2048, M = 8 (the split forward and dQ on the card), bf16 with
+    masked columns, a label on a masked column and one outside [0, N): the
+    port's stats and VJP (its plain version on the CPU, through the
+    autograd Function) against the JAX fused op (its Pallas kernels in
+    interpret mode). The statistics within the file's rtol and atol of
+    1e-5; dQ and dP within 2e-2 of the largest gradient (the file's reason:
+    JAX rounds each coefficient to bf16 before its product)."""
+    q, p, labels, valid, g_lse, g_pos = _problem(2056, 8, 40, LM_D, 0.3, ml_dtypes.bfloat16,
+                                                 scale=LM_D ** -0.5)
+    valid[5] = False
+    labels[1], labels[2] = 5, 40 + 100
+    want = _jax(q, p, labels, valid, g_lse, g_pos, 1.0)
+    got = _port(q, p, labels, valid, g_lse, g_pos, 1.0)
+    for kind in ("fwd", "dq", "dp"):
+        assert ops.path_of(kind, torch.bfloat16, 8, LM_D) == "hopper"
+    assert got[1][1] == np.float32(NEG_INF) and got[1][2] == 0.0
+    for g, w, what in zip(got[:3], want[:3], ("lse", "pos", "amax")):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=what)
+    for g, w, what in zip(got[3:], want[3:], ("dq", "dp")):
+        assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), what
+    assert not got[4][~valid].any()

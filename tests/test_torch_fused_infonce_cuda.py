@@ -380,20 +380,21 @@ def test_kernels_reject_what_they_do_not_take(dev):
         ops.fused_infonce_fwd(q, p.cpu(), labels)
 
 
-# ---- dP past HOPPER_D_MAX (the LM retriever's 2048-wide reps) ---------------
+# ---- past SMALL_D_MAX (the LM retriever's 2048-wide reps) --------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1032, 1280, 2048, 2560, ops.DP_D_MAX])
+@pytest.mark.parametrize("d", [1032, 1280, 2048, 2560, ops.HOPPER_D_MAX])
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 2048])
 def test_wide_rows_dp_takes_the_hopper_path(dev, m, d):
-    """dP past HOPPER_D_MAX runs on the Hopper path up to DP_D_MAX: at up
-    to 16 rows the split kernel (clusters of dp_small_ranks(d) blocks, each
+    """dP past SMALL_D_MAX runs on the Hopper path up to HOPPER_D_MAX: at up
+    to 16 rows the split kernel (clusters of small_ranks(d) blocks, each
     rank on its share of the d-chunks: 8 and 9 of 17 at d = 1032, 16 each at
     2048 and 8192, 13-14 at 2560), above the cluster kernel (its ranks'
     shares end in groups of fewer than 4 chunks). Ragged N with a wholly
     masked passage tile and a masked tail, labels out of range and on a
     masked column; the rows of masked passages are exactly 0, two calls give
-    the same bits, and the forward and dQ stay on the wmma path."""
+    the same bits, the forward takes the Hopper path and dQ too at up to 16
+    rows (above, wmma: dQ of many rows has no caller)."""
     n = N_PATH if m in (8, 2048) else 1001
     q = _rand((m, d), torch.bfloat16, dev, 50)
     p = _rand((n, d), torch.bfloat16, dev, 51)
@@ -408,8 +409,10 @@ def test_wide_rows_dp_takes_the_hopper_path(dev, m, d):
     dq, dp = _check_grads(q, p, labels, valid, g_lse, g_pos)
     assert not dp[~valid].float().abs().max().item()
     assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
-    assert ops.fused_infonce_dq.paths == {"hopper": 0, "wmma": 1, "fp32": 0}
-    assert ops.fused_infonce_fwd.paths == {"hopper": 0, "wmma": 1, "fp32": 0}
+    assert ops.fused_infonce_dq.paths == (
+        {"hopper": 1, "wmma": 0, "fp32": 0} if m <= ops.SMALL_M else
+        {"hopper": 0, "wmma": 1, "fp32": 0})
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
     lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
     args = (q, p, labels, valid, lse, g_lse, g_pos)
     assert torch.equal(ops.fused_infonce_dp(*args), ops.fused_infonce_dp(*args))
@@ -439,7 +442,7 @@ def test_wide_rows_dp_every_column_valid_and_its_parent_route(dev, m):
 
 @pytest.mark.cuda
 def test_split_dp_needs_its_ranks(dev):
-    """Past HOPPER_D_MAX one block cannot hold the small kernel's tile: the
+    """Past SMALL_D_MAX one block cannot hold the small kernel's tile: the
     library refuses a split of one rank, or of shares above 16 chunks."""
     q = _rand((8, 2048), torch.bfloat16, dev, 55)
     p = _rand((300, 2048), torch.bfloat16, dev, 56)
@@ -453,3 +456,119 @@ def test_split_dp_needs_its_ranks(dev):
             g_lse.data_ptr(), g_pos.data_ptr(), out.data_ptr(), 8, 300, 2048, ranks, 0, 1.0,
             torch.cuda.current_stream().cuda_stream)
         assert err != 0, ranks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1032, 2048, 2560, ops.HOPPER_D_MAX])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 2048])
+def test_wide_rows_forward_and_dq_take_the_hopper_path(dev, m, d):
+    """The forward past SMALL_D_MAX on the Hopper path at every M (up to 16
+    rows the split kernel, rank 0 of each cluster writing the tile's
+    partials; above, the many-row kernel), and dQ at up to 16 rows (the
+    split kernel, each rank its columns of the tile's partial), against
+    ref.py: a wholly masked passage tile and a masked tail, labels outside
+    [0, N) and on a masked column (pos -1e30); two calls give the same bits
+    and the launches are counted on their paths."""
+    n = N_PATH if m in (8, 2048) else 1001
+    q = _rand((m, d), torch.bfloat16, dev, 60)
+    p = _rand((n, d), torch.bfloat16, dev, 61)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[64:128] = False
+    valid[-300:] = False
+    g = torch.Generator(device=dev).manual_seed(62)
+    labels = torch.randint(-1, n + 1, (m,), generator=g, device=dev).to(torch.int32)
+    labels[0] = 100                                 # on a masked column
+    ops.reset_launches()
+    _, pos, _ = _check(q, p, labels, valid)
+    assert (pos[0] == NEG_INF).item()
+    small = m <= ops.SMALL_M
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_dq.paths == (
+        {"hopper": 1, "wmma": 0, "fp32": 0} if small else {"hopper": 0, "wmma": 1, "fp32": 0})
+    first = ops.fused_infonce_fwd(q, p, labels, valid)
+    assert all(torch.equal(a, b) for a, b in zip(first, ops.fused_infonce_fwd(q, p, labels, valid)))
+    if small:
+        g_lse, g_pos = _cotangents(m, dev)
+        args = (q, p, labels, valid, first[0], g_lse, g_pos)
+        assert torch.equal(ops.fused_infonce_dq(*args), ops.fused_infonce_dq(*args))
+        assert ops.hopper_blocks("fwd", m, n, d=d) == -(-n // 64) * ops.small_ranks(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 2048])
+def test_wide_rows_wholly_masked_rows(dev, m):
+    """Every column masked at d = 2048: each row's lse is ref.py's finite
+    -1e30 + log N bit for bit, amax and pos (labels in range) -1e30, and
+    dQ is zero (the split dQ's ranks zero their columns of each tile)."""
+    q = _rand((m, 2048), torch.bfloat16, dev, 63)
+    p = _rand((300, 2048), torch.bfloat16, dev, 64)
+    none = torch.zeros(300, dtype=torch.bool, device=dev)
+    labels = (torch.arange(m, device=dev) % 300).to(torch.int32)
+    ops.reset_launches()
+    lse, pos, amax = ops.fused_infonce_fwd(q, p, labels, none)
+    rl, rp, ra = infonce_stats_ref(q, p, labels, none)
+    assert torch.isfinite(lse).all() and torch.equal(lse, rl)
+    assert torch.equal(amax, ra) and (amax == NEG_INF).all() and torch.equal(pos, rp)
+    g_lse, g_pos = _cotangents(m, dev)
+    dq = ops.fused_infonce_dq(q, p, labels, none, lse, g_lse, g_pos)
+    assert not dq.float().abs().max().item()
+    assert ops.fused_infonce_fwd.paths["hopper"] == 1
+    assert ops.fused_infonce_dq.paths["hopper" if m == 8 else "wmma"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 2048])
+def test_wide_rows_forward_and_dq_every_column_valid_and_their_parent_route(dev, m):
+    """The lm chunk with every column valid, the forward (and dQ at M = 8)
+    on the Hopper path and on the wmma kernels the parent ran
+    (``stats_on_path``, ``grad_on_path``, which count no launch): the
+    statistics within 1e-5 of the largest |logit|, dQ within 1e-2 of the
+    largest reference gradient."""
+    q = _rand((m, 2048), torch.bfloat16, dev, 65)
+    p = _rand((N_PATH, 2048), torch.bfloat16, dev, 66)
+    labels = (torch.arange(m, device=dev) + (0 if m == 8 else 16)).to(torch.int32)
+    g_lse, g_pos = _cotangents(m, dev)
+    rl, rp, ra = infonce_stats_ref(q, p, labels, None)
+    tol = 1e-5 * max(1.0, torch.cat([rp, ra]).abs().max().item())
+    ops.reset_launches()
+    for route, stats in (("hopper", ops.fused_infonce_fwd(q, p, labels, None)),
+                         ("wmma", ops.stats_on_path("wmma", q, p, labels, None))):
+        for x, r, name in zip(stats, (rl, rp, ra), ("lse", "pos", "amax")):
+            assert (x - r).abs().max().item() <= tol, (route, name)
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    if m == 8:
+        lse = ops.fused_infonce_fwd(q, p, labels, None)[0]
+        rdq = infonce_stats_vjp_ref(q, p, labels, None, g_lse, g_pos)[0]
+        _close(ops.fused_infonce_dq(q, p, labels, None, lse, g_lse, g_pos), rdq, 1e-2, "dq")
+        _close(ops.grad_on_path("dq", "wmma", q, p, labels, None, lse, g_lse, g_pos), rdq, 1e-2,
+               "dq on the wmma path")
+        assert ops.fused_infonce_dq.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+
+
+@pytest.mark.cuda
+def test_split_fwd_and_dq_need_their_ranks(dev):
+    """As for dP: past SMALL_D_MAX the library refuses a forward or dQ of
+    up to 16 rows in one rank, or in shares above 16 chunks, and the
+    wrapper raises on a refused launch."""
+    q = _rand((8, 2048), torch.bfloat16, dev, 67)
+    p = _rand((300, 2048), torch.bfloat16, dev, 68)
+    labels = torch.arange(8, dtype=torch.int32, device=dev)
+    g_lse, g_pos = _cotangents(8, dev)
+    lse = ops.fused_infonce_fwd(q, p, labels, None)[0]
+    lib, stream = ops._library(), torch.cuda.current_stream().cuda_stream
+    stats = [torch.empty(8, device=dev) for _ in range(3)]
+    part = torch.empty((3, 8, 5), device=dev)
+    partial = torch.empty((5, 8, 2048), device=dev)
+    out = torch.empty_like(q)
+    for ranks in (1, 9):
+        err = lib.fused_infonce_fwd_hopper_launch(
+            q.data_ptr(), p.data_ptr(), labels.data_ptr(), None,
+            *(t.data_ptr() for t in stats), part.data_ptr(), 8, 300, 2048, 0, ranks, 1.0, stream)
+        assert err != 0, ("fwd", ranks)
+        err = lib.fused_infonce_dq_hopper_launch(
+            q.data_ptr(), p.data_ptr(), labels.data_ptr(), None, lse.data_ptr(),
+            g_lse.data_ptr(), g_pos.data_ptr(), out.data_ptr(), partial.data_ptr(), 8, 300, 2048,
+            ranks, 1.0, stream)
+        assert err != 0, ("dq", ranks)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._raise_on(err, "fused_infonce dq (Hopper)", lib)
