@@ -50,9 +50,10 @@ Phases, one JSON line each:
                and v the strided splits of one fused qkv tensor), a row with
                every key masked, an fp32 case, the LM prefill shapes no
                path runs yet (internlm2-1.8b: S=4096, H=16, Hk=8, D=128;
-               stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16) and the
+               stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16), the
                lm phase's passes (B=8, S=32 and 256, H=16, Hk=8, D=128,
-               causal, bf16); kernel
+               causal, bf16) and the lm_train phase's (B=8, S=4096, H=16,
+               Hk=8, D=128, causal, bf16); kernel
                (also with the host's enqueue), plain, library
                (scaled_dot_product_attention) and bound times, TFLOP/s and
                the tile plan at each shape, and the registers, shared
@@ -146,7 +147,26 @@ Phases, one JSON line each:
                against the flash, fused step from the same state and batch.
                Peak memory, step times, a profiled step's busy share and the
                phase's seconds.
-  9. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
+  9. lm_train - causal-LM training: internlm2-1.8b's train_4k cell
+               (launch/steps.py's train program; 256 sequences of 4096
+               tokens a step) at full width, cut to LM_LAYERS of 24 layers,
+               LM_TRAIN_MICRO_BATCHES microbatches of 8 sequences (the
+               config's 4 would not fit one card), attention through the
+               flash kernel (causal GQA at S=4096), remat="full", seeded
+               weights and uniform seeded tokens, LM_TRAIN_STEPS steps.
+               Checks: the first microbatch's lm_loss and gradient through
+               the flash kernel against chunked attention (loss within
+               LM_TRAIN_LOSS_RTOL, each gradient leaf within
+               PARITY_GRAD_RTOL of its largest |g|; the same comparison at
+               the next seed is recorded, not held); the step-0 loss within
+               LM_TRAIN_LOSS_SLACK of ln V + 1/2; finite losses; state.step
+               at LM_TRAIN_STEPS; exactly LM_LAYERS x 2 (remat) x m flash
+               launches a step, all on the Hopper path; no fused_infonce
+               or fused_topk launch. Median step, tokens/s, the model-flops
+               share of the bf16 peak, peak memory, and one microbatch's
+               forward and backward profiled after the steps (kernel ms,
+               busy share, launches, top kernels, the flash kernel's ms).
+ 10. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
                its train_batch cell (B=65536, every published width), with
                each field's vocabulary capped at RECSYS_ROW_CAP rows, for
                RECSYS_STEPS steps on ClickLogGenerator batches: step time,
@@ -295,8 +315,31 @@ LM_STEPS = 6
 LM_D = 2048
 LM_EVAL_KS = (1, 5, 20)
 LM_EVAL_QUERIES = 256
-# the lm phase's attention passes: (B, S, H, Hk, D), causal
-FLASH_LM_RETRIEVER_SHAPES = {"lm_query": (8, 32, 16, 8, 128), "lm_passage": (8, 256, 16, 8, 128)}
+# the attention passes of the lm and lm_train phases: (B, S, H, Hk, D), causal
+FLASH_LM_PATH_SHAPES = {"lm_query": (8, 32, 16, 8, 128), "lm_passage": (8, 256, 16, 8, 128),
+                        "lm_train": (8, 4096, 16, 8, 128)}
+
+# The lm_train phase: internlm2-1.8b's train_4k cell (launch/steps.py's
+# causal-LM train program: 256 sequences of 4096 tokens a step, clip 1.0,
+# then AdamW) at full width through the flash kernel (attention_impl
+# "pallas", remat "full"), seeded weights and seeded uniform tokens, with
+# two cuts: depth LM_LAYERS of 24 (4 layers are 251.7M params plus 379.0M
+# in the embedding and the head; the functional AdamW holds about 11
+# param-sized fp32 buffers at its peak, about 28 GB at 4 layers and 83 GB
+# at 24), and LM_TRAIN_MICRO_BATCHES microbatches in place of the config's
+# 4: the flash op's backward recomputes through autograd of chunked
+# attention (blocks of 256 x 512), which keeps every block's fp32 tiles of
+# a layer alive at once, about 3.2 GB a sequence of 4096 tokens, so 64
+# sequences a microbatch would need about 200 GB and 8 need about 26.
+LM_TRAIN_STEPS = 3
+LM_TRAIN_MICRO_BATCHES = 32
+# flash against chunked attention on the first microbatch: the loss to
+# 2e-3 relative (bf16 hidden states, fp32 logits), each gradient leaf to
+# PARITY_GRAD_RTOL of its largest |g| (the port's bf16 backward allowance)
+LM_TRAIN_LOSS_RTOL = 2e-3
+# the step-0 loss: logits of unit spread after the final RMSNorm (lm_head
+# drawn at std d^-1/2) give a loss near ln V + 1/2; it must lie within this
+LM_TRAIN_LOSS_SLACK = 0.5
 
 # fused_topk at k > 128 (row states in global memory): the k values held
 # against the plain version at the eval_topk and serve_topk shapes
@@ -1021,7 +1064,7 @@ def phase_train(torch, topk_ops):
             require(abs(fz - dn) <= rtol * abs(dn), f"dense vs fused {key}: {fz} vs {dn}")
 
         # the share of a step in the three kernels, from a profile of one step
-        share = profile_step_share(torch, update, state, parity_batch)
+        share = profile_step_share(torch, lambda: update(state, parity_batch))
 
         # a second Trainer on the same directory resumes from the saved step
         resumed = Trainer(dataclasses.replace(tcfg, total_steps=TRAIN_STEPS + 1), update,
@@ -1071,40 +1114,46 @@ def phase_train(torch, topk_ops):
     }, banks
 
 
-def profile_step_share(torch, update, state, batch):
-    """One step under torch.profiler: its wall time, the device time of its
-    kernels (busy share = device / wall), the part in the fused_infonce
-    kernels, and the kernels that take the most device time. The device
-    fields are None where the profile shows no kernel time."""
+def profile_step_share(torch, fn):
+    """``fn()`` once to warm up, then once under torch.profiler (CPU and
+    CUDA activity): its wall time, the device time of its kernels (busy
+    share = device / wall), their launches, the parts in the fused_infonce
+    and flash kernels, and the kernels that take the most device time.
+    Reads the profiler's raw events, which stays seconds where
+    ``key_averages()`` over a long profile takes minutes. The device fields
+    are None where the profile shows no kernel time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    update(state, batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        update(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    kernels = sorted(((key, ms, c) for key, (ms, c) in by_name.items()), key=lambda k: -k[1])
     kernel_ms = sum(ms for _, ms, _ in kernels)
     if kernel_ms <= 0:
         return {"step_wall_ms": wall_ms, "device_ms": None, "infonce_ms": None,
                 "share_of_device": None, "busy_share": None, "flash_ms": None,
                 "top_kernels": [], "infonce_kernels": []}
-    infonce_ms = sum(ms for key, ms, _ in kernels if "infonce" in key)
-    flash_ms = sum(ms for key, ms, _ in kernels if "flash_fwd_kernel" in key)
-    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    infonce = [{"name": key[:80], "ms": ms, "count": c} for key, ms, c in kernels
+               if "infonce" in key]
+    flash = [(ms, c) for key, ms, c in kernels if "flash_fwd_kernel" in key]
+    infonce_ms = sum(k["ms"] for k in infonce)
     return {"step_wall_ms": wall_ms, "device_ms": kernel_ms, "infonce_ms": infonce_ms,
             "share_of_device": infonce_ms / kernel_ms, "busy_share": kernel_ms / wall_ms,
-            "flash_ms": flash_ms, "flash_launches": sum(c for key, _, c in kernels
-                                                        if "flash_fwd_kernel" in key),
+            "flash_ms": sum(ms for ms, _ in flash), "flash_launches": sum(c for _, c in flash),
             "kernel_launches": sum(c for _, _, c in kernels),
-            "top_kernels": [{"name": key[:80], "ms": ms, "count": c} for key, ms, c in top],
-            "infonce_kernels": [{"name": key[:80], "ms": ms, "count": c}
-                                for key, ms, c in sorted(kernels, key=lambda k: -k[1])
-                                if "infonce" in key]}
+            "top_kernels": [{"name": key[:80], "ms": ms, "count": c}
+                            for key, ms, c in kernels[:10]],
+            "infonce_kernels": infonce}
 
 
 def mine_corpus():
@@ -1633,7 +1682,7 @@ def phase_flash_kernels(torch):
             "a row with every key masked does not average the values")   # every p is 1 / Skv
     q, k, v = fused_qkv(b, 256, torch.float32)
     result["fp32"] = check("fp32", q, k, v, kv_mask=ragged(b, 256))
-    for name, (bb, s, hq, hk, d) in {**FLASH_LM_SHAPES, **FLASH_LM_RETRIEVER_SHAPES}.items():
+    for name, (bb, s, hq, hk, d) in {**FLASH_LM_SHAPES, **FLASH_LM_PATH_SHAPES}.items():
         q = rand((bb, s, hq, d), bf16)
         k, v = rand((bb, s, hk, d), bf16), rand((bb, s, hk, d), bf16)
         result[name] = check(name, q, k, v, causal=True)
@@ -1770,7 +1819,7 @@ def phase_flash(torch, topk_ops, topk_ref):
     for key, rtol in (("loss", PARITY_LOSS_RTOL), ("grad_norm", PARITY_GRAD_RTOL)):
         fl, pl = parity[key]
         require(rel_err(fl, pl) <= rtol, f"flash vs plain towers {key}: {fl} vs {pl}")
-    share = profile_step_share(torch, update, state, parity_batch)
+    share = profile_step_share(torch, lambda: update(state, parity_batch))
     # the profile finds the kernel by its symbol: a renamed kernel reads 0
     require(bool(share.get("flash_launches")) and bool(share.get("flash_ms")),
             f"the profiled flash step shows no flash_fwd_kernel time: {share}")
@@ -1882,7 +1931,7 @@ def phase_lm(torch, topk_ops):
             a, b = parity["flash_fused"][key], parity[other][key]
             rel[f"{other}_{key}"] = rel_err(a, b)
             require(rel_err(a, b) <= rtol, f"lm step: flash, fused vs {other} {key}: {a} vs {b}")
-    share = profile_step_share(torch, update, state, parity_batch)
+    share = profile_step_share(torch, lambda: update(state, parity_batch))
     require(bool(share.get("flash_launches")) and bool(share.get("flash_ms")),
             f"the profiled lm step shows no flash_fwd_kernel time: {share}")
     # the loss kernels of the profiled step by name: none of the wmma kernels
@@ -1939,6 +1988,164 @@ def phase_lm(torch, topk_ops):
         "eval": recalls, "eval_s": eval_s, "eval_fused_topk_launches": eval_launches,
         "eval_fused_topk_paths": eval_paths,
         "eval_flash_launches": flash_ops.flash_attention.launches,
+    }
+
+
+def phase_lm_train(torch):
+    """The causal-LM train cell of launch/steps.py (internlm2-1.8b train_4k)
+    at full width, LM_LAYERS of 24 layers, through the flash kernel: the
+    loss and its gradient held against chunked attention on one microbatch,
+    then LM_TRAIN_STEPS steps, then one microbatch profiled."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.common.treemath import tree_leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_infonce import ops as infonce_ops
+    from repro_torch.kernels.fused_topk import ops as topk_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model_cfg, n_layers=LM_LAYERS,
+                              attention_impl=FLASH_IMPL, remat="full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prog = steps.build_cell(LM_ARCH, "train_4k", DEVICE, model_cfg=cfg,
+                            micro_batches=LM_TRAIN_MICRO_BATCHES)
+    info, cell = prog.static_info, get_arch(LM_ARCH).shapes["train_4k"].params
+    m, shape = info["microbatches"], tuple(prog.args[1].shape)
+    require(m == LM_TRAIN_MICRO_BATCHES and shape == (m, cell["global_batch"] // m,
+                                                      cell["seq_len"]),
+            f"train_4k inputs are {shape}")
+    state = prog.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+
+    def next_tokens(rng, size):
+        tokens = rng.integers(0, cfg.vocab_size, size=size, dtype=np.int32)
+        targets = np.roll(tokens, -1, axis=-1)
+        targets[..., -1] = -1
+        return torch.from_numpy(tokens).to(DEVICE), torch.from_numpy(targets).to(DEVICE)
+
+    rng = np.random.default_rng(SEED)
+    batches = [next_tokens(rng, shape) for _ in range(LM_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # one microbatch's lm_loss forward and backward, as the train step runs it
+    def loss_and_grads(c, params, tokens, targets):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = lm.lm_loss(leaves, c, tokens, targets)
+        loss.backward()
+        return loss.item(), [t.grad for t in tree_leaves(leaves)]
+
+    def flash_vs_chunked(params, tokens, targets):
+        """The loss through flash and through chunked attention, and each
+        gradient leaf's largest difference over its largest |g|."""
+        fl, fg = loss_and_grads(cfg, params, tokens, targets)
+        cl, cg = loss_and_grads(dataclasses.replace(cfg, attention_impl="chunked"), params,
+                                tokens, targets)
+        return fl, cl, [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(fg, cg)]
+
+    # the first microbatch: flash against chunked attention on the same
+    # params and tokens (launches not counted)
+    flash_loss, chunked_loss, grad_errs = flash_vs_chunked(state.params, batches[0][0][0],
+                                                           batches[0][1][0])
+    require(math.isfinite(flash_loss)
+            and rel_err(flash_loss, chunked_loss) <= LM_TRAIN_LOSS_RTOL,
+            f"lm_loss through flash {flash_loss} vs chunked {chunked_loss}")
+    require(max(grad_errs) <= PARITY_GRAD_RTOL,
+            f"lm_loss gradient through flash vs chunked: {grad_errs} of the largest |g|")
+    # the same comparison with params and tokens of the next seed: the
+    # check's headroom, recorded and not held to the limit
+    seed2 = lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 1), device=DEVICE)
+    seed2_loss, seed2_chunked, seed2_errs = flash_vs_chunked(
+        seed2, *next_tokens(np.random.default_rng(SEED + 1), shape[1:]))
+    del seed2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: LM_TRAIN_STEPS steps of the cell
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.reset_launches()
+    infonce_ops.reset_launches()
+    topk_ops.reset_launches()
+    losses, times, launches_per_step = [], [], []
+    for i, (tokens, targets) in enumerate(batches):
+        before = flash_ops.flash_attention.launches
+        t1 = time.perf_counter()
+        state, metrics = prog.fn(state, tokens, targets)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t1)
+        launches_per_step.append(flash_ops.flash_attention.launches - before)
+        print(f"[lm_train] step {i}: {times[-1]:.3f} s, loss {losses[-1]:.5f}", file=sys.stderr,
+              flush=True)
+    torch.cuda.synchronize()
+    flash_launches = flash_ops.flash_attention.launches      # read just after the run
+    flash_paths = dict(flash_ops.flash_attention.paths)
+    other = {"fused_infonce": sum(getattr(infonce_ops, f"fused_infonce_{k}").launches
+                                  for k in ("fwd", "dq", "dp")),
+             "fused_topk": topk_ops.fused_topk.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    final_step = int(state.step)
+
+    # where the time goes: one microbatch of a step (m of them, then clip
+    # and AdamW) under the profiler; a whole step is ~1.3M launches
+    t1 = time.perf_counter()
+    profile = profile_step_share(torch, lambda: loss_and_grads(
+        cfg, state.params, batches[0][0][0], batches[0][1][0]))
+    profile_s = time.perf_counter() - t1
+    del state, batches, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    want_loss = math.log(cfg.vocab_size) + 0.5
+    require(all(math.isfinite(x) for x in losses), f"non-finite lm_train loss {losses}")
+    require(abs(losses[0] - want_loss) <= LM_TRAIN_LOSS_SLACK,
+            f"step-0 loss {losses[0]} is not within {LM_TRAIN_LOSS_SLACK} of {want_loss}")
+    require(final_step == LM_TRAIN_STEPS, f"state.step is {final_step}")
+    per_step = LM_LAYERS * 2 * m         # forward and remat recompute, each microbatch
+    require(launches_per_step == [per_step] * LM_TRAIN_STEPS,
+            f"flash_attention launched {launches_per_step} a step, not {per_step}")
+    require(flash_paths["hopper"] == flash_launches,
+            f"flash_attention took {flash_paths}, not all the bf16 Hopper kernel")
+    require(other == {"fused_infonce": 0, "fused_topk": 0}, f"lm_train launched {other}")
+    # the profile finds the kernel by its symbol: a renamed kernel reads 0
+    require(bool(profile.get("flash_launches")) and bool(profile.get("flash_ms")),
+            f"the profiled lm_train microbatch shows no flash_fwd_kernel time: {profile}")
+    step_s = statistics.median(times)
+    tokens_per_step = info["tokens_per_step"]
+    return {
+        "model": f"{LM_ARCH} causal LM (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+                 f"{cfg.n_kv_heads} KV heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab "
+                 f"{cfg.vocab_size}; {LM_LAYERS} of 24 layers; seeded init; remat full; "
+                 f"attention {FLASH_IMPL})",
+        "cell": "train_4k", "steps": LM_TRAIN_STEPS, "microbatches": m,
+        "microbatch_shape": list(shape[1:]), "tokens_per_step": tokens_per_step,
+        "params": info["params"], "model_flops": info["model_flops"], "setup_s": setup_s,
+        "parity": {"flash_loss": flash_loss, "chunked_loss": chunked_loss,
+                   "loss_rel_err": rel_err(flash_loss, chunked_loss),
+                   "grad_err_of_max": max(grad_errs), "grad_errs_by_leaf": grad_errs,
+                   "seed2": {"flash_loss": seed2_loss, "chunked_loss": seed2_chunked,
+                             "loss_rel_err": rel_err(seed2_loss, seed2_chunked),
+                             "grad_err_of_max": max(seed2_errs),
+                             "grad_errs_by_leaf": seed2_errs}},
+        "losses": losses, "step0_loss_expected": want_loss, "step_times_s": times,
+        "median_step_s": step_s,
+        "tokens_per_s": tokens_per_step / step_s,
+        "model_flops_share": info["model_flops"] / step_s / PEAK_BF16_FLOPS,
+        "max_memory_allocated": peak_bytes, "flash_attention_launches": flash_launches,
+        "flash_launches_per_step": per_step, "flash_attention_paths": flash_paths,
+        "other_launches": other,
+        # the profile is of one microbatch; a step runs m of them, and its
+        # flash launches are counted (the profiler can miss an event)
+        "profile": {"scope": "one microbatch: lm_loss forward and backward", **profile},
+        "profile_s": profile_s,
+        "flash_ms_per_step": profile["flash_ms"] / profile["flash_launches"] * per_step,
+        "microbatch_kernels_share_of_step": m * profile["device_ms"] / (step_s * 1e3),
     }
 
 
@@ -2110,8 +2317,7 @@ def phase_recsys(torch):
     peak_bytes = torch.cuda.max_memory_allocated()
     # where a step's device time goes: one more step under the profiler (its
     # result is dropped, so the checks below see the 20 steps only)
-    profile = profile_step_share(torch, lambda s, batch: prog.fn(s, *batch), state,
-                                 (dense, sparse, labels))
+    profile = profile_step_share(torch, lambda: prog.fn(state, dense, sparse, labels))
     require(all(math.isfinite(r["loss"]) for r in rows), "non-finite recsys loss")
     moved = (state.params["table"] != table0.to(DEVICE)).any(1)
     n_touched = int(touched.sum().item())
@@ -2302,6 +2508,11 @@ def main(argv=None) -> int:
     emit({"phase": "lm", **lm, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
     t0 = time.perf_counter()
+    lm_train = phase_lm_train(torch)
+    emit({"phase": "lm_train", **lm_train, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
     recsys = phase_recsys(torch)
     emit({"phase": "recsys", **recsys, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
@@ -2360,7 +2571,8 @@ def main(argv=None) -> int:
     # flash_attention at the BERT passage pass (the phase line has every shape)
     fa = flash_k["bert_passage"]
     flash_by_path = {"flash_train": flash["train"]["flash_attention_launches"],
-                     "lm": lm["flash_attention_launches"]}
+                     "lm": lm["flash_attention_launches"],
+                     "lm_train": lm_train["flash_attention_launches"]}
     lines.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -2375,7 +2587,7 @@ def main(argv=None) -> int:
                              "D": flash_k[name]["D"], "causal": True,
                              "tiles": flash_k[name]["tiles"],
                              **{key: flash_k[name][key] for key in timed}}
-           for name in FLASH_LM_RETRIEVER_SHAPES},
+           for name in FLASH_LM_PATH_SHAPES},
     })
     # embedding_bag at the dcn-v2 stacked table; no path of the port calls it
     # (the recsys models gather, as in JAX), so its launches are the kernels

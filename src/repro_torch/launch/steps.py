@@ -1,7 +1,9 @@
-"""Cell programs, the recsys part of ``repro.launch.steps`` on one device:
-(architecture x shape cell x device) -> a step function plus stand-ins of its
-inputs.
+"""Cell programs, the LM train and recsys parts of ``repro.launch.steps`` on
+one device: (architecture x shape cell x device) -> a step function plus
+stand-ins of its inputs.
 
+  train             LM causal-LM training step (microbatched gradient
+                    accumulation, clip 1.0, then AdamW)
   recsys_train      DLRM/DCN/DeepFM BCE training step (clip 1.0, then AdamW)
   recsys_serve      forward scoring
   recsys_retrieval  1 query x 1M candidates, factorized scoring
@@ -16,10 +18,14 @@ leaves to its callers. With one device there is no mesh, so the
 psum-scatter lookup stays off (``lookup_fn`` None); on one device it gives
 the values of the plain gather.
 
-Not yet ported: the LM cells (the registered internlm2-1.8b and stablelm-3b
-run as retriever towers, ``models.towers.make_lm_dual_encoder``; their
-train, prefill and decode cells are ROADMAP A9b), the MoE and SchNet cells
-(A9c/A9e) and the contrastive and retrieval cells of dpr-bert-base (A10).
+The LM train cell's microbatch count follows the JAX package's rule on one
+device: the ArchSpec's ``micro_batches`` entry, capped at the batch and
+lowered until it divides it; ``build_cell(..., micro_batches=)`` replaces
+that entry (a smaller microbatch to fit one card).
+
+Not yet ported: the LM prefill and decode cells (ROADMAP A9b), the MoE and
+SchNet cells (A9c/A9e) and the contrastive and retrieval cells of
+dpr-bert-base (A10).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from repro_torch.common.treemath import tree_map
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.core.device import resolve_device
+from repro_torch.models.lm import LMConfig, init_lm, lm_loss
 from repro_torch.models.recsys import (
     RecsysConfig,
     bce_loss,
@@ -78,6 +85,69 @@ def _make_tx(arch_id: str, *, lr: float = 3e-4, clip: float = 1.0):
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=_META)
+
+
+# ---------------------------------------------------------------- LM: train
+def _lm_flops(cfg: LMConfig, tokens: int, *, train: bool) -> float:
+    """6ND (2ND without the backward) plus the attention term, as the JAX
+    package counts it: its comment names 2 * 2 * S * tokens * H * dh, halved
+    for the causal mask, but the term it computes has no factor S."""
+    n = cfg.active_param_count()
+    mult = 6.0 if train else 2.0
+    attn = 2.0 * tokens * cfg.n_heads * cfg.dh * cfg.n_layers
+    return mult * n * tokens + (3.0 if train else 1.0) * attn
+
+
+def _lm_train_program(arch: ArchSpec, cell: ShapeCell, device: torch.device) -> CellProgram:
+    cfg: LMConfig = arch.model_cfg
+    B, S = cell.params["global_batch"], cell.params["seq_len"]
+    # microbatch count: the config's, kept a divisor of the batch
+    m = max(1, min(arch.micro_batch(cell.name), B))
+    while B % m:
+        m -= 1
+    i32 = torch.int32
+    tx = _make_tx(arch.arch_id)
+    params_meta = init_lm(cfg, torch.Generator(), device=_META)
+    state_meta = TrainState(step=_meta((), i32), params=params_meta, opt=tx.init(params_meta))
+
+    def init_state(generator: torch.Generator) -> TrainState:
+        params = init_lm(cfg, generator, device=device)
+        return TrainState(torch.zeros((), dtype=i32, device=device), params, tx.init(params))
+
+    def train_step(state_: TrainState, tokens, targets):
+        # tokens, targets: (m, B // m, S), microbatch-major. Each backward
+        # adds its gradients into the leaves' .grad (in the params' fp32),
+        # and the sum is scaled once: JAX's tree_add, then tree_scale.
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), state_.params)
+        losses = []
+        for tk, tg in zip(tokens, targets):
+            with torch.enable_grad():
+                loss, _ = lm_loss(leaves, cfg, tk, tg)
+                loss.backward()
+            losses.append(loss.detach())
+        grads = tree_map(
+            lambda leaf: torch.zeros_like(leaf) if leaf.grad is None else leaf.grad.mul_(1.0 / m),
+            leaves,
+        )
+        with torch.no_grad():
+            updates, opt = tx.update(grads, state_.opt, state_.params)
+            new_params = apply_updates(state_.params, updates)
+        return TrainState(state_.step + 1, new_params, opt), {
+            "loss": torch.stack(losses).mean(),
+        }
+
+    return CellProgram(
+        arch_id=arch.arch_id, shape_name=cell.name, kind="train", fn=train_step,
+        args=(state_meta, _meta((m, B // m, S), i32), _meta((m, B // m, S), i32)),
+        static_info={
+            "model_flops": _lm_flops(cfg, B * S, train=True),
+            "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(),
+            "microbatches": m,
+            "tokens_per_step": B * S,
+        },
+        init=init_state,
+    )
 
 
 # ------------------------------------------------------------------- recsys
@@ -194,7 +264,7 @@ def _not_yet(item: str):
 
 
 _BUILDERS = {
-    "train": _not_yet("A9b"),
+    "train": _lm_train_program,
     "prefill": _not_yet("A9b"),
     "decode": _not_yet("A9b"),
     "gnn_full": _not_yet("A9e"),
@@ -215,9 +285,12 @@ def build_cell(
     device: Union[None, str, torch.device] = "cuda",
     *,
     model_cfg: Any = None,
+    micro_batches: Optional[int] = None,
 ) -> CellProgram:
     """The cell's program on ``device`` (CUDA unless ``device="cpu"``).
-    ``model_cfg`` replaces the arch's config, e.g. with capped vocabularies."""
+    ``model_cfg`` replaces the arch's config, e.g. with capped vocabularies
+    or fewer layers; ``micro_batches`` replaces the arch's microbatch count
+    for this shape (``ArchSpec.micro_batches``)."""
     arch = get_arch(arch_id)
     if shape_name not in arch.shapes:
         raise KeyError(
@@ -226,6 +299,9 @@ def build_cell(
     dev = resolve_device(device)
     if model_cfg is not None:
         arch = dataclasses.replace(arch, model_cfg=model_cfg)
+    if micro_batches is not None:
+        arch = dataclasses.replace(
+            arch, micro_batches={**arch.micro_batches, shape_name: micro_batches})
     cell = arch.shapes[shape_name]
     return _BUILDERS[cell.kind](arch, cell, dev)
 

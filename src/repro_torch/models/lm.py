@@ -1,6 +1,8 @@
-"""Decoder-only causal LM as the backbone of a retriever (GTR/E5 style), the
-part of ``repro.models.lm`` that the LM dual encoder runs: ``LMConfig``,
-``init_lm``, ``_block``, ``_remat_wrap``, ``backbone`` and ``encode_pooled``.
+"""Decoder-only causal LM, the part of ``repro.models.lm`` that the LM dual
+encoder and the causal-LM train cell run: ``LMConfig``, ``init_lm``,
+``_block``, ``_remat_wrap``, ``backbone``, ``encode_pooled`` (the backbone
+of a retriever, GTR/E5 style), the LM head ``_head`` and the chunked
+next-token cross entropy ``lm_loss``.
 
 Modern pre-norm transformer: RMSNorm, RoPE (split halves), GQA attention
 through ``models.attention.attention`` (causal, no key mask), SwiGLU FFN,
@@ -17,9 +19,15 @@ drives both packages and the values do not depend on it. ``remat``:
 and recomputes the rest (selective checkpointing; JAX's
 ``dots_with_no_batch_dims_saveable``).
 
-Not here yet: the LM head, ``lm_loss``, ``KVCache``, ``prefill`` and
-``decode_step`` (ROADMAP A9b), and MoE layers (``LMConfig.moe``; A9c), for
-which ``init_lm`` and ``_block`` raise.
+``lm_loss`` builds the logits ``loss_chunk`` positions of the sequence at a
+time, each chunk under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``
+of the scanned chunk), so neither (B, S, V) nor any chunk's (B, c, V)
+logits are kept for the backward. Where JAX asserts ``S % c == 0`` the port
+raises ``ValueError``.
+
+Not here yet: ``KVCache``, ``prefill`` and ``decode_step`` (ROADMAP A9b),
+and MoE layers (``LMConfig.moe``; A9c), for which ``init_lm`` and
+``_block`` raise.
 """
 
 from __future__ import annotations
@@ -108,14 +116,18 @@ def init_lm(
     device: Union[None, str, torch.device] = "cuda",
 ):
     """Random weights drawn from ``generator`` on its own device and placed
-    on ``device`` (CUDA unless ``device="cpu"``), in ``cfg.param_dtype``."""
+    on ``device`` (CUDA unless ``device="cpu"``), in ``cfg.param_dtype``.
+    ``device="meta"`` gives the tree's shapes and types, allocating and
+    drawing nothing (a cell's stand-in inputs)."""
     _require_dense(cfg)
-    device = resolve_device(device)
+    meta = device is not None and torch.device(device).type == "meta"
+    device = torch.device("meta") if meta else resolve_device(device)
+    draw_on = device if meta else generator.device
     d, dh, h, hk = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
     nl, pd = cfg.n_layers, cfg.param_dtype
 
     def normal(shape, std):
-        w = torch.randn(shape, generator=generator, device=generator.device) * std
+        w = torch.randn(shape, generator=generator, device=draw_on) * std
         return w.to(device=device, dtype=pd)
 
     def stack(shape, fan_in):
@@ -269,3 +281,52 @@ def encode_pooled(params, cfg: LMConfig, tokens: torch.Tensor,
         return x.mean(dim=1)
     m = mask.to(x.dtype)[..., None]
     return (x * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+
+
+def _head_weight(params, cfg: LMConfig) -> torch.Tensor:
+    """(d, V) in the compute dtype: ``embed.T`` under ``tie_embeddings``,
+    else ``lm_head``."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return w.to(cfg.dtype)
+
+
+def _head(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits (..., V) in the compute dtype: bf16 logits are rounded to bf16,
+    as JAX's are, before any caller widens them."""
+    return x @ _head_weight(params, cfg)
+
+
+def _chunk_loss(w: torch.Tensor, xc: torch.Tensor, tc: torch.Tensor):
+    """(sum of the masked token losses, count of targets >= 0) of one chunk:
+    xc (B, c, d), tc (B, c) with -1 for padding. The (B, c, V) fp32 logits
+    live only inside this call."""
+    logits = (xc @ w).to(STATS_DTYPE)
+    lse = torch.logsumexp(logits, dim=-1)
+    pos = torch.gather(logits, -1, torch.clamp(tc, min=0).long()[..., None])[..., 0]
+    mask = (tc >= 0).to(STATS_DTYPE)
+    return ((lse - pos) * mask).sum(), mask.sum()
+
+
+def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor):
+    """Chunked next-token cross entropy. tokens, targets: (B, S); a target of
+    -1 is padding (masked out). Returns (mean token loss + MoE aux,
+    {"lm_loss", "moe_aux", "tokens"}). The logits are built ``loss_chunk``
+    positions at a time, each chunk recomputed in the backward instead of
+    kept (``torch.utils.checkpoint``), so (B, S, V) never materialises."""
+    x, moe_aux, _ = backbone(params, cfg, tokens)
+    b, s, _ = x.shape
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"seq_len {s} is not a multiple of loss_chunk {c}")
+    w = _head_weight(params, cfg)
+    loss_sum = torch.zeros((), dtype=STATS_DTYPE, device=x.device)
+    count = torch.zeros((), dtype=STATS_DTYPE, device=x.device)
+    for i0 in range(0, s, c):
+        xc, tc = x[:, i0 : i0 + c], targets[:, i0 : i0 + c]
+        if torch.is_grad_enabled():
+            part, n = checkpoint(_chunk_loss, w, xc, tc, use_reentrant=False)
+        else:
+            part, n = _chunk_loss(w, xc, tc)
+        loss_sum, count = loss_sum + part, count + n
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    return loss + moe_aux, {"lm_loss": loss, "moe_aux": moe_aux, "tokens": count}

@@ -1,8 +1,11 @@
 """The LM retriever's blocks with the flash kernel (``attention_impl="pallas"``)
 against the same blocks with chunked attention, on the card, at
 internlm2-1.8b's width (d_model 2048, 16 heads, 8 KV heads of 128, d_ff
-8192) and the retriever's passes (B=8, S=32 and 256, causal, bf16). Marked
-``cuda``: without a GPU (and nvcc) every test here skips. Imports no JAX.
+8192) and the retriever's passes (B=8, S=32 and 256, causal, bf16); and
+the causal-LM train cell (``lm_loss``, ``launch.steps._lm_train_program``)
+at a small internlm2 (2 layers, d_model 256, its 16 heads and 8 KV heads
+of 128, vocab 1024, S=512). Marked ``cuda``: without a GPU (and nvcc)
+every test here skips. Imports no JAX.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_lm_cuda.py
 
@@ -13,7 +16,16 @@ ulp of the largest |output| (the attention's probabilities are rounded to
 bf16 per tile in the kernel and after normalising in the chunked path; the
 rest of the block is the same ops). Gradients (the flash op's backward
 recomputes through chunked attention): global norm within 2e-2 relative,
-as chip_smoke.py holds a flash train step to a plain one.
+as chip_smoke.py holds a flash train step to a plain one. ``lm_loss``
+through the flash kernel against chunked attention: the loss within 2e-3
+relative and each gradient leaf within 2e-2 of its largest |g| (the
+port's bf16 backward allowance; chip_smoke.py's lm_train phase holds the
+full-width cell to the same). One fp32 train-cell step on the card against
+the CPU: the loss within 1e-4 relative, AdamW's first moment (a tenth of
+the clipped gradient) within 1e-4 of its largest entry, and the params
+within 1e-4 relative plus 1e-3 of the largest move (a step moves a param
+by about lr whatever the size of its gradient, so an element whose
+gradient is near 0 may move either way).
 """
 
 import dataclasses
@@ -22,8 +34,10 @@ import math
 import pytest
 import torch
 
-from repro_torch.common.treemath import tree_global_norm, tree_leaves
+from repro_torch.common.treemath import tree_global_norm, tree_leaves, tree_map
 from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import steps
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -104,3 +118,85 @@ def test_lm_towers_launch_the_kernel_per_layer_on_the_hopper_path(dev):
         chunked = make_lm_dual_encoder(dataclasses.replace(cfg, attention_impl="chunked"),
                                        precision="bf16_banks").encode_passage(params, tokens)
     torch.testing.assert_close(reps.detach().float(), chunked.float(), rtol=0, atol=0.05)
+
+
+LOSS_RTOL = 2e-3
+SMALL_LM = dataclasses.replace(INTERNLM2, n_layers=2, d_model=256, d_ff=512, vocab_size=1024,
+                               remat="full")
+SMALL_CELL = ShapeCell("train_4k", "train", {"seq_len": 512, "global_batch": 8})
+
+
+def _next_token_batch(shape, seed, device):
+    tokens = torch.randint(0, SMALL_LM.vocab_size, shape,
+                           generator=torch.Generator().manual_seed(seed), dtype=torch.int32)
+    targets = torch.roll(tokens, -1, dims=-1)
+    targets[..., -1] = -1
+    return tokens.to(device), targets.to(device)
+
+
+def _loss_and_grads(cfg, params, tokens, targets):
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = lm.lm_loss(leaves, cfg, tokens, targets)
+    loss.backward()
+    return loss.item(), [t.grad for t in tree_leaves(leaves)]
+
+
+@pytest.mark.cuda
+def test_lm_loss_with_flash_matches_chunked(dev):
+    """The chunked LM loss and its gradient with the flash kernel (forward
+    and remat recompute: 2 launches a layer, on the Hopper path) against
+    chunked attention on the same card, params and tokens."""
+    cfg = dataclasses.replace(SMALL_LM, attention_impl="pallas")
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens, targets = _next_token_batch((4, 512), 1, dev)
+    ops.reset_launches()
+    loss, grads = _loss_and_grads(cfg, params, tokens, targets)
+    assert ops.flash_attention.launches == ops.flash_attention.paths["hopper"] == 2 * cfg.n_layers
+    want, want_grads = _loss_and_grads(dataclasses.replace(cfg, attention_impl="chunked"),
+                                       params, tokens, targets)
+    assert math.isfinite(loss) and abs(loss - want) <= LOSS_RTOL * abs(want), (loss, want)
+    for g, w in zip(grads, want_grads):
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= GRAD_RTOL * scale, ((g - w).abs().max().item(), scale)
+
+
+@pytest.mark.cuda
+def test_train_cell_step_on_the_card_matches_the_cpu_fp32(dev):
+    """One step of the train cell (4 microbatches of 2) in fp32 with chunked
+    attention, on the card and on the CPU from the same params."""
+    arch = dataclasses.replace(get_arch("internlm2-1.8b"), model_cfg=dataclasses.replace(
+        SMALL_LM, dtype=torch.float32, attention_impl="chunked"))
+    states, metrics = [], []
+    for device in (dev, torch.device("cpu")):
+        prog = steps._lm_train_program(arch, SMALL_CELL, device)
+        state = prog.init(torch.Generator().manual_seed(0))      # drawn on the CPU
+        state, m = prog.fn(state, *_next_token_batch(tuple(prog.args[1].shape), 2, device))
+        states.append(state)
+        metrics.append(m["loss"].item())
+    assert int(states[0].step) == 1
+    assert abs(metrics[0] - metrics[1]) <= 1e-4 * abs(metrics[1]), metrics
+    gpu, cpu = states
+    start = lm.init_lm(arch.model_cfg, torch.Generator().manual_seed(0), "cpu")
+    mu_gpu, mu_cpu = gpu.opt[1].mu, cpu.opt[1].mu
+    for a, b in zip(tree_leaves(mu_gpu), tree_leaves(mu_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * b.abs().max().item())
+    for a, b, p0 in zip(tree_leaves(gpu.params), tree_leaves(cpu.params), tree_leaves(start)):
+        moved = (b - p0).abs().max().item()
+        assert moved > 0
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-3 * moved)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_the_kernel_per_layer_and_microbatch(dev):
+    """A bf16 train step with the flash kernel under remat="full": n_layers
+    x 2 (forward, recompute) x m launches, all on the Hopper path."""
+    arch = dataclasses.replace(get_arch("internlm2-1.8b"),
+                               model_cfg=dataclasses.replace(SMALL_LM, attention_impl="pallas"))
+    prog = steps._lm_train_program(arch, SMALL_CELL, dev)
+    m = prog.static_info["microbatches"]
+    state = prog.init(torch.Generator(device=dev).manual_seed(0))
+    ops.reset_launches()
+    state, metrics = prog.fn(state, *_next_token_batch(tuple(prog.args[1].shape), 3, dev))
+    want = SMALL_LM.n_layers * 2 * m
+    assert ops.flash_attention.launches == ops.flash_attention.paths["hopper"] == want
+    assert math.isfinite(metrics["loss"].item()) and int(state.step) == 1
