@@ -53,7 +53,8 @@ Phases, one JSON line each:
                stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16), the
                lm phase's passes (B=8, S=32 and 256, H=16, Hk=8, D=128,
                causal, bf16) and the lm_train phase's (B=8, S=4096, H=16,
-               Hk=8, D=128, causal, bf16); kernel
+               Hk=8, D=128, causal, bf16; the lm_serve phase checks and
+               times S=32768); kernel
                (also with the host's enqueue), plain, library
                (scaled_dot_product_attention) and bound times, TFLOP/s and
                the tile plan at each shape, and the registers, shared
@@ -166,7 +167,32 @@ Phases, one JSON line each:
                share of the bf16 peak, peak memory, and one microbatch's
                forward and backward profiled after the steps (kernel ms,
                busy share, launches, top kernels, the flash kernel's ms).
- 10. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
+ 10. lm_serve - LM serving: internlm2-1.8b's prefill_32k and decode_32k
+               cells (launch/steps.py's prefill and decode programs) at full
+               width and all 24 layers, both batches cut to LM_SERVE_BATCH
+               sequences of 32768 tokens (the KV cache: 25.8 GB), attention
+               through the flash kernel (causal GQA at S=32768), seeded
+               weights and uniform seeded tokens: the prefill cell's fn
+               timed LM_SERVE_PREFILL_RUNS times after a warm-up; a prompt
+               of LM_SERVE_PROMPT tokens prefilled into 32768 slots and
+               LM_SERVE_DECODE teacher-forced decode steps through the
+               decode cell's fn, each timed; one forward over all the
+               tokens, its logits at the generation's positions only; the
+               flash kernel at (8, 32768, 16, 8, 128) held to its plain
+               version on its first and last FLASH_SERVE_ROWS query rows,
+               timed beside scaled_dot_product_attention and its bound;
+               one decode step and one prefill profiled. Checks: the
+               generation's logits against the forward's (mean and largest
+               |difference| within LM_SERVE_TF_MEAN and LM_SERVE_TF_MAX),
+               every logit finite, cache.length at prompt + decode steps,
+               the cache's data_ptr unchanged by the decode, exactly 24
+               flash launches a prefill or forward and none a decode step,
+               all on the Hopper path, no fused_infonce or fused_topk
+               launch, peak memory under LM_SERVE_PEAK_BYTES. Prefill
+               seconds, tokens/s and model-flops share; decode ms a token,
+               tokens/s, byte share, the plain decode attention's ms a layer
+               and the params' cast; top-1 agreement; peak memory.
+ 11. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
                its train_batch cell (B=65536, every published width), with
                each field's vocabulary capped at RECSYS_ROW_CAP rows, for
                RECSYS_STEPS steps on ClickLogGenerator batches: step time,
@@ -340,6 +366,39 @@ LM_TRAIN_LOSS_RTOL = 2e-3
 # the step-0 loss: logits of unit spread after the final RMSNorm (lm_head
 # drawn at std d^-1/2) give a loss near ln V + 1/2; it must lie within this
 LM_TRAIN_LOSS_SLACK = 0.5
+
+# The lm_serve phase: internlm2-1.8b's prefill_32k and decode_32k cells
+# (launch/steps.py's prefill and decode programs) at full width and full
+# depth (24 layers, 1,889,208,320 params, 7.56 GB in fp32; no optimizer)
+# through the flash kernel (causal GQA at S = 32768), seeded weights and
+# seeded uniform tokens, one cut: both global batches (prefill_32k's 32,
+# decode_32k's 128) to LM_SERVE_BATCH sequences. The cache is 4 KiB a token
+# a layer (k and v of 8 KV heads of 128 in bf16): 25.8 GB at 8 sequences of
+# 32768 slots, 103 GB at 32 and 412 GB at 128.
+LM_SERVE_BATCH = 8
+LM_SERVE_PREFILL_RUNS = 3
+# the generation: a prompt of LM_SERVE_PROMPT tokens prefilled into a cache
+# of the cell's 32768 slots, then LM_SERVE_DECODE decode steps fed the
+# seeded tokens that follow (teacher forced). The prompt is a multiple of
+# 512: the flash op's shape contract (JAX's: Sq a multiple of min(256, Sq),
+# Skv of min(512, Skv)) refuses 32640 = 32768 - 128, and 512 decode steps
+# to fill the cache would take most of a minute
+LM_SERVE_PROMPT = 32256
+LM_SERVE_DECODE = 128
+# the generation's LM_SERVE_DECODE + 1 logits against one forward over the
+# same tokens: logits of about unit spread (lm_head at std d^-1/2 after the
+# final RMSNorm) whose bf16 hidden states were rounded on two routes (a
+# flash pass over the prompt and one query against the cache, against a
+# flash pass over all of it): mean and largest |difference|
+LM_SERVE_TF_MEAN = 0.02
+LM_SERVE_TF_MAX = 0.25
+LM_SERVE_PEAK_BYTES = 70e9
+# the flash kernel at the prefill's attention, (B, S, H, Hk, D) causal bf16:
+# its plain version would need (8, 16, 32768, 32768) fp32 scores (550 GB),
+# so the first and the last FLASH_SERVE_ROWS query rows of every sequence
+# are held to it
+FLASH_SERVE_SHAPE = (LM_SERVE_BATCH, 32768, 16, 8, 128)
+FLASH_SERVE_ROWS = 256
 
 # fused_topk at k > 128 (row states in global memory): the k values held
 # against the plain version at the eval_topk and serve_topk shapes
@@ -2149,6 +2208,262 @@ def phase_lm_train(torch):
     }
 
 
+def phase_lm_serve(torch):
+    """internlm2-1.8b's prefill_32k and decode_32k cells at full width and
+    depth through the flash kernel: the prefill cell's fn timed, then a
+    prompt prefilled and LM_SERVE_DECODE tokens decoded through the decode
+    cell's fn, held against one forward over the same tokens; the flash
+    kernel at the prefill's shape against its plain version on its first
+    and last rows; a decode step and a prefill profiled."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.common.treemath import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels._timing import device_ms
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.fused_infonce import ops as infonce_ops
+    from repro_torch.kernels.fused_topk import ops as topk_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.attention import decode_attention
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model_cfg, attention_impl=FLASH_IMPL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pre = steps.build_cell(LM_ARCH, "prefill_32k", DEVICE, model_cfg=cfg,
+                           global_batch=LM_SERVE_BATCH)
+    dec = steps.build_cell(LM_ARCH, "decode_32k", DEVICE, model_cfg=cfg,
+                           global_batch=LM_SERVE_BATCH)
+    b, s = tuple(pre.args[1].shape)
+    kv_shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.dh)
+    require((b, s, cfg.n_heads, cfg.n_kv_heads, cfg.dh) == FLASH_SERVE_SHAPE
+            and tuple(dec.args[1].k.shape) == kv_shape,
+            f"prefill_32k tokens {(b, s)}, decode_32k cache {tuple(dec.args[1].k.shape)}, "
+            f"flash at {FLASH_SERVE_SHAPE}")
+    params = pre.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(b, s), dtype=np.int32)).to(DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def flash_launches():
+        return flash_ops.flash_attention.launches
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    # ---- the main path, counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.reset_launches()
+    infonce_ops.reset_launches()
+    topk_ops.reset_launches()
+    # the prefill cell: a warm-up, then LM_SERVE_PREFILL_RUNS timed runs;
+    # each run's cache is dropped before the next is allocated
+    prefill_times, prefill_launches, out = [], [], None
+    for i in range(1 + LM_SERVE_PREFILL_RUNS):
+        out, before = None, flash_launches()
+        out, dt = timed(lambda: pre.fn(params, tokens))
+        prefill_launches.append(flash_launches() - before)
+        if i:
+            prefill_times.append(dt)
+        print(f"[lm_serve] prefill {i}: {dt:.3f} s", file=sys.stderr, flush=True)
+    cache, cell_logits = out
+    del out
+    cell_ok = (bool(torch.isfinite(cell_logits.float()).all())
+               and tuple(cell_logits.shape) == (b, cfg.vocab_size)
+               and bool((cache.length == s).all()) and tuple(cache.k.shape) == kv_shape)
+    del cache, cell_logits
+
+    # the generation: prefill of the prompt into the cell's s slots, then
+    # decode steps through the decode cell's fn, each timed
+    p_len = LM_SERVE_PROMPT
+    before = flash_launches()
+    (cache, logits), gen_prefill_s = timed(
+        lambda: lm.prefill(params, cfg, tokens[:, :p_len], max_seq=s))
+    gen_prefill_launches = flash_launches() - before
+    ptrs = (cache.k.data_ptr(), cache.v.data_ptr())
+    gen = [logits.float()]
+    decode_times, before = [], flash_launches()
+    for t in range(p_len, p_len + LM_SERVE_DECODE):
+        (cache, logits), dt = timed(lambda: dec.fn(params, cache, tokens[:, t]))
+        gen.append(logits.float())
+        decode_times.append(dt)
+    decode_launches = flash_launches() - before
+    gen = torch.stack(gen, 1)                                   # (B, 1 + decode, V)
+    lengths = cache.length.tolist()
+    in_place = (cache.k.data_ptr(), cache.v.data_ptr()) == ptrs
+    print(f"[lm_serve] decode: median {statistics.median(decode_times) * 1e3:.2f} ms a step",
+          file=sys.stderr, flush=True)
+    # where a decode step's time goes: the step profiled (it writes one
+    # more row, past the generation's), the plain decode attention of one
+    # layer, and the cast of the fp32 params to bf16 that every step does
+    decode_profile = profile_step_share(
+        torch, lambda: dec.fn(params, cache, tokens[:, 0]))
+    q1 = torch.randn((b, 1, cfg.n_heads, cfg.dh), device=DEVICE).to(cfg.dtype)
+    attn_layer_ms = device_ms(lambda: decode_attention(
+        q1, cache.k[0], cache.v[0], cache_len=cache.length + 1), 5)
+    cast = tree_leaves([params["layers"]["attn"], params["layers"]["ffn"],
+                        params.get("lm_head")])
+    cast_ms = device_ms(lambda: [t.to(cfg.dtype) for t in cast], 5)
+    del cache, q1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # teacher forcing: one forward over all s tokens; the logits of the
+    # generation's positions only (all (B, s, V) would be 97 GB in fp32)
+    before = flash_launches()
+    with torch.no_grad():
+        (x, _, _), tf_s = timed(lambda: lm.backbone(params, cfg, tokens))
+        want = lm._head(params, cfg, x[:, p_len - 1:p_len + LM_SERVE_DECODE]).float()
+    tf_launches = flash_launches() - before
+    del x
+    main_launches = flash_launches()                 # read just after the main path
+    main_paths = dict(flash_ops.flash_attention.paths)
+    other = {"fused_infonce": sum(getattr(infonce_ops, f"fused_infonce_{k}").launches
+                                  for k in ("fwd", "dq", "dp")),
+             "fused_topk": topk_ops.fused_topk.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    diff = (gen - want).abs()
+    finite = bool(torch.isfinite(gen).all()) and bool(torch.isfinite(want).all())
+    tf = {"positions": [p_len - 1, p_len + LM_SERVE_DECODE - 1],
+          "mean_abs_diff": diff.mean().item(), "max_abs_diff": diff.max().item(),
+          "prefill_mean_abs_diff": diff[:, 0].mean().item(),
+          "decode_mean_abs_diff": diff[:, 1:].mean().item(),
+          "decode_max_abs_diff": diff[:, 1:].max().item(),
+          "top1_agreement": (gen.argmax(-1) == want.argmax(-1)).float().mean().item(),
+          "logit_std": want.std().item()}
+    del gen, want, diff
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the flash kernel at the prefill's attention (not counted)
+    fb, fs, fh, fhk, fd = FLASH_SERVE_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    q = torch.randn((fb, fs, fh, fd), generator=g, device=DEVICE).to(torch.bfloat16)
+    k = torch.randn((fb, fs, fhk, fd), generator=g, device=DEVICE).to(torch.bfloat16)
+    v = torch.randn((fb, fs, fhk, fd), generator=g, device=DEVICE).to(torch.bfloat16)
+    flash_out = flash_ops.flash_attention(q, k, v, causal=True)
+    require(bool(torch.isfinite(flash_out.float()).all()), "flash at S=32768: non-finite output")
+    row_errs = {}
+    for start in (0, fs - FLASH_SERVE_ROWS):
+        rows, keys = slice(start, start + FLASH_SERVE_ROWS), slice(0, start + FLASH_SERVE_ROWS)
+        err = flash_ref.flash_attention_error(flash_out[:, rows], q[:, rows], k[:, keys],
+                                              v[:, keys], causal=True, q_offset=start)
+        require(flash_ref.error_ok(err, torch.bfloat16),
+                f"flash at S=32768, rows from {start}: kernel departs from the plain version: "
+                f"{err}")
+        row_errs[f"rows_{start}"] = err
+
+    def library():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True,
+                                              scale=fd ** -0.5, enable_gqa=True)
+
+    lib_diff = (library().transpose(1, 2).float() - flash_out.float()).abs().max().item()
+    del flash_out
+    flash_ms = device_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True), 5)
+    bound_ms, bound_by = flash_bound_ms(fb, fs, fs, fh, fhk, fd, True, False, 2)
+    flash_serve = {
+        "B": fb, "S": fs, "H": fh, "Hk": fhk, "D": fd, "causal": True,
+        "tiles": "x".join(map(str, flash_ops._plan(fb, fs, fs, fh, fd, q.dtype,
+                                                   q.device.index, True))),
+        "rows_checked": [[0, FLASH_SERVE_ROWS], [fs - FLASH_SERVE_ROWS, fs]],
+        "max_abs_err": max(e["max_abs_err"] for e in row_errs.values()),
+        "row_errors": row_errs, "ms": flash_ms,
+        "tflops": flash_flops(fb, fs, fs, fh, fd, True) / flash_ms / 1e9,
+        "plain_ms": None,
+        "plain_not_run": f"its ({fb}, {fh}, {fs}, {fs}) fp32 scores would be "
+                         f"{fb * fh * fs * fs * 4 / 1e9:.0f} GB",
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": device_ms(library, 5),
+        "library_max_abs_diff_from_kernel": lib_diff,
+    }
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one prefill profiled (its cache dropped before the next run)
+    prefill_profile = profile_step_share(torch, lambda: pre.fn(params, tokens))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    del params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    per_pass = cfg.n_layers
+    require(cell_ok, "the prefill cell's cache or logits are not what its shape says, or "
+                     "not finite")
+    require(finite, "non-finite generation or teacher-forced logits")
+    require(tf["mean_abs_diff"] <= LM_SERVE_TF_MEAN and tf["max_abs_diff"] <= LM_SERVE_TF_MAX,
+            f"generation against teacher forcing: {tf}")
+    require(lengths == [p_len + LM_SERVE_DECODE] * b, f"cache.length ends at {lengths}")
+    require(in_place, "decode moved the cache: its data_ptr changed")
+    require(prefill_launches == [per_pass] * (1 + LM_SERVE_PREFILL_RUNS)
+            and gen_prefill_launches == tf_launches == per_pass and decode_launches == 0,
+            f"flash_attention launched {prefill_launches} a prefill cell run, "
+            f"{gen_prefill_launches} in the generation's prefill, {decode_launches} in its "
+            f"decode, {tf_launches} in the forward; want {per_pass}, {per_pass}, 0, {per_pass}")
+    require(main_paths["hopper"] == main_launches,
+            f"flash_attention took {main_paths}, not all the bf16 Hopper kernel")
+    require(other == {"fused_infonce": 0, "fused_topk": 0}, f"lm_serve launched {other}")
+    require(peak_bytes < LM_SERVE_PEAK_BYTES, f"lm_serve peak memory {peak_bytes / 1e9:.1f} GB")
+    require(bool(prefill_profile.get("flash_launches")) and bool(prefill_profile.get("flash_ms")),
+            f"the profiled prefill shows no flash_fwd_kernel time: {prefill_profile}")
+    prefill_s = statistics.median(prefill_times)
+    decode_s = statistics.median(decode_times)
+    kv_bytes = dec.static_info["kv_cache_bytes"]
+    bf16_param_bytes = param_bytes // 2
+    return {
+        "model": f"{LM_ARCH} causal LM (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+                 f"{cfg.n_kv_heads} KV heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab "
+                 f"{cfg.vocab_size}; all {cfg.n_layers} layers; seeded init; attention "
+                 f"{FLASH_IMPL})",
+        "cells": {name: {"global_batch": [get_arch(LM_ARCH).shapes[name].params["global_batch"],
+                                          b], "seq_len": s}
+                  for name in ("prefill_32k", "decode_32k")},
+        "params": pre.static_info["params"], "param_bytes": param_bytes, "setup_s": setup_s,
+        "prefill": {"runs_s": prefill_times, "median_s": prefill_s,
+                    "tokens_per_s": pre.static_info["tokens_per_step"] / prefill_s,
+                    "model_flops": pre.static_info["model_flops"],
+                    "model_flops_share": pre.static_info["model_flops"] / prefill_s
+                    / PEAK_BF16_FLOPS,
+                    "flash_launches_per_run": prefill_launches},
+        "generation": {"prompt": p_len, "decode_steps": LM_SERVE_DECODE, "slots": s,
+                       "prefill_s": gen_prefill_s, "lengths_at_end": lengths,
+                       "cache_in_place": in_place},
+        "decode": {"step_times_s": decode_times, "median_ms": decode_s * 1e3,
+                   "tokens_per_s": b / decode_s,
+                   "kv_cache_bytes": kv_bytes,
+                   "bytes_per_step": param_bytes + kv_bytes,
+                   "byte_share": (param_bytes + kv_bytes) / decode_s / PEAK_BYTES_PER_S,
+                   "bound_ms_bf16_params": (bf16_param_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3,
+                   "bound_ms_fp32_params": (param_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3,
+                   "attention_ms_per_layer": attn_layer_ms,
+                   "attention_ms_per_step": attn_layer_ms * cfg.n_layers,
+                   "attention_bound_ms_per_layer": kv_bytes / cfg.n_layers / PEAK_BYTES_PER_S
+                   * 1e3,
+                   "param_cast_ms": cast_ms,
+                   "flash_launches": decode_launches},
+        "teacher_forcing": {**tf, "forward_s": tf_s},
+        "max_memory_allocated": peak_bytes, "flash_attention_launches": main_launches,
+        "flash_attention_paths": main_paths, "other_launches": other,
+        "flash_attention_s32768": flash_serve,
+        "profile_decode": {"scope": f"one decode_32k step (B = {b}, {s} slots)",
+                           **decode_profile},
+        "profile_prefill": {"scope": f"one prefill_32k run ({b} x {s} tokens)",
+                            **prefill_profile},
+    }
+
+
 def bag_bound_ms(indices, n_bags: int, d: int, itemsize: int):
     """(bound_ms, "bytes", distinct rows) of one embedding_bag call: each
     distinct row read once, the indices and bag ids once (8 bytes a lookup),
@@ -2513,6 +2828,11 @@ def main(argv=None) -> int:
           "nvidia_smi": smi})
 
     t0 = time.perf_counter()
+    lm_serve = phase_lm_serve(torch)
+    emit({"phase": "lm_serve", **lm_serve, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
     recsys = phase_recsys(torch)
     emit({"phase": "recsys", **recsys, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
@@ -2572,7 +2892,8 @@ def main(argv=None) -> int:
     fa = flash_k["bert_passage"]
     flash_by_path = {"flash_train": flash["train"]["flash_attention_launches"],
                      "lm": lm["flash_attention_launches"],
-                     "lm_train": lm_train["flash_attention_launches"]}
+                     "lm_train": lm_train["flash_attention_launches"],
+                     "lm_serve": lm_serve["flash_attention_launches"]}
     lines.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -2588,6 +2909,8 @@ def main(argv=None) -> int:
                              "tiles": flash_k[name]["tiles"],
                              **{key: flash_k[name][key] for key in timed}}
            for name in FLASH_LM_PATH_SHAPES},
+        "lm_serve_shape": {key: lm_serve["flash_attention_s32768"][key] for key in (
+            "B", "S", "H", "Hk", "D", "causal", "tiles", "plain_not_run", *timed)},
     })
     # embedding_bag at the dcn-v2 stacked table; no path of the port calls it
     # (the recsys models gather, as in JAX), so its launches are the kernels

@@ -2,8 +2,8 @@
 ``repro.configs``.
 
 Registered so far: the dense LM archs (internlm2-1.8b, stablelm-3b; their
-train cell is ``launch/steps.py``'s, their prefill and decode cells are
-ROADMAP A9b-ii) and the four recsys archs
+train, prefill and decode cells are ``launch/steps.py``'s) and the four
+recsys archs
 (dcn-v2, deepfm, dlrm-mlperf, dlrm-rm2). dpr-bert-base's towers and cells
 live in ``dpr_bert_base.py`` as plain dicts. Not yet ported: the other LM
 archs (qwen1.5-110b, qwen3-moe-235b-a22b, olmoe-1b-7b; ROADMAP A9c) and

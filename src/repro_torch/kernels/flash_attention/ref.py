@@ -22,15 +22,16 @@ import torch
 from repro_torch.core.precision import NEG_INF, STATS_DTYPE
 
 
-def _softmax(q, k, causal, kv_mask, scale) -> torch.Tensor:
-    """The fp32 softmax (B, H, Sq, Skv) of the scaled, masked logits."""
+def _softmax(q, k, causal, kv_mask, scale, q_offset=0) -> torch.Tensor:
+    """The fp32 softmax (B, H, Sq, Skv) of the scaled, masked logits; under
+    the causal mask q's rows are positions q_offset, q_offset + 1, ..."""
     sq, d = q.shape[1], q.shape[3]
     group = q.shape[2] // k.shape[2]
     scale = scale if scale is not None else d ** -0.5
     kr = k.repeat_interleave(group, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(STATS_DTYPE), kr.to(STATS_DTYPE)) * scale
     if causal:
-        qi = torch.arange(sq, device=q.device)[:, None]
+        qi = torch.arange(sq, device=q.device)[:, None] + q_offset
         ki = torch.arange(k.shape[1], device=q.device)[None, :]
         logits = logits.masked_fill(ki > qi, NEG_INF)
     if kv_mask is not None:
@@ -85,9 +86,11 @@ def flash_attention_error(
     causal: bool = False,
     kv_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    q_offset: int = 0,
 ) -> dict:
     """``out`` (a kernel's output on q, k, v) against this plain version and
-    the exact attention. Returns ``max_abs_err`` (|out - plain|), ``worst``
+    the exact attention. ``q_offset``: q and out are the rows from that
+    position on of a longer causal pass (a check of some rows only). Returns ``max_abs_err`` (|out - plain|), ``worst``
     (the largest |out - plain| over its element's allowance: ``FP32_RTOL``
     of max|v| for fp32, ``bf16_allowance`` for bf16), and ``mean_err`` and
     ``plain_mean_err``, the mean |error| of out and of the plain version
@@ -95,7 +98,7 @@ def flash_attention_error(
     so its mean error is 0). The allowance is below a typical |o| at every
     shape, but a kernel that drops or misweights a tile of late keys can
     stay inside it element by element; the mean error then shows it."""
-    probs = _softmax(q, k, causal, kv_mask, scale)
+    probs = _softmax(q, k, causal, kv_mask, scale, q_offset)
     plain = _values(probs.to(v.dtype), v, q.shape[2]).float()
     exact = _values(probs, v.to(STATS_DTYPE), q.shape[2])
     diff = (out.float() - plain).abs()

@@ -1,9 +1,12 @@
-"""Cell programs, the LM train and recsys parts of ``repro.launch.steps`` on
-one device: (architecture x shape cell x device) -> a step function plus
+"""Cell programs, the LM and recsys parts of ``repro.launch.steps`` on one
+device: (architecture x shape cell x device) -> a step function plus
 stand-ins of its inputs.
 
   train             LM causal-LM training step (microbatched gradient
                     accumulation, clip 1.0, then AdamW)
+  prefill           LM prompt -> KV cache + last-position logits
+  decode            LM one token against a seq_len-slot KV cache, which it
+                    consumes (written in place: JAX donates it)
   recsys_train      DLRM/DCN/DeepFM BCE training step (clip 1.0, then AdamW)
   recsys_serve      forward scoring
   recsys_retrieval  1 query x 1M candidates, factorized scoring
@@ -21,16 +24,19 @@ the values of the plain gather.
 The LM train cell's microbatch count follows the JAX package's rule on one
 device: the ArchSpec's ``micro_batches`` entry, capped at the batch and
 lowered until it divides it; ``build_cell(..., micro_batches=)`` replaces
-that entry (a smaller microbatch to fit one card).
+that entry (a smaller microbatch to fit one card), and
+``build_cell(..., global_batch=)`` replaces the cell's global batch (a
+smaller batch, or a smaller cache, to fit one card). JAX's sharding specs
+have no meaning on one device and are left out.
 
-Not yet ported: the LM prefill and decode cells (ROADMAP A9b), the MoE and
-SchNet cells (A9c/A9e) and the contrastive and retrieval cells of
-dpr-bert-base (A10).
+Not yet ported: the MoE and SchNet cells (ROADMAP A9c/A9e) and the
+contrastive and retrieval cells of dpr-bert-base (A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -39,7 +45,7 @@ from repro_torch.common.treemath import tree_map
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.core.device import resolve_device
-from repro_torch.models.lm import LMConfig, init_lm, lm_loss
+from repro_torch.models.lm import KVCache, LMConfig, decode_step, init_lm, lm_loss, prefill
 from repro_torch.models.recsys import (
     RecsysConfig,
     bce_loss,
@@ -147,6 +153,61 @@ def _lm_train_program(arch: ArchSpec, cell: ShapeCell, device: torch.device) -> 
             "tokens_per_step": B * S,
         },
         init=init_state,
+    )
+
+
+# ------------------------------------------------------------ LM: serving
+def _lm_prefill_program(arch: ArchSpec, cell: ShapeCell, device: torch.device) -> CellProgram:
+    cfg: LMConfig = arch.model_cfg
+    B, S = cell.params["global_batch"], cell.params["seq_len"]
+
+    def init_params(generator: torch.Generator):
+        return init_lm(cfg, generator, device=device)
+
+    def prefill_step(params, tokens):
+        return prefill(params, cfg, tokens)
+
+    return CellProgram(
+        arch_id=arch.arch_id, shape_name=cell.name, kind="prefill", fn=prefill_step,
+        args=(init_lm(cfg, torch.Generator(), device=_META), _meta((B, S), torch.int32)),
+        static_info={
+            "model_flops": _lm_flops(cfg, B * S, train=False),
+            "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(),
+            "tokens_per_step": B * S,
+        },
+        init=init_params,
+    )
+
+
+def _lm_decode_program(arch: ArchSpec, cell: ShapeCell, device: torch.device) -> CellProgram:
+    cfg: LMConfig = arch.model_cfg
+    B, S = cell.params["global_batch"], cell.params["seq_len"]
+    i32 = torch.int32
+
+    def init_params(generator: torch.Generator):
+        return init_lm(cfg, generator, device=device)
+
+    def serve_step(params, cache: KVCache, token):
+        """One token a row; ``cache`` is consumed (written in place)."""
+        return decode_step(params, cfg, cache, token)
+
+    kv_shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.dh)
+    cache = KVCache(_meta(kv_shape, cfg.dtype), _meta(kv_shape, cfg.dtype), _meta((B,), i32))
+    kv_bytes = 2 * math.prod(kv_shape) * cache.k.element_size()
+    return CellProgram(
+        arch_id=arch.arch_id, shape_name=cell.name, kind="decode", fn=serve_step,
+        args=(init_lm(cfg, torch.Generator(), device=_META), cache, _meta((B,), i32)),
+        static_info={
+            # JAX's count: one pass over the active params and the KV cache
+            # a generated token
+            "model_flops": 2.0 * cfg.active_param_count() * B
+            + 4.0 * B * S * cfg.n_kv_heads * cfg.dh * cfg.n_layers,
+            "params": cfg.param_count(),
+            "kv_cache_bytes": float(kv_bytes),
+            "tokens_per_step": B,
+        },
+        init=init_params,
     )
 
 
@@ -265,8 +326,8 @@ def _not_yet(item: str):
 
 _BUILDERS = {
     "train": _lm_train_program,
-    "prefill": _not_yet("A9b"),
-    "decode": _not_yet("A9b"),
+    "prefill": _lm_prefill_program,
+    "decode": _lm_decode_program,
     "gnn_full": _not_yet("A9e"),
     "gnn_minibatch": _not_yet("A9e"),
     "gnn_mol": _not_yet("A9e"),
@@ -286,11 +347,13 @@ def build_cell(
     *,
     model_cfg: Any = None,
     micro_batches: Optional[int] = None,
+    global_batch: Optional[int] = None,
 ) -> CellProgram:
     """The cell's program on ``device`` (CUDA unless ``device="cpu"``).
     ``model_cfg`` replaces the arch's config, e.g. with capped vocabularies
     or fewer layers; ``micro_batches`` replaces the arch's microbatch count
-    for this shape (``ArchSpec.micro_batches``)."""
+    for this shape (``ArchSpec.micro_batches``); ``global_batch`` replaces
+    the cell's global batch."""
     arch = get_arch(arch_id)
     if shape_name not in arch.shapes:
         raise KeyError(
@@ -303,6 +366,8 @@ def build_cell(
         arch = dataclasses.replace(
             arch, micro_batches={**arch.micro_batches, shape_name: micro_batches})
     cell = arch.shapes[shape_name]
+    if global_batch is not None:
+        cell = dataclasses.replace(cell, params={**cell.params, "global_batch": global_batch})
     return _BUILDERS[cell.kind](arch, cell, dev)
 
 

@@ -1,8 +1,8 @@
-"""Decoder-only causal LM, the part of ``repro.models.lm`` that the LM dual
-encoder and the causal-LM train cell run: ``LMConfig``, ``init_lm``,
+"""Decoder-only causal LM, as ``repro.models.lm``: ``LMConfig``, ``init_lm``,
 ``_block``, ``_remat_wrap``, ``backbone``, ``encode_pooled`` (the backbone
-of a retriever, GTR/E5 style), the LM head ``_head`` and the chunked
-next-token cross entropy ``lm_loss``.
+of a retriever, GTR/E5 style), the LM head ``_head``, the chunked
+next-token cross entropy ``lm_loss``, and serving: ``KVCache``,
+``prefill`` and ``decode_step``.
 
 Modern pre-norm transformer: RMSNorm, RoPE (split halves), GQA attention
 through ``models.attention.attention`` (causal, no key mask), SwiGLU FFN,
@@ -25,9 +25,17 @@ of the scanned chunk), so neither (B, S, V) nor any chunk's (B, c, V)
 logits are kept for the backward. Where JAX asserts ``S % c == 0`` the port
 raises ``ValueError``.
 
-Not here yet: ``KVCache``, ``prefill`` and ``decode_step`` (ROADMAP A9b),
-and MoE layers (``LMConfig.moe``; A9c), for which ``init_lm`` and
-``_block`` raise.
+``prefill`` allocates the (L, B, max_seq, Hk, Dh) cache once and each
+layer writes its k and v into its slot as the loop goes (JAX stacks the
+layers' k and v, then pads). ``decode_step`` writes the new token's k and v
+into the cache in place, at ``length[0]`` for every row with the start
+clamped to ``S_max - 1`` as ``dynamic_update_slice`` clamps it, through a
+device index (no host sync a token): it consumes its input cache, as the
+JAX decode cell donates it, and the cache it returns shares its storage.
+Both run under ``torch.no_grad()``.
+
+Not here yet: MoE layers (``LMConfig.moe``; ROADMAP A9c), for which
+``init_lm``, ``_block``, ``prefill`` and ``decode_step`` raise.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from collections.abc import Mapping
-from typing import Any, Optional, Union
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 from torch.utils.checkpoint import (
@@ -47,7 +55,7 @@ from torch.utils.checkpoint import (
 from repro_torch.core.device import resolve_device
 from repro_torch.core.precision import STATS_DTYPE
 from repro_torch.models import layers as L
-from repro_torch.models.attention import attention
+from repro_torch.models.attention import attention, decode_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +108,12 @@ class LMConfig:
         per_layer = attn + ffn + 2 * d
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # (L, B, S_max, Hk, Dh) in cfg.dtype
+    v: torch.Tensor        # (L, B, S_max, Hk, Dh) in cfg.dtype
+    length: torch.Tensor   # (B,) int32: the valid prefix
 
 
 def _require_dense(cfg: LMConfig) -> None:
@@ -166,14 +180,13 @@ def init_lm(
     return params
 
 
-def _block(cfg: LMConfig, lp, x, cos, sin, *, kv_mask=None, causal=True):
-    """One transformer block. lp: per-layer params (no leading L dim).
-    x: (B, S, d). Returns (x', aux_metrics, (k, v))."""
-    _require_dense(cfg)
+def _qkv(cfg: LMConfig, lp, x, cos, sin):
+    """The attention's inputs of one block: RMSNorm, the q, k and v
+    projections (with their biases under ``qkv_bias``) and RoPE. x (B, S, d)
+    -> q (B, S, H, Dh), k and v (B, S, Hk, Dh)."""
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     dt = cfg.dtype
-
     y = L.rms_norm(lp["ln1"], x, eps=cfg.norm_eps)
     ap = lp["attn"]
     q = y @ ap["wq"].to(dt)
@@ -185,8 +198,26 @@ def _block(cfg: LMConfig, lp, x, cos, sin, *, kv_mask=None, causal=True):
         v = v + ap["bv"].to(dt)
     q = L.apply_rotary(q.reshape(b, s, h, dh), cos, sin)
     k = L.apply_rotary(k.reshape(b, s, hk, dh), cos, sin)
-    v = v.reshape(b, s, hk, dh)
+    return q, k, v.reshape(b, s, hk, dh)
 
+
+def _out_ffn(cfg: LMConfig, lp, x, o):
+    """The rest of one block: the output projection of the attention's o
+    (B, S, H, Dh) onto the residual x (B, S, d), then the SwiGLU FFN."""
+    b, s, _ = x.shape
+    dt = cfg.dtype
+    x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(dt)
+    y = L.rms_norm(lp["ln2"], x, eps=cfg.norm_eps)
+    fp = lp["ffn"]
+    ff = L.swiglu(y @ fp["w_gate"].to(dt), y @ fp["w_up"].to(dt)) @ fp["w_down"].to(dt)
+    return x + ff
+
+
+def _block(cfg: LMConfig, lp, x, cos, sin, *, kv_mask=None, causal=True):
+    """One transformer block. lp: per-layer params (no leading L dim).
+    x: (B, S, d). Returns (x', aux_metrics, (k, v))."""
+    _require_dense(cfg)
+    q, k, v = _qkv(cfg, lp, x, cos, sin)
     o = attention(
         q, k, v,
         impl=cfg.attention_impl,
@@ -195,12 +226,7 @@ def _block(cfg: LMConfig, lp, x, cos, sin, *, kv_mask=None, causal=True):
         q_chunk=cfg.q_chunk,
         kv_chunk=cfg.kv_chunk,
     )
-    x = x + o.reshape(b, s, h * dh) @ ap["wo"].to(dt)
-
-    y = L.rms_norm(lp["ln2"], x, eps=cfg.norm_eps)
-    fp = lp["ffn"]
-    ff = L.swiglu(y @ fp["w_gate"].to(dt), y @ fp["w_up"].to(dt)) @ fp["w_down"].to(dt)
-    return x + ff, {}, (k, v)
+    return _out_ffn(cfg, lp, x, o), {}, (k, v)
 
 
 #: the matmuls with no batch dimension (each projection: activations x a
@@ -242,32 +268,37 @@ def _per_layer(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def backbone(params, cfg: LMConfig, tokens: torch.Tensor, *, collect_cache: bool = False):
-    """tokens (B, S) -> (final hidden states (B, S, d), the mean MoE aux loss
-    (0 without MoE), the stacked (k, v) of every layer with
-    ``collect_cache`` else None)."""
+def _layers(params, cfg: LMConfig, tokens: torch.Tensor, store_kv=None) -> torch.Tensor:
+    """tokens (B, S) through the embedding, every layer (under the config's
+    remat policy) and the final norm: (B, S, d). ``store_kv(i, k, v)``, if
+    given, takes layer i's (k, v) as the loop goes."""
     _require_dense(cfg)
-    b, s = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
-    cos, sin = L.rotary_embedding(torch.arange(s, device=tokens.device), cfg.dh,
+    cos, sin = L.rotary_embedding(torch.arange(tokens.shape[1], device=tokens.device), cfg.dh,
                                   cfg.rope_theta, cfg.dtype)
 
     def layer_fn(x, lp):
         x, _, kv = _block(cfg, lp, x, cos, sin, causal=True)
-        return (x, *kv) if collect_cache else x
+        return x if store_kv is None else (x, *kv)
 
     layer_fn = _remat_wrap(cfg, layer_fn)
-    kv_list = []
-    for lp in _per_layer(params["layers"], cfg.n_layers):
-        if collect_cache:
-            x, k, v = layer_fn(x, lp)
-            kv_list.append((k, v))
-        else:
+    for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
+        if store_kv is None:
             x = layer_fn(x, lp)
-    kvs = None
-    if collect_cache:
-        kvs = tuple(torch.stack(t) for t in zip(*kv_list))
-    x = L.rms_norm(params["final_norm"], x, eps=cfg.norm_eps)
+        else:
+            x, k, v = layer_fn(x, lp)
+            store_kv(i, k, v)
+    return L.rms_norm(params["final_norm"], x, eps=cfg.norm_eps)
+
+
+def backbone(params, cfg: LMConfig, tokens: torch.Tensor, *, collect_cache: bool = False):
+    """tokens (B, S) -> (final hidden states (B, S, d), the mean MoE aux loss
+    (0 without MoE), the stacked (k, v) of every layer with
+    ``collect_cache`` else None)."""
+    kv_list = []
+    x = _layers(params, cfg, tokens,
+                (lambda i, k, v: kv_list.append((k, v))) if collect_cache else None)
+    kvs = tuple(torch.stack(t) for t in zip(*kv_list)) if collect_cache else None
     moe_aux = torch.zeros((), dtype=STATS_DTYPE, device=x.device)
     return x, moe_aux / cfg.n_layers, kvs
 
@@ -330,3 +361,52 @@ def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor):
         loss_sum, count = loss_sum + part, count + n
     loss = loss_sum / torch.clamp(count, min=1.0)
     return loss + moe_aux, {"lm_loss": loss, "moe_aux": moe_aux, "tokens": count}
+
+
+@torch.no_grad()
+def prefill(params, cfg: LMConfig, tokens: torch.Tensor, *, max_seq: Optional[int] = None):
+    """The KV cache of a prompt, tokens (B, S), and its last position's
+    logits (B, V). The cache has ``max_seq`` slots (S when that is None or
+    smaller, as in JAX): k and v are allocated once, each layer writes its
+    (k, v) into rows [0, S) of its slot as the loop goes, rows past S are
+    zero, and ``length`` is S."""
+    b, s = tokens.shape
+    shape = (cfg.n_layers, b, max(max_seq or s, s), cfg.n_kv_heads, cfg.dh)
+    k_cache = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
+    v_cache = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
+    k_cache[:, :, s:].zero_()
+    v_cache[:, :, s:].zero_()
+
+    def store(i, k, v):
+        k_cache[i, :, :s].copy_(k)
+        v_cache[i, :, :s].copy_(v)
+
+    x = _layers(params, cfg, tokens, store)
+    cache = KVCache(k_cache, v_cache, torch.full((b,), s, dtype=torch.int32, device=tokens.device))
+    return cache, _head(params, cfg, x[:, -1:])[:, 0]
+
+
+@torch.no_grad()
+def decode_step(params, cfg: LMConfig, cache: KVCache, token: torch.Tensor):
+    """One decode step: token (B,) -> (the cache with the token's k and v and
+    ``length + 1``, its logits (B, V)). The input cache is consumed: each
+    layer writes the token's (k, v) into ``cache.k`` and ``cache.v`` in
+    place, at position ``length[0]`` for every row (clamped to
+    ``S_max - 1``, as JAX's ``dynamic_update_slice`` clamps its start), and
+    the returned cache shares their storage. Each row's RoPE position is
+    its own ``length``; the attention sees its first ``length + 1`` rows."""
+    _require_dense(cfg)
+    dt = cfg.dtype
+    x = params["embed"][token[:, None]].to(dt)                       # (B, 1, d)
+    pos = cache.length
+    cos, sin = L.rotary_embedding(pos[:, None], cfg.dh, cfg.rope_theta, dt)
+    at = pos[:1].long().clamp(0, cache.k.shape[2] - 1)               # on the device
+    for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
+        q, k, v = _qkv(cfg, lp, x, cos, sin)
+        kc, vc = cache.k[i], cache.v[i]                               # (B, S_max, Hk, Dh)
+        kc.index_copy_(1, at, k.to(kc.dtype))
+        vc.index_copy_(1, at, v.to(vc.dtype))
+        o = decode_attention(q, kc.to(dt), vc.to(dt), cache_len=pos + 1)
+        x = _out_ffn(cfg, lp, x, o)
+    x = L.rms_norm(params["final_norm"], x, eps=cfg.norm_eps)
+    return KVCache(cache.k, cache.v, cache.length + 1), _head(params, cfg, x)[:, 0]

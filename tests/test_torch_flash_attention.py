@@ -187,6 +187,25 @@ def test_error_check_allows_tile_rounding_and_finds_a_dropped_tile(
     assert error_ok(err, dtype) == passes, err
 
 
+@pytest.mark.parametrize("skip,offset,passes", [
+    (None, 0, True), (None, 448, True), (384, 448, False),
+    (None, None, False),     # the last rows checked as if they were the first
+])
+def test_error_check_of_some_rows_with_q_offset(skip, offset, passes):
+    """The check of a causal pass's first or last rows only (chip_smoke.py's
+    S = 32768 case): rows from ``q_offset`` on against every key up to
+    them. A dropped late tile fails it, and so do the last rows checked
+    without their offset."""
+    q, k, v, _ = _inputs(1, 512, 512, 4, 2, 128, False, seed=9)
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    out = _tiled(q, k, v, True, None, skip=skip)
+    start = 448 if offset is None else offset
+    rows, keys = slice(start, start + 64), slice(0, start + 64)
+    err = flash_attention_error(out[:, rows], q[:, rows], k[:, keys], v[:, keys], causal=True,
+                                q_offset=offset or 0)
+    assert error_ok(err, torch.bfloat16) == passes, err
+
+
 @pytest.mark.parametrize(
     "b,s,h,hk,d,causal,masked,dtype",
     [

@@ -25,7 +25,15 @@ the CPU: the loss within 1e-4 relative, AdamW's first moment (a tenth of
 the clipped gradient) within 1e-4 of its largest entry, and the params
 within 1e-4 relative plus 1e-3 of the largest move (a step moves a param
 by about lr whatever the size of its gradient, so an element whose
-gradient is near 0 may move either way).
+gradient is near 0 may move either way). Serving (``prefill``,
+``decode_step``) at the same small internlm2: fp32 chunked on the card
+against the CPU, the caches and logits within 1e-4 relative plus 1e-4 of
+their largest entry; bf16 through the flash kernel against chunked
+attention, the prefill's cache and logits by the flash block's rule above
+(the chunked bf16 run's departure from its fp32 twin, plus one bf16 ulp),
+and the generation against one forward over the same tokens at
+chip_smoke.py's lm_serve limits (mean |difference| 0.02, largest 0.25, on
+logits of unit spread).
 """
 
 import dataclasses
@@ -200,3 +208,111 @@ def test_train_step_launches_the_kernel_per_layer_and_microbatch(dev):
     want = SMALL_LM.n_layers * 2 * m
     assert ops.flash_attention.launches == ops.flash_attention.paths["hopper"] == want
     assert math.isfinite(metrics["loss"].item()) and int(state.step) == 1
+
+
+SERVE_TF_MEAN, SERVE_TF_MAX = 0.02, 0.25
+
+
+def _serve_tokens(b, s, seed, device):
+    return torch.randint(0, SMALL_LM.vocab_size, (b, s), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+def _generate(cfg, params, tokens, prompt, max_seq):
+    """prefill of tokens[:, :prompt], then decode of the rest: the cache and
+    the (B, 1 + S - prompt, V) logits in fp32."""
+    cache, logits = lm.prefill(params, cfg, tokens[:, :prompt], max_seq=max_seq)
+    out = [logits.float()]
+    for t in range(prompt, tokens.shape[1]):
+        cache, logits = lm.decode_step(params, cfg, cache, tokens[:, t])
+        out.append(logits.float())
+    return cache, torch.stack(out, 1)
+
+
+@pytest.mark.cuda
+def test_prefill_and_decode_on_the_card_match_the_cpu_fp32(dev):
+    """prefill of 512 tokens into 520 slots, then four decode steps, fp32
+    with chunked attention, on the card and on the CPU from the same params."""
+    cfg = dataclasses.replace(SMALL_LM, dtype=torch.float32, attention_impl="chunked")
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = _serve_tokens(2, 516, 4, "cpu")
+    got = _generate(cfg, tree_map(lambda t: t.to(dev), params), tokens.to(dev), 512, 520)
+    want = _generate(cfg, params, tokens, 512, 520)
+    for a, b in ((got[0].k, want[0].k), (got[0].v, want[0].v), (got[1], want[1])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+    assert got[0].length.tolist() == want[0].length.tolist() == [516, 516]
+
+
+@pytest.mark.cuda
+def test_flash_prefill_matches_chunked_and_teacher_forcing(dev):
+    """bf16: the prefill through the flash kernel (one launch a layer, on
+    the Hopper path) against chunked attention, and prefill of 512 tokens
+    plus 8 decode steps against one forward over 1024 tokens."""
+    cfg = dataclasses.replace(SMALL_LM, attention_impl="pallas")
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = _serve_tokens(4, 1024, 5, dev)
+    ops.reset_launches()
+    cache, logits = lm.prefill(params, cfg, tokens[:, :512])
+    assert ops.flash_attention.launches == ops.flash_attention.paths["hopper"] == cfg.n_layers
+    chunked = dataclasses.replace(cfg, attention_impl="chunked")
+    want_cache, want_logits = lm.prefill(params, chunked, tokens[:, :512])
+    fp32_cache, fp32_logits = lm.prefill(params, dataclasses.replace(chunked, dtype=torch.float32),
+                                         tokens[:, :512])
+    for got, want, twin in ((cache.k, want_cache.k, fp32_cache.k),
+                            (cache.v, want_cache.v, fp32_cache.v),
+                            (logits, want_logits, fp32_logits)):
+        diff, floor = (got.float() - want.float()).abs(), (want.float() - twin).abs()
+        ulp = 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+        assert diff.mean() <= floor.mean(), (diff.mean().item(), floor.mean().item())
+        assert diff.max() <= floor.max() + ulp, (diff.max().item(), floor.max().item(), ulp)
+    _, gen = _generate(cfg, params, tokens[:, :520], 512, 1024)
+    with torch.no_grad():
+        x, _, _ = lm.backbone(params, cfg, tokens)
+        want = lm._head(params, cfg, x[:, 511:520]).float()
+    diff = (gen - want).abs()
+    assert bool(torch.isfinite(gen).all())
+    assert diff.mean() <= SERVE_TF_MEAN and diff.max() <= SERVE_TF_MAX, (
+        diff.mean().item(), diff.max().item())
+
+
+@pytest.mark.cuda
+def test_decode_writes_the_cache_in_place_without_a_host_sync(dev):
+    """decode_step keeps the cache's storage, launches no flash kernel, and
+    never waits for the card (a sync raises under sync_debug_mode "error")."""
+    cfg = dataclasses.replace(SMALL_LM, attention_impl="pallas")
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = _serve_tokens(2, 520, 6, dev)
+    cache, _ = lm.prefill(params, cfg, tokens[:, :512], max_seq=1024)
+    ptrs = (cache.k.data_ptr(), cache.v.data_ptr())
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(512, 520):
+            cache, logits = lm.decode_step(params, cfg, cache, tokens[:, t])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (cache.k.data_ptr(), cache.v.data_ptr()) == ptrs
+    assert ops.flash_attention.launches == 0
+    assert cache.length.tolist() == [520, 520] and bool(torch.isfinite(logits.float()).all())
+
+
+@pytest.mark.cuda
+def test_serve_cells_launch_the_kernel_once_a_layer(dev):
+    """The prefill cell's fn: n_layers launches, all on the Hopper path; the
+    decode cell's fn on its full cache (the write clamped to the last
+    slot): none."""
+    arch = dataclasses.replace(get_arch("internlm2-1.8b"),
+                               model_cfg=dataclasses.replace(SMALL_LM, attention_impl="pallas"))
+    pre = steps._lm_prefill_program(arch, ShapeCell("prefill_32k", "prefill",
+                                                    {"seq_len": 512, "global_batch": 4}), dev)
+    dec = steps._lm_decode_program(arch, ShapeCell("decode_32k", "decode",
+                                                   {"seq_len": 512, "global_batch": 4}), dev)
+    params = pre.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = _serve_tokens(4, 512, 7, dev)
+    ops.reset_launches()
+    cache, logits = pre.fn(params, tokens)
+    assert ops.flash_attention.launches == ops.flash_attention.paths["hopper"] == SMALL_LM.n_layers
+    cache, logits = dec.fn(params, cache, tokens[:, 0])
+    assert ops.flash_attention.launches == SMALL_LM.n_layers
+    assert logits.shape == (4, SMALL_LM.vocab_size) and cache.length.tolist() == [513] * 4

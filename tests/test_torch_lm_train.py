@@ -290,9 +290,3 @@ def test_train_cell_runs_on_cuda_by_default():
         steps.build_cell(ARCH, "train_4k")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlm.init_lm(get_arch(ARCH).model_cfg, torch.Generator())
-
-
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
-def test_prefill_and_decode_cells_still_raise(shape):
-    with pytest.raises(NotImplementedError, match="A9b"):
-        steps.build_cell(ARCH, shape, "cpu")

@@ -263,7 +263,7 @@ def test_cells_build_on_meta_and_other_kinds_raise():
     assert retr.static_info["padded"] == {"n_candidates": [1_000_000, 1_000_000]}
     with pytest.raises(KeyError):
         steps.build_cell("dcn-v2", "prefill_32k", "cpu")
-    for kind, item in (("prefill", "A9b"), ("gnn_full", "A9e"), ("contrastive", "A10")):
+    for kind, item in (("gnn_mol", "A9e"), ("gnn_full", "A9e"), ("contrastive", "A10")):
         with pytest.raises(NotImplementedError, match=item):
             steps._BUILDERS[kind](get_arch("dcn-v2"), steps.ShapeCell("x", kind, {}), "cpu")
 
