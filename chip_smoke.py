@@ -192,7 +192,38 @@ Phases, one JSON line each:
                seconds, tokens/s and model-flops share; decode ms a token,
                tokens/s, byte share, the plain decode attention's ms a layer
                and the params' cast; top-1 agreement; peak memory.
- 11. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
+ 11. moe_serve - MoE serving: olmoe-1b-7b's prefill_32k and decode_32k
+               cells at full width and all 16 layers (64 experts, top 8,
+               capacity factor 1.25, groups of 1024; the dispatch and
+               experts as JAX's one-hot and batched einsums), both batches
+               cut to MOE_SERVE_BATCH sequences of 32768 tokens, attention
+               through the flash kernel (causal MHA at S=32768), seeded
+               weights and uniform seeded tokens: the prefill cell's fn
+               timed MOE_SERVE_PREFILL_RUNS times after a warm-up; a prompt
+               of MOE_SERVE_PROMPT tokens (whole groups) prefilled into
+               32768 slots, its cache rows held to the prefill cell's, and
+               MOE_SERVE_DECODE decode steps through the decode cell's fn,
+               each timed; under the dropless twin (capacity = group of
+               MOE_TF_GROUP) MOE_TF_PROMPT tokens prefilled into
+               MOE_TF_SLOTS slots and MOE_TF_DECODE decode steps held to
+               one forward over the slots' tokens; the flash kernel at (2,
+               32768, 16, 16, 128) held to its plain version on its first
+               and last FLASH_SERVE_ROWS rows, timed beside
+               scaled_dot_product_attention and its bound; a decode step
+               and a prefill profiled, the MoE FFN's parts (routing,
+               dispatch, experts, combine) timed at both shapes. Checks:
+               the prompt rows within LM_SERVE_TF_MEAN / LM_SERVE_TF_MAX of
+               the cell's, the dropless generation within MOE_TF_MEAN /
+               MOE_TF_MAX of the forward and each of its positions within
+               MOE_TF_POSITION_MEAN, a control generation fed a wrong
+               token at one step over that bound at that step's position,
+               every logit finite, cache.length
+               at prompt + decode steps, the cache's data_ptr unchanged by
+               the decode, exactly 16 flash launches a prefill or forward
+               and none a decode step, all on the Hopper path, no
+               fused_infonce or fused_topk launch, peak memory under
+               MOE_SERVE_PEAK_BYTES.
+ 12. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
                its train_batch cell (B=65536, every published width), with
                each field's vocabulary capped at RECSYS_ROW_CAP rows, for
                RECSYS_STEPS steps on ClickLogGenerator batches: step time,
@@ -399,6 +430,64 @@ LM_SERVE_PEAK_BYTES = 70e9
 # are held to it
 FLASH_SERVE_SHAPE = (LM_SERVE_BATCH, 32768, 16, 8, 128)
 FLASH_SERVE_ROWS = 256
+
+# The moe_serve phase: olmoe-1b-7b's prefill_32k and decode_32k cells
+# (src/repro/configs/olmoe_1b_7b.py, arXiv 2409.02060: 16 layers, d_model
+# 2048, 16 heads and 16 KV heads of 128, vocab 50304, 64 experts, top 8,
+# d_expert 1024, capacity factor 1.25, groups of 1024) at full width and
+# depth (6,919,096,320 params, 27.7 GB in fp32) through the flash kernel
+# (causal MHA at S = 32768), seeded weights and uniform seeded tokens, one
+# cut: both global batches (32, 128) to MOE_SERVE_BATCH sequences. The
+# cache is 128 KiB a token (16 layers x k and v x 16 heads x 128 x 2 B):
+# 8.6 GB at 2 x 32768 slots. The dispatch holds per layer, per token in
+# bf16, disp and combine (G, g, E, C) at 20 KiB each, xe and ye (G, E, C,
+# d) at 40 KiB each, gate, up and SwiGLU (G, E, C, f) at 20 KiB each: about
+# 12 GB a layer at B = 2, 24 GB at 4; with the params and cache about 50 GB
+# at B = 2 and 72 GB at 4, past the bound below.
+MOE_ARCH = "olmoe-1b-7b"
+MOE_SERVE_BATCH = 2
+MOE_SERVE_PREFILL_RUNS = 3
+# the generation at the config's own capacity: 31 groups of 1024 prefilled
+# into the cell's 32768 slots, then MOE_SERVE_DECODE decode steps. 31744 and
+# 32768 are multiples of the group, so each group of the prompt is the same
+# group in the prefill cell's run (the B x S tokens flatten row-major), and
+# the prompt's cache rows of the two runs are held to each other within
+# LM_SERVE_TF_MEAN and LM_SERVE_TF_MAX (bf16 values of unit spread)
+MOE_SERVE_PROMPT = 31744
+MOE_SERVE_DECODE = 64
+# teacher forcing under the dropless twin (capacity_factor E / k at groups
+# of 512: capacity = group, nothing dropped, so a token's expert outputs do
+# not depend on its group): a prompt of MOE_TF_PROMPT tokens into
+# MOE_TF_SLOTS slots, MOE_TF_DECODE decode steps, one forward over the
+# MOE_TF_SLOTS tokens (the flash op's shape contract wants a multiple of
+# 512), the logits at the generation's positions.
+# At the config's own capacity the forward's groups of 1024 drop
+# assignments a decode step's group of B never drops, and the difference
+# is the model's, not a fault (JAX's decode does the same)
+MOE_TF_GROUP = 512
+MOE_TF_PROMPT = 4096
+MOE_TF_SLOTS = 4608
+MOE_TF_DECODE = 32
+# the generation's logits against the forward's: on top of the bf16 ulps
+# that the two routes round apart (LM_SERVE_TF_*), a token whose router
+# logits sit within those ulps of the k-th place picks another expert on
+# one route, which moves that token's logits by a share of a whole expert
+# output (tests/test_torch_moe_lm.py measures both in bf16 on the CPU). The
+# mean over all positions is held at 2.5 times LM_SERVE_TF_MEAN and the
+# largest at 4 times LM_SERVE_TF_MAX. A fault at one decode step moves its
+# own position by a few tenths of the logits' spread at these random
+# weights, which the mean over all positions hides, so each position's
+# mean is held to MOE_TF_POSITION_MEAN as well: above the worst clean
+# position, and below a control generation fed a wrong token at decode
+# step MOE_TF_FAULT_STEP, which the check must flag (PERF.md, section 4)
+MOE_TF_MEAN = 0.05
+MOE_TF_MAX = 1.0
+MOE_TF_POSITION_MEAN = 0.075
+MOE_TF_FAULT_STEP = 16
+MOE_SERVE_PEAK_BYTES = 70e9
+# the flash kernel at the MoE prefill's attention (causal MHA), its first
+# and last FLASH_SERVE_ROWS query rows held to the plain version
+FLASH_MOE_SHAPE = (MOE_SERVE_BATCH, 32768, 16, 16, 128)
 
 # fused_topk at k > 128 (row states in global memory): the k values held
 # against the plain version at the eval_topk and serve_topk shapes
@@ -2208,6 +2297,81 @@ def phase_lm_train(torch):
     }
 
 
+def flash_launches():
+    """The flash kernel's launch count so far."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    return flash_ops.flash_attention.launches
+
+
+def timed(torch, fn):
+    """fn's result and its wall seconds, the card synchronised around it."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t1
+
+
+def flash_at_serve_shape(torch, shape):
+    """The flash kernel at a prefill's attention, shape (B, S, H, Hk, D),
+    causal, on seeded bf16 inputs and not counted: its first and last
+    FLASH_SERVE_ROWS query rows held to the plain version, its time beside
+    SDPA's and the bound."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels._timing import device_ms
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    fb, fs, fh, fhk, fd = shape
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    q = torch.randn((fb, fs, fh, fd), generator=g, device=DEVICE).to(torch.bfloat16)
+    k = torch.randn((fb, fs, fhk, fd), generator=g, device=DEVICE).to(torch.bfloat16)
+    v = torch.randn((fb, fs, fhk, fd), generator=g, device=DEVICE).to(torch.bfloat16)
+    flash_out = flash_ops.flash_attention(q, k, v, causal=True)
+    require(bool(torch.isfinite(flash_out.float()).all()), f"flash at {shape}: non-finite output")
+    row_errs = {}
+    for start in (0, fs - FLASH_SERVE_ROWS):
+        rows, keys = slice(start, start + FLASH_SERVE_ROWS), slice(0, start + FLASH_SERVE_ROWS)
+        err = flash_ref.flash_attention_error(flash_out[:, rows], q[:, rows], k[:, keys],
+                                              v[:, keys], causal=True, q_offset=start)
+        require(flash_ref.error_ok(err, torch.bfloat16),
+                f"flash at {shape}, rows from {start}: kernel departs from the plain version: "
+                f"{err}")
+        row_errs[f"rows_{start}"] = err
+
+    def library():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True,
+                                              scale=fd ** -0.5, enable_gqa=fhk != fh)
+
+    lib_diff = (library().transpose(1, 2).float() - flash_out.float()).abs().max().item()
+    del flash_out
+    flash_ms = device_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True), 5)
+    bound_ms, bound_by = flash_bound_ms(fb, fs, fs, fh, fhk, fd, True, False, 2)
+    out = {
+        "B": fb, "S": fs, "H": fh, "Hk": fhk, "D": fd, "causal": True,
+        "tiles": "x".join(map(str, flash_ops._plan(fb, fs, fs, fh, fd, q.dtype,
+                                                   q.device.index, True))),
+        "rows_checked": [[0, FLASH_SERVE_ROWS], [fs - FLASH_SERVE_ROWS, fs]],
+        "max_abs_err": max(e["max_abs_err"] for e in row_errs.values()),
+        "row_errors": row_errs, "ms": flash_ms,
+        "tflops": flash_flops(fb, fs, fs, fh, fd, True) / flash_ms / 1e9,
+        "plain_ms": None,
+        "plain_not_run": f"its ({fb}, {fh}, {fs}, {fs}) fp32 scores would be "
+                         f"{fb * fh * fs * fs * 4 / 1e9:.0f} GB",
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": device_ms(library, 5),
+        "library_max_abs_diff_from_kernel": lib_diff,
+    }
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_lm_serve(torch):
     """internlm2-1.8b's prefill_32k and decode_32k cells at full width and
     depth through the flash kernel: the prefill cell's fn timed, then a
@@ -2219,13 +2383,11 @@ def phase_lm_serve(torch):
     import gc
 
     import numpy as np
-    import torch.nn.functional as F
 
     from repro_torch.common.treemath import tree_leaves
     from repro_torch.configs import get_arch
     from repro_torch.kernels._timing import device_ms
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.fused_infonce import ops as infonce_ops
     from repro_torch.kernels.fused_topk import ops as topk_ops
     from repro_torch.launch import steps
@@ -2252,16 +2414,6 @@ def phase_lm_serve(torch):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    def flash_launches():
-        return flash_ops.flash_attention.launches
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t1
-
     # ---- the main path, counts from 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2273,7 +2425,7 @@ def phase_lm_serve(torch):
     prefill_times, prefill_launches, out = [], [], None
     for i in range(1 + LM_SERVE_PREFILL_RUNS):
         out, before = None, flash_launches()
-        out, dt = timed(lambda: pre.fn(params, tokens))
+        out, dt = timed(torch, lambda: pre.fn(params, tokens))
         prefill_launches.append(flash_launches() - before)
         if i:
             prefill_times.append(dt)
@@ -2290,13 +2442,13 @@ def phase_lm_serve(torch):
     p_len = LM_SERVE_PROMPT
     before = flash_launches()
     (cache, logits), gen_prefill_s = timed(
-        lambda: lm.prefill(params, cfg, tokens[:, :p_len], max_seq=s))
+        torch, lambda: lm.prefill(params, cfg, tokens[:, :p_len], max_seq=s))
     gen_prefill_launches = flash_launches() - before
     ptrs = (cache.k.data_ptr(), cache.v.data_ptr())
     gen = [logits.float()]
     decode_times, before = [], flash_launches()
     for t in range(p_len, p_len + LM_SERVE_DECODE):
-        (cache, logits), dt = timed(lambda: dec.fn(params, cache, tokens[:, t]))
+        (cache, logits), dt = timed(torch, lambda: dec.fn(params, cache, tokens[:, t]))
         gen.append(logits.float())
         decode_times.append(dt)
     decode_launches = flash_launches() - before
@@ -2324,7 +2476,7 @@ def phase_lm_serve(torch):
     # generation's positions only (all (B, s, V) would be 97 GB in fp32)
     before = flash_launches()
     with torch.no_grad():
-        (x, _, _), tf_s = timed(lambda: lm.backbone(params, cfg, tokens))
+        (x, _, _), tf_s = timed(torch, lambda: lm.backbone(params, cfg, tokens))
         want = lm._head(params, cfg, x[:, p_len - 1:p_len + LM_SERVE_DECODE]).float()
     tf_launches = flash_launches() - before
     del x
@@ -2348,49 +2500,7 @@ def phase_lm_serve(torch):
     torch.cuda.empty_cache()
 
     # ---- the flash kernel at the prefill's attention (not counted)
-    fb, fs, fh, fhk, fd = FLASH_SERVE_SHAPE
-    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
-    q = torch.randn((fb, fs, fh, fd), generator=g, device=DEVICE).to(torch.bfloat16)
-    k = torch.randn((fb, fs, fhk, fd), generator=g, device=DEVICE).to(torch.bfloat16)
-    v = torch.randn((fb, fs, fhk, fd), generator=g, device=DEVICE).to(torch.bfloat16)
-    flash_out = flash_ops.flash_attention(q, k, v, causal=True)
-    require(bool(torch.isfinite(flash_out.float()).all()), "flash at S=32768: non-finite output")
-    row_errs = {}
-    for start in (0, fs - FLASH_SERVE_ROWS):
-        rows, keys = slice(start, start + FLASH_SERVE_ROWS), slice(0, start + FLASH_SERVE_ROWS)
-        err = flash_ref.flash_attention_error(flash_out[:, rows], q[:, rows], k[:, keys],
-                                              v[:, keys], causal=True, q_offset=start)
-        require(flash_ref.error_ok(err, torch.bfloat16),
-                f"flash at S=32768, rows from {start}: kernel departs from the plain version: "
-                f"{err}")
-        row_errs[f"rows_{start}"] = err
-
-    def library():
-        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), is_causal=True,
-                                              scale=fd ** -0.5, enable_gqa=True)
-
-    lib_diff = (library().transpose(1, 2).float() - flash_out.float()).abs().max().item()
-    del flash_out
-    flash_ms = device_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True), 5)
-    bound_ms, bound_by = flash_bound_ms(fb, fs, fs, fh, fhk, fd, True, False, 2)
-    flash_serve = {
-        "B": fb, "S": fs, "H": fh, "Hk": fhk, "D": fd, "causal": True,
-        "tiles": "x".join(map(str, flash_ops._plan(fb, fs, fs, fh, fd, q.dtype,
-                                                   q.device.index, True))),
-        "rows_checked": [[0, FLASH_SERVE_ROWS], [fs - FLASH_SERVE_ROWS, fs]],
-        "max_abs_err": max(e["max_abs_err"] for e in row_errs.values()),
-        "row_errors": row_errs, "ms": flash_ms,
-        "tflops": flash_flops(fb, fs, fs, fh, fd, True) / flash_ms / 1e9,
-        "plain_ms": None,
-        "plain_not_run": f"its ({fb}, {fh}, {fs}, {fs}) fp32 scores would be "
-                         f"{fb * fh * fs * fs * 4 / 1e9:.0f} GB",
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": device_ms(library, 5),
-        "library_max_abs_diff_from_kernel": lib_diff,
-    }
-    del q, k, v
-    gc.collect()
-    torch.cuda.empty_cache()
+    flash_serve = flash_at_serve_shape(torch, FLASH_SERVE_SHAPE)
 
     # ---- one prefill profiled (its cache dropped before the next run)
     prefill_profile = profile_step_share(torch, lambda: pre.fn(params, tokens))
@@ -2457,6 +2567,318 @@ def phase_lm_serve(torch):
         "max_memory_allocated": peak_bytes, "flash_attention_launches": main_launches,
         "flash_attention_paths": main_paths, "other_launches": other,
         "flash_attention_s32768": flash_serve,
+        "profile_decode": {"scope": f"one decode_32k step (B = {b}, {s} slots)",
+                           **decode_profile},
+        "profile_prefill": {"scope": f"one prefill_32k run ({b} x {s} tokens)",
+                            **prefill_profile},
+    }
+
+
+def moe_parts_ms(torch, lp, cfg, y):
+    """Device ms of one MoE FFN and of its parts on tokens y (T, d) with
+    one layer's params lp: the routing (router, top-k, dispatch and combine
+    tensors), the dispatch einsum, the experts' three einsums and SwiGLU,
+    the combine einsum; their TFLOP by shape; the dropped share."""
+    from repro_torch.kernels._timing import device_ms
+    from repro_torch.models import moe
+
+    mc = cfg.moe
+    t, d = y.shape
+    g = min(mc.group_size, t)
+    n, cap = t // g, moe._capacity(g, mc)
+    xs, s_disp, s_comb = y.reshape(n, g, d), "Ggec,Ggd->Gecd", "Ggec,Gecd->Ggd"
+    _, disp, combine, _, _ = moe._route(lp["router"].float(), xs, mc, cap)
+    xe = torch.einsum(s_disp, disp, xs)
+    ye = moe._experts(lp, xe)
+    slots = n * mc.n_experts * cap                  # expert rows, padding included
+    out = {
+        "tokens": t, "groups": n, "group": g, "capacity": cap, "expert_rows": slots,
+        "route_ms": device_ms(lambda: moe._route(lp["router"].float(), xs, mc, cap), 3),
+        "dispatch_ms": device_ms(lambda: torch.einsum(s_disp, disp, xs), 3),
+        "experts_ms": device_ms(lambda: moe._experts(lp, xe), 3),
+        "combine_ms": device_ms(lambda: torch.einsum(s_comb, combine, ye), 3),
+        "moe_ffn_ms": device_ms(lambda: moe.moe_ffn(lp, y, mc), 3),
+        "dispatch_combine_tflop": 2 * 2.0 * t * mc.n_experts * cap * d / 1e12,
+        "experts_tflop": 3 * 2.0 * slots * d * mc.d_expert / 1e12,
+        "dropped_frac": moe.moe_ffn(lp, y, mc)[1]["moe_dropped_frac"].item(),
+    }
+    del disp, combine, xe, ye
+    return out
+
+
+def phase_moe_serve(torch):
+    """olmoe-1b-7b's prefill_32k and decode_32k cells at full width and
+    depth through the flash kernel: the prefill cell's fn timed, then a
+    prompt of whole groups prefilled (its cache rows held to the cell's)
+    and MOE_SERVE_DECODE tokens decoded through the decode cell's fn;
+    teacher forcing under the dropless twin; the flash kernel at the
+    prefill's shape against its plain version on its first and last rows;
+    a decode step and a prefill profiled, the MoE FFN's parts timed."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.common.treemath import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels._timing import device_ms
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_infonce import ops as infonce_ops
+    from repro_torch.kernels.fused_topk import ops as topk_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.attention import decode_attention
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).model_cfg, attention_impl=FLASH_IMPL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pre = steps.build_cell(MOE_ARCH, "prefill_32k", DEVICE, model_cfg=cfg,
+                           global_batch=MOE_SERVE_BATCH)
+    dec = steps.build_cell(MOE_ARCH, "decode_32k", DEVICE, model_cfg=cfg,
+                           global_batch=MOE_SERVE_BATCH)
+    b, s = tuple(pre.args[1].shape)
+    kv_shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.dh)
+    require((b, s, cfg.n_heads, cfg.n_kv_heads, cfg.dh) == FLASH_MOE_SHAPE
+            and tuple(dec.args[1].k.shape) == kv_shape,
+            f"prefill_32k tokens {(b, s)}, decode_32k cache {tuple(dec.args[1].k.shape)}, "
+            f"flash at {FLASH_MOE_SHAPE}")
+    params = pre.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(b, s), dtype=np.int32)).to(DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # ---- the main path, counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.reset_launches()
+    infonce_ops.reset_launches()
+    topk_ops.reset_launches()
+    # the prefill cell: a warm-up, then MOE_SERVE_PREFILL_RUNS timed runs;
+    # each run's cache is dropped before the next is allocated, the last
+    # one's kept for the generation's prompt rows
+    prefill_times, prefill_launches, out = [], [], None
+    for i in range(1 + MOE_SERVE_PREFILL_RUNS):
+        out, before = None, flash_launches()
+        out, dt = timed(torch, lambda: pre.fn(params, tokens))
+        prefill_launches.append(flash_launches() - before)
+        if i:
+            prefill_times.append(dt)
+        print(f"[moe_serve] prefill {i}: {dt:.3f} s", file=sys.stderr, flush=True)
+    cell_cache, cell_logits = out
+    del out
+    cell_ok = (bool(torch.isfinite(cell_logits.float()).all())
+               and tuple(cell_logits.shape) == (b, cfg.vocab_size)
+               and bool((cell_cache.length == s).all()) and tuple(cell_cache.k.shape) == kv_shape)
+    del cell_logits
+
+    # the generation at the config's capacity: the prompt's groups are the
+    # cell's, so its cache rows are the cell's; then decode steps through
+    # the decode cell's fn, each timed
+    p_len = MOE_SERVE_PROMPT
+    before = flash_launches()
+    (cache, logits), gen_prefill_s = timed(
+        torch, lambda: lm.prefill(params, cfg, tokens[:, :p_len], max_seq=s))
+    gen_prefill_launches = flash_launches() - before
+    rows = {"mean_abs_diff": 0.0, "max_abs_diff": 0.0, "equal_share": 0.0}
+    for got, want in ((cache.k, cell_cache.k), (cache.v, cell_cache.v)):
+        for i in range(cfg.n_layers):
+            diff = (got[i, :, :p_len].float() - want[i, :, :p_len].float()).abs()
+            rows["mean_abs_diff"] += diff.mean().item() / (2 * cfg.n_layers)
+            rows["max_abs_diff"] = max(rows["max_abs_diff"], diff.max().item())
+            rows["equal_share"] += (diff == 0).float().mean().item() / (2 * cfg.n_layers)
+    del cell_cache, diff
+    ptrs = (cache.k.data_ptr(), cache.v.data_ptr())
+    gen = [logits.float()]
+    decode_times, before = [], flash_launches()
+    for t in range(p_len, p_len + MOE_SERVE_DECODE):
+        (cache, logits), dt = timed(torch, lambda: dec.fn(params, cache, tokens[:, t]))
+        gen.append(logits.float())
+        decode_times.append(dt)
+    decode_launches = flash_launches() - before
+    gen = torch.stack(gen, 1)                                   # (B, 1 + decode, V)
+    gen_finite = bool(torch.isfinite(gen).all())
+    lengths = cache.length.tolist()
+    in_place = (cache.k.data_ptr(), cache.v.data_ptr()) == ptrs
+    del gen
+    print(f"[moe_serve] decode: median {statistics.median(decode_times) * 1e3:.2f} ms a step",
+          file=sys.stderr, flush=True)
+    # where a decode step's time goes: the step profiled (it writes one
+    # more row, past the generation's), the plain decode attention of one
+    # layer, the MoE FFN's parts on the step's B tokens, and the cast of the
+    # fp32 params to bf16 that every step does
+    decode_profile = profile_step_share(
+        torch, lambda: dec.fn(params, cache, tokens[:, 0]))
+    q1 = torch.randn((b, 1, cfg.n_heads, cfg.dh), device=DEVICE).to(cfg.dtype)
+    attn_layer_ms = device_ms(lambda: decode_attention(
+        q1, cache.k[0], cache.v[0], cache_len=cache.length + 1), 5)
+    del cache, q1
+    layer0 = {key: leaf[0] for key, leaf in params["layers"]["ffn"].items()}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    decode_parts = moe_parts_ms(torch, layer0, cfg, torch.randn(
+        (b, cfg.d_model), generator=g, device=DEVICE).to(cfg.dtype))
+    cast = tree_leaves([params["layers"]["attn"], params["layers"]["ffn"],
+                        params.get("lm_head")])
+    cast_ms = device_ms(lambda: [t.to(cfg.dtype) for t in cast], 5)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # teacher forcing under the dropless twin: prefill, decode steps, then
+    # one forward over the same tokens, its logits at the generation's
+    # positions only
+    tf_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k, group_size=MOE_TF_GROUP))
+    tf_end = MOE_TF_PROMPT + MOE_TF_DECODE
+
+    def dropless_generation(fault_step=None):
+        """The twin's prompt prefilled and MOE_TF_DECODE tokens decoded ->
+        (the logits (B, 1 + decode, V), the prefill's flash launches); the
+        decode step fault_step is fed the next token id instead of its own."""
+        before = flash_launches()
+        cache, logits = lm.prefill(params, tf_cfg, tokens[:, :MOE_TF_PROMPT],
+                                   max_seq=MOE_TF_SLOTS)
+        launches = flash_launches() - before
+        gen = [logits.float()]
+        for i, t in enumerate(range(MOE_TF_PROMPT, tf_end)):
+            token = tokens[:, t] if i != fault_step else (tokens[:, t] + 1) % cfg.vocab_size
+            cache, logits = lm.decode_step(params, tf_cfg, cache, token)
+            gen.append(logits.float())
+        return torch.stack(gen, 1), launches
+
+    tf_gen, tf_prefill_launches = dropless_generation()
+    before = flash_launches()
+    with torch.no_grad():
+        (x, _, _), tf_s = timed(
+            torch, lambda: lm.backbone(params, tf_cfg, tokens[:, :MOE_TF_SLOTS]))
+        want = lm._head(params, tf_cfg, x[:, MOE_TF_PROMPT - 1:tf_end]).float()
+    tf_launches = flash_launches() - before
+    del x
+    control_gen, control_launches = dropless_generation(MOE_TF_FAULT_STEP)
+    control = (control_gen - want).abs().mean(-1)               # (B, 1 + decode)
+    del control_gen
+    main_launches = flash_launches()                 # read just after the main path
+    main_paths = dict(flash_ops.flash_attention.paths)
+    other = {"fused_infonce": sum(getattr(infonce_ops, f"fused_infonce_{k}").launches
+                                  for k in ("fwd", "dq", "dp")),
+             "fused_topk": topk_ops.fused_topk.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    diff = (tf_gen - want).abs()
+    tf_finite = bool(torch.isfinite(tf_gen).all()) and bool(torch.isfinite(want).all())
+    tf = {"group": MOE_TF_GROUP, "capacity_factor": tf_cfg.moe.capacity_factor,
+          "prompt": MOE_TF_PROMPT, "decode_steps": MOE_TF_DECODE, "slots": MOE_TF_SLOTS,
+          "positions": [MOE_TF_PROMPT - 1, tf_end - 1],
+          "mean_abs_diff": diff.mean().item(), "max_abs_diff": diff.max().item(),
+          "prefill_mean_abs_diff": diff[:, 0].mean().item(),
+          "decode_mean_abs_diff": diff[:, 1:].mean().item(),
+          "decode_max_abs_diff": diff[:, 1:].max().item(),
+          "position_mean_abs_diff_max": diff.mean(-1).max().item(),
+          "control_fault_step": MOE_TF_FAULT_STEP,
+          "control_fault_position_mean_abs_diff": control[:, MOE_TF_FAULT_STEP + 1].tolist(),
+          "control_position_mean_abs_diff_max": control.max().item(),
+          "positions_over_lm_serve_max": int((diff.amax(-1) > LM_SERVE_TF_MAX).sum()),
+          "top1_agreement": (tf_gen.argmax(-1) == want.argmax(-1)).float().mean().item(),
+          "logit_std": want.std().item(), "forward_s": tf_s}
+    del tf_gen, want, diff, control
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the flash kernel at the prefill's attention (not counted)
+    flash_moe = flash_at_serve_shape(torch, FLASH_MOE_SHAPE)
+
+    # ---- one prefill profiled (its cache dropped before the next run), and
+    # the MoE FFN's parts on the prefill's B x S tokens
+    prefill_profile = profile_step_share(torch, lambda: pre.fn(params, tokens))
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill_parts = moe_parts_ms(torch, layer0, cfg, torch.randn(
+        (b * s, cfg.d_model), generator=g, device=DEVICE).to(cfg.dtype))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    del params, tokens, layer0, cast
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    per_pass = cfg.n_layers
+    require(cell_ok, "the prefill cell's cache or logits are not what its shape says, or "
+                     "not finite")
+    require(rows["mean_abs_diff"] <= LM_SERVE_TF_MEAN and rows["max_abs_diff"] <= LM_SERVE_TF_MAX,
+            f"the generation's prompt cache rows against the prefill cell's: {rows}")
+    require(gen_finite and tf_finite, "non-finite generation or teacher-forced logits")
+    require(tf["mean_abs_diff"] <= MOE_TF_MEAN and tf["max_abs_diff"] <= MOE_TF_MAX
+            and tf["position_mean_abs_diff_max"] <= MOE_TF_POSITION_MEAN,
+            f"dropless generation against teacher forcing: {tf}")
+    require(min(tf["control_fault_position_mean_abs_diff"]) > MOE_TF_POSITION_MEAN,
+            f"a wrong token at decode step {MOE_TF_FAULT_STEP} passes the per-position check: "
+            f"{tf}")
+    require(lengths == [p_len + MOE_SERVE_DECODE] * b, f"cache.length ends at {lengths}")
+    require(in_place, "decode moved the cache: its data_ptr changed")
+    require(prefill_launches == [per_pass] * (1 + MOE_SERVE_PREFILL_RUNS)
+            and gen_prefill_launches == tf_prefill_launches == tf_launches == per_pass
+            and control_launches == per_pass and decode_launches == 0,
+            f"flash_attention launched {prefill_launches} a prefill cell run, "
+            f"{gen_prefill_launches} in the generation's prefill, {decode_launches} in its "
+            f"decode, {tf_prefill_launches}, {tf_launches} and {control_launches} in the "
+            f"dropless prefill, forward and control prefill; want {per_pass}, {per_pass}, 0 "
+            f"and {per_pass} each")
+    require(main_paths["hopper"] == main_launches,
+            f"flash_attention took {main_paths}, not all the bf16 Hopper kernel")
+    require(other == {"fused_infonce": 0, "fused_topk": 0}, f"moe_serve launched {other}")
+    require(peak_bytes < MOE_SERVE_PEAK_BYTES, f"moe_serve peak memory {peak_bytes / 1e9:.1f} GB")
+    require(bool(prefill_profile.get("flash_launches")) and bool(prefill_profile.get("flash_ms")),
+            f"the profiled prefill shows no flash_fwd_kernel time: {prefill_profile}")
+    prefill_s = statistics.median(prefill_times)
+    decode_s = statistics.median(decode_times)
+    kv_bytes = dec.static_info["kv_cache_bytes"]
+
+    def shares(parts, profile):
+        """The MoE parts' device time over all layers, as shares of the
+        profiled run's kernel time."""
+        if not profile.get("device_ms"):
+            return None
+        return {f"{key[:-3]}_share": parts[key] * cfg.n_layers / profile["device_ms"]
+                for key in ("route_ms", "dispatch_ms", "experts_ms", "combine_ms", "moe_ffn_ms")}
+
+    return {
+        "model": f"{MOE_ARCH} MoE causal LM (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+                 f"{cfg.n_kv_heads} KV heads of {cfg.dh}, {cfg.moe.n_experts} experts, top "
+                 f"{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}, capacity factor "
+                 f"{cfg.moe.capacity_factor}, groups of {cfg.moe.group_size}, vocab "
+                 f"{cfg.vocab_size}; all {cfg.n_layers} layers; seeded init; attention "
+                 f"{FLASH_IMPL})",
+        "cells": {name: {"global_batch": [get_arch(MOE_ARCH).shapes[name].params["global_batch"],
+                                          b], "seq_len": s}
+                  for name in ("prefill_32k", "decode_32k")},
+        "params": pre.static_info["params"], "active_params": pre.static_info["active_params"],
+        "param_bytes": param_bytes, "setup_s": setup_s,
+        "prefill": {"runs_s": prefill_times, "median_s": prefill_s,
+                    "tokens_per_s": pre.static_info["tokens_per_step"] / prefill_s,
+                    "model_flops": pre.static_info["model_flops"],
+                    "model_flops_share": pre.static_info["model_flops"] / prefill_s
+                    / PEAK_BF16_FLOPS,
+                    "model_flops_leave_out": "the capacity-padded expert rows and the "
+                                             "dispatch and combine einsums (moe_parts)",
+                    "flash_launches_per_run": prefill_launches},
+        "generation": {"prompt": p_len, "decode_steps": MOE_SERVE_DECODE, "slots": s,
+                       "prefill_s": gen_prefill_s, "lengths_at_end": lengths,
+                       "cache_in_place": in_place, "prompt_rows_vs_cell": rows},
+        "decode": {"step_times_s": decode_times, "median_ms": decode_s * 1e3,
+                   "tokens_per_s": b / decode_s,
+                   "kv_cache_bytes": kv_bytes,
+                   "bytes_per_step": param_bytes + kv_bytes,
+                   "byte_share": (param_bytes + kv_bytes) / decode_s / PEAK_BYTES_PER_S,
+                   "bound_ms_bf16_params": (param_bytes // 2 + kv_bytes) / PEAK_BYTES_PER_S
+                   * 1e3,
+                   "bound_ms_fp32_params": (param_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3,
+                   "attention_ms_per_layer": attn_layer_ms,
+                   "attention_ms_per_step": attn_layer_ms * cfg.n_layers,
+                   "param_cast_ms": cast_ms,
+                   "flash_launches": decode_launches},
+        "teacher_forcing_dropless": tf,
+        "moe_parts_decode": {**decode_parts, **(shares(decode_parts, decode_profile) or {})},
+        "moe_parts_prefill": {**prefill_parts, **(shares(prefill_parts, prefill_profile) or {})},
+        "max_memory_allocated": peak_bytes, "flash_attention_launches": main_launches,
+        "flash_attention_paths": main_paths, "other_launches": other,
+        "flash_attention_s32768": flash_moe,
         "profile_decode": {"scope": f"one decode_32k step (B = {b}, {s} slots)",
                            **decode_profile},
         "profile_prefill": {"scope": f"one prefill_32k run ({b} x {s} tokens)",
@@ -2833,6 +3255,11 @@ def main(argv=None) -> int:
           "nvidia_smi": smi})
 
     t0 = time.perf_counter()
+    moe_serve = phase_moe_serve(torch)
+    emit({"phase": "moe_serve", **moe_serve, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
     recsys = phase_recsys(torch)
     emit({"phase": "recsys", **recsys, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
@@ -2893,7 +3320,8 @@ def main(argv=None) -> int:
     flash_by_path = {"flash_train": flash["train"]["flash_attention_launches"],
                      "lm": lm["flash_attention_launches"],
                      "lm_train": lm_train["flash_attention_launches"],
-                     "lm_serve": lm_serve["flash_attention_launches"]}
+                     "lm_serve": lm_serve["flash_attention_launches"],
+                     "moe_serve": moe_serve["flash_attention_launches"]}
     lines.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -2909,8 +3337,9 @@ def main(argv=None) -> int:
                              "tiles": flash_k[name]["tiles"],
                              **{key: flash_k[name][key] for key in timed}}
            for name in FLASH_LM_PATH_SHAPES},
-        "lm_serve_shape": {key: lm_serve["flash_attention_s32768"][key] for key in (
-            "B", "S", "H", "Hk", "D", "causal", "tiles", "plain_not_run", *timed)},
+        **{f"{name}_shape": {key: phase["flash_attention_s32768"][key] for key in (
+            "B", "S", "H", "Hk", "D", "causal", "tiles", "plain_not_run", *timed)}
+           for name, phase in (("lm_serve", lm_serve), ("moe_serve", moe_serve))},
     })
     # embedding_bag at the dcn-v2 stacked table; no path of the port calls it
     # (the recsys models gather, as in JAX), so its launches are the kernels

@@ -29,8 +29,9 @@ that entry (a smaller microbatch to fit one card), and
 smaller batch, or a smaller cache, to fit one card). JAX's sharding specs
 have no meaning on one device and are left out.
 
-Not yet ported: the MoE and SchNet cells (ROADMAP A9c/A9e) and the
-contrastive and retrieval cells of dpr-bert-base (A10).
+The LM cells take the dense archs and the MoE one (olmoe-1b-7b) alike.
+Not yet ported: the SchNet cells (ROADMAP A9e) and the contrastive and
+retrieval cells of dpr-bert-base (A10).
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def _make_tx(arch_id: str, *, lr: float = 3e-4, clip: float = 1.0):
     """Clip, then AdamW with fp32 moments on the JAX package's schedule.
     ``arch_id`` keeps the JAX signature: the JAX package gives bf16 moments
     only to qwen1.5-110b and qwen3-moe-235b-a22b, which the port does not
-    register yet (ROADMAP A9c)."""
+    register yet (dry-run configs, ROADMAP A10)."""
     sched = linear_warmup_linear_decay(lr, 2000, 200_000)
     return chain(clip_by_global_norm(clip), adamw(sched, moment_dtype=torch.float32))
 

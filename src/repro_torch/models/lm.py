@@ -5,8 +5,9 @@ next-token cross entropy ``lm_loss``, and serving: ``KVCache``,
 ``prefill`` and ``decode_step``.
 
 Modern pre-norm transformer: RMSNorm, RoPE (split halves), GQA attention
-through ``models.attention.attention`` (causal, no key mask), SwiGLU FFN,
-optional QKV bias, optionally tied embeddings. Parameters are nested dicts
+through ``models.attention.attention`` (causal, no key mask), SwiGLU FFN or
+the mixture-of-experts FFN of ``models.moe`` (``LMConfig.moe``), optional
+QKV bias, optionally tied embeddings. Parameters are nested dicts
 of tensors in the JAX package's layout, the per-layer weights stacked on a
 leading ``n_layers`` axis under ``layers``, so ``compat.params_to_torch``
 carries a JAX tree across unchanged.
@@ -34,8 +35,11 @@ device index (no host sync a token): it consumes its input cache, as the
 JAX decode cell donates it, and the cache it returns shares its storage.
 Both run under ``torch.no_grad()``.
 
-Not here yet: MoE layers (``LMConfig.moe``; ROADMAP A9c), for which
-``init_lm``, ``_block``, ``prefill`` and ``decode_step`` raise.
+An MoE layer routes its tokens as JAX's does: the (B*S, d) tokens of a
+forward or a prefill in groups of ``group_size``, the B tokens of a decode
+step as one group, so a token's capacity drops depend on the tokens it is
+grouped with. ``backbone`` returns the layers' mean ``moe_aux_loss``, which
+``lm_loss`` adds to the token loss.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from collections.abc import Mapping
-from typing import Any, NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 from torch.utils.checkpoint import (
@@ -56,6 +60,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.precision import STATS_DTYPE
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +77,7 @@ class LMConfig:
     qkv_bias: bool = False
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
-    moe: Optional[Any] = None             # JAX's MoEConfig; not yet ported (ROADMAP A9c)
+    moe: Optional[MoEConfig] = None
     # execution
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -116,14 +121,6 @@ class KVCache(NamedTuple):
     length: torch.Tensor   # (B,) int32: the valid prefix
 
 
-def _require_dense(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (LMConfig.moe) are not yet ported to repro_torch "
-            "(ROADMAP A9c)"
-        )
-
-
 def init_lm(
     cfg: LMConfig,
     generator: torch.Generator,
@@ -133,7 +130,6 @@ def init_lm(
     on ``device`` (CUDA unless ``device="cpu"``), in ``cfg.param_dtype``.
     ``device="meta"`` gives the tree's shapes and types, allocating and
     drawing nothing (a cell's stand-in inputs)."""
-    _require_dense(cfg)
     meta = device is not None and torch.device(device).type == "meta"
     device = torch.device("meta") if meta else resolve_device(device)
     draw_on = device if meta else generator.device
@@ -160,11 +156,14 @@ def init_lm(
         attn["bq"] = const((nl, h * dh), 0.0)
         attn["bk"] = const((nl, hk * dh), 0.0)
         attn["bv"] = const((nl, hk * dh), 0.0)
-    ffn = {
-        "w_gate": stack((d, cfg.d_ff), d),
-        "w_up": stack((d, cfg.d_ff), d),
-        "w_down": stack((cfg.d_ff, d), cfg.d_ff),
-    }
+    if cfg.moe is not None:
+        ffn = init_moe(generator, d, cfg.moe, nl, pd, device)
+    else:
+        ffn = {
+            "w_gate": stack((d, cfg.d_ff), d),
+            "w_up": stack((d, cfg.d_ff), d),
+            "w_down": stack((cfg.d_ff, d), cfg.d_ff),
+        }
     params = {
         "embed": normal((cfg.vocab_size, d), 0.02),
         "layers": {
@@ -203,20 +202,24 @@ def _qkv(cfg: LMConfig, lp, x, cos, sin):
 
 def _out_ffn(cfg: LMConfig, lp, x, o):
     """The rest of one block: the output projection of the attention's o
-    (B, S, H, Dh) onto the residual x (B, S, d), then the SwiGLU FFN."""
-    b, s, _ = x.shape
+    (B, S, H, Dh) onto the residual x (B, S, d), then the FFN: SwiGLU, or
+    the MoE on the (B*S, d) tokens. Returns (x', the MoE's metrics, {}
+    without MoE)."""
+    b, s, d = x.shape
     dt = cfg.dtype
     x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(dt)
     y = L.rms_norm(lp["ln2"], x, eps=cfg.norm_eps)
     fp = lp["ffn"]
+    if cfg.moe is not None:
+        ff, aux = moe_ffn(fp, y.reshape(b * s, d), cfg.moe)
+        return x + ff.reshape(b, s, d), aux
     ff = L.swiglu(y @ fp["w_gate"].to(dt), y @ fp["w_up"].to(dt)) @ fp["w_down"].to(dt)
-    return x + ff
+    return x + ff, {}
 
 
 def _block(cfg: LMConfig, lp, x, cos, sin, *, kv_mask=None, causal=True):
     """One transformer block. lp: per-layer params (no leading L dim).
     x: (B, S, d). Returns (x', aux_metrics, (k, v))."""
-    _require_dense(cfg)
     q, k, v = _qkv(cfg, lp, x, cos, sin)
     o = attention(
         q, k, v,
@@ -226,7 +229,8 @@ def _block(cfg: LMConfig, lp, x, cos, sin, *, kv_mask=None, causal=True):
         q_chunk=cfg.q_chunk,
         kv_chunk=cfg.kv_chunk,
     )
-    return _out_ffn(cfg, lp, x, o), {}, (k, v)
+    x, aux = _out_ffn(cfg, lp, x, o)
+    return x, aux, (k, v)
 
 
 #: the matmuls with no batch dimension (each projection: activations x a
@@ -268,38 +272,38 @@ def _per_layer(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _layers(params, cfg: LMConfig, tokens: torch.Tensor, store_kv=None) -> torch.Tensor:
+def _layers(params, cfg: LMConfig, tokens: torch.Tensor, store_kv=None):
     """tokens (B, S) through the embedding, every layer (under the config's
-    remat policy) and the final norm: (B, S, d). ``store_kv(i, k, v)``, if
-    given, takes layer i's (k, v) as the loop goes."""
-    _require_dense(cfg)
+    remat policy) and the final norm: ((B, S, d), the sum of the layers'
+    ``moe_aux_loss``, 0 without MoE). ``store_kv(i, k, v)``, if given,
+    takes layer i's (k, v) as the loop goes."""
     x = params["embed"][tokens].to(cfg.dtype)
     cos, sin = L.rotary_embedding(torch.arange(tokens.shape[1], device=tokens.device), cfg.dh,
                                   cfg.rope_theta, cfg.dtype)
 
     def layer_fn(x, lp):
-        x, _, kv = _block(cfg, lp, x, cos, sin, causal=True)
-        return x if store_kv is None else (x, *kv)
+        x, aux, kv = _block(cfg, lp, x, cos, sin, causal=True)
+        return x, aux.get("moe_aux_loss"), (kv if store_kv is not None else None)
 
     layer_fn = _remat_wrap(cfg, layer_fn)
+    moe_aux = torch.zeros((), dtype=STATS_DTYPE, device=x.device)
     for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
-        if store_kv is None:
-            x = layer_fn(x, lp)
-        else:
-            x, k, v = layer_fn(x, lp)
-            store_kv(i, k, v)
-    return L.rms_norm(params["final_norm"], x, eps=cfg.norm_eps)
+        x, aux, kv = layer_fn(x, lp)
+        if aux is not None:
+            moe_aux = moe_aux + aux
+        if store_kv is not None:
+            store_kv(i, *kv)
+    return L.rms_norm(params["final_norm"], x, eps=cfg.norm_eps), moe_aux
 
 
 def backbone(params, cfg: LMConfig, tokens: torch.Tensor, *, collect_cache: bool = False):
-    """tokens (B, S) -> (final hidden states (B, S, d), the mean MoE aux loss
-    (0 without MoE), the stacked (k, v) of every layer with
+    """tokens (B, S) -> (final hidden states (B, S, d), the layers' mean MoE
+    aux loss (0 without MoE), the stacked (k, v) of every layer with
     ``collect_cache`` else None)."""
     kv_list = []
-    x = _layers(params, cfg, tokens,
-                (lambda i, k, v: kv_list.append((k, v))) if collect_cache else None)
+    x, moe_aux = _layers(params, cfg, tokens,
+                         (lambda i, k, v: kv_list.append((k, v))) if collect_cache else None)
     kvs = tuple(torch.stack(t) for t in zip(*kv_list)) if collect_cache else None
-    moe_aux = torch.zeros((), dtype=STATS_DTYPE, device=x.device)
     return x, moe_aux / cfg.n_layers, kvs
 
 
@@ -381,7 +385,7 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor, *, max_seq: Optional[in
         k_cache[i, :, :s].copy_(k)
         v_cache[i, :, :s].copy_(v)
 
-    x = _layers(params, cfg, tokens, store)
+    x, _ = _layers(params, cfg, tokens, store)
     cache = KVCache(k_cache, v_cache, torch.full((b,), s, dtype=torch.int32, device=tokens.device))
     return cache, _head(params, cfg, x[:, -1:])[:, 0]
 
@@ -394,8 +398,8 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token: torch.Tensor):
     place, at position ``length[0]`` for every row (clamped to
     ``S_max - 1``, as JAX's ``dynamic_update_slice`` clamps its start), and
     the returned cache shares their storage. Each row's RoPE position is
-    its own ``length``; the attention sees its first ``length + 1`` rows."""
-    _require_dense(cfg)
+    its own ``length``; the attention sees its first ``length + 1`` rows.
+    An MoE layer routes the step's B tokens as one group."""
     dt = cfg.dtype
     x = params["embed"][token[:, None]].to(dt)                       # (B, 1, d)
     pos = cache.length
@@ -407,6 +411,6 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token: torch.Tensor):
         kc.index_copy_(1, at, k.to(kc.dtype))
         vc.index_copy_(1, at, v.to(vc.dtype))
         o = decode_attention(q, kc.to(dt), vc.to(dt), cache_len=pos + 1)
-        x = _out_ffn(cfg, lp, x, o)
+        x, _ = _out_ffn(cfg, lp, x, o)
     x = L.rms_norm(params["final_norm"], x, eps=cfg.norm_eps)
     return KVCache(cache.k, cache.v, cache.length + 1), _head(params, cfg, x)[:, 0]

@@ -48,6 +48,7 @@ from repro_torch.core.precision import apply_compute_dtype
 from repro_torch.core.types import ContrastiveConfig, DualEncoder, RetrievalBatch
 from repro_torch.models import layers
 from repro_torch.models import lm as tlm
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.towers import make_lm_dual_encoder
 from repro_torch.optim import chain, clip_by_global_norm, sgd
 
@@ -278,14 +279,15 @@ def test_remat_policies_give_the_same_values_and_grads(impl):
 
 
 def test_unknown_remat_and_moe_raise():
+    """An unknown remat policy, and an MoE layer whose B*S tokens do not
+    divide into its groups (JAX asserts; the port raises ValueError)."""
     with pytest.raises(ValueError, match="remat"):
         tlm._remat_wrap(dataclasses.replace(TINY, remat="some"), lambda x: x)
-    moe = dataclasses.replace(TINY, moe=object())
-    with pytest.raises(NotImplementedError, match="A9c"):
-        tlm.init_lm(moe, torch.Generator(), "cpu")
-    params = tlm.init_lm(TINY, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="A9c"):
-        tlm.backbone(params, moe, torch.zeros((1, 8), dtype=torch.long))
+    moe = dataclasses.replace(TINY, d_ff=0, moe=MoEConfig(n_experts=4, top_k=2, d_expert=16,
+                                                          group_size=16))
+    params = tlm.init_lm(moe, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="not divisible by group size 16"):
+        tlm.backbone(params, moe, torch.zeros((3, 8), dtype=torch.long))
 
 
 # ------------------------------------------- precision and the dual encoder
@@ -430,7 +432,7 @@ def test_contaccum_step_of_a_shared_lm_dual_encoder_matches_jax(loss_impl):
 
 
 # ----------------------------------------------------------------- configs
-@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "stablelm-3b"])
+@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "stablelm-3b", "olmoe-1b-7b"])
 def test_registered_lm_configs_equal_jax(arch_id):
     mine, theirs = get_arch(arch_id), jax_get_arch(arch_id)
     a, b = dataclasses.asdict(mine.model_cfg), dataclasses.asdict(theirs.model_cfg)

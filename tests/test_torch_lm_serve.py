@@ -233,7 +233,7 @@ def _mesh():
 
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
-@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "stablelm-3b"])
+@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "stablelm-3b", "olmoe-1b-7b"])
 def test_meta_build_matches_jax(arch_id, shape):
     """The full cells build on meta tensors (allocating nothing), with JAX's
     input shapes and types and its static_info."""

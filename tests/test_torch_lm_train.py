@@ -275,7 +275,7 @@ def test_meta_build_matches_jax(micro_batches, want):
     assert len(tree_leaves(state.opt)) == len(jax.tree_util.tree_leaves(jprog.args[0].opt))
 
 
-@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "stablelm-3b"])
+@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "stablelm-3b", "olmoe-1b-7b"])
 @pytest.mark.parametrize("train", [True, False])
 def test_lm_flops_equal_jax(arch_id, train):
     cfg, jcfg = get_arch(arch_id).model_cfg, jax_get_arch(arch_id).model_cfg

@@ -172,7 +172,7 @@ def _cells(shapes):
 
 def test_configs_and_shapes_equal_jax():
     assert list_archs() == ["dcn-v2", "deepfm", "dlrm-mlperf", "dlrm-rm2", "internlm2-1.8b",
-                            "stablelm-3b"]
+                            "olmoe-1b-7b", "stablelm-3b"]
     assert _cells(RECSYS_SHAPES) == _cells(JAX_RECSYS_SHAPES)
     for arch_id in list_archs():
         mine, theirs = get_arch(arch_id), jax_get_arch(arch_id)
@@ -249,7 +249,7 @@ def test_three_train_steps_match_jax():
 
 def test_cells_build_on_meta_and_other_kinds_raise():
     cells = steps.list_cells()
-    assert len(cells) == 24 and ("dcn-v2", "train_batch") in cells
+    assert len(cells) == 28 and ("dcn-v2", "train_batch") in cells
     prog = steps.build_cell("dcn-v2", "train_batch", "cpu")
     state, dense, sparse, labels = prog.args
     assert state.params["table"].device.type == "meta"
