@@ -52,9 +52,10 @@ Phases, one JSON line each:
                path runs yet (internlm2-1.8b: S=4096, H=16, Hk=8, D=128;
                stablelm-3b: S=2048, H=Hk=32, D=80; causal, bf16), the
                lm phase's passes (B=8, S=32 and 256, H=16, Hk=8, D=128,
-               causal, bf16) and the lm_train phase's (B=8, S=4096, H=16,
-               Hk=8, D=128, causal, bf16; the lm_serve phase checks and
-               times S=32768); kernel
+               causal, bf16), the lm_train phase's (B=8, S=4096, H=16,
+               Hk=8, D=128, causal, bf16) and the moe_train phase's (B=8,
+               S=4096, H=Hk=16, D=128; the lm_serve and moe_serve phases
+               check and time S=32768); kernel
                (also with the host's enqueue), plain, library
                (scaled_dot_product_attention) and bound times, TFLOP/s and
                the tile plan at each shape, and the registers, shared
@@ -223,7 +224,32 @@ Phases, one JSON line each:
                and none a decode step, all on the Hopper path, no
                fused_infonce or fused_topk launch, peak memory under
                MOE_SERVE_PEAK_BYTES.
- 12. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
+ 12. moe_train - MoE training: olmoe-1b-7b's train_4k cell (launch/steps.py's
+               train program; the gradient of the token loss plus moe_aux)
+               at full width, cut to MOE_TRAIN_LAYERS of 16 layers, 32
+               microbatches of 8 x 4096 tokens, attention through the flash
+               kernel (causal MHA at S=4096), remat="full", seeded weights
+               and uniform seeded tokens, MOE_TRAIN_STEPS steps. Checks: the
+               first microbatch through flash against chunked attention with
+               flash's routing replayed (loss within LM_TRAIN_LOSS_RTOL,
+               every gradient leaf within PARITY_GRAD_RTOL of its largest
+               |g|; flash's gradient at targets shifted by one must break
+               that on every leaf; a freely routed chunked run's flips at
+               most MOE_TRAIN_FLIP_SHARE of a layer's assignments; the next
+               seed's readings recorded), remat "full" against "none" on one
+               sequence (equal losses, drops and routes, the recompute
+               routing as the forward, gradients within
+               MOE_TRAIN_REMAT_GRAD_RTOL); the step-0 loss within
+               LM_TRAIN_LOSS_SLACK of ln V + 1/2 + 0.08; finite losses;
+               exactly MOE_TRAIN_LAYERS x 2 x 32 flash launches a step, all
+               Hopper, no fused_infonce or fused_topk launch; peak memory
+               under MOE_TRAIN_PEAK_BYTES. Median step, tokens/s,
+               model-flops share, the first microbatch's moe_aux and dropped
+               shares at step 0 and after the steps, one microbatch
+               profiled, and the MoE FFN's parts (routing, dispatch,
+               experts, combine) and the attention timed forward and
+               backward at its shape, as shares of its kernel time.
+ 13. recsys  - the recsys_train program of launch/steps.py for dcn-v2 at
                its train_batch cell (B=65536, every published width), with
                each field's vocabulary capped at RECSYS_ROW_CAP rows, for
                RECSYS_STEPS steps on ClickLogGenerator batches: step time,
@@ -245,6 +271,7 @@ repo's ``src/repro_torch`` beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -372,9 +399,10 @@ LM_STEPS = 6
 LM_D = 2048
 LM_EVAL_KS = (1, 5, 20)
 LM_EVAL_QUERIES = 256
-# the attention passes of the lm and lm_train phases: (B, S, H, Hk, D), causal
+# the attention passes of the lm, lm_train and moe_train phases: (B, S, H,
+# Hk, D), causal
 FLASH_LM_PATH_SHAPES = {"lm_query": (8, 32, 16, 8, 128), "lm_passage": (8, 256, 16, 8, 128),
-                        "lm_train": (8, 4096, 16, 8, 128)}
+                        "lm_train": (8, 4096, 16, 8, 128), "moe_train": (8, 4096, 16, 16, 128)}
 
 # The lm_train phase: internlm2-1.8b's train_4k cell (launch/steps.py's
 # causal-LM train program: 256 sequences of 4096 tokens a step, clip 1.0,
@@ -488,6 +516,52 @@ MOE_SERVE_PEAK_BYTES = 70e9
 # the flash kernel at the MoE prefill's attention (causal MHA), its first
 # and last FLASH_SERVE_ROWS query rows held to the plain version
 FLASH_MOE_SHAPE = (MOE_SERVE_BATCH, 32768, 16, 16, 128)
+
+# The moe_train phase: olmoe-1b-7b's train_4k cell (launch/steps.py's
+# causal-LM train program: 256 sequences of 4096 tokens a step, the
+# gradient of the token loss plus moe_aux, clip 1.0, then AdamW) at full
+# width through the flash kernel (attention_impl "pallas", remat "full"),
+# seeded weights and seeded uniform tokens, with lm_train's two cuts. Depth
+# MOE_TRAIN_LAYERS of 16: the embedding and the head are 206.0M params, a
+# layer 419.56M (16.78M attention, 0.13M router, 402.65M experts), and the
+# functional AdamW holds about 11 param-sized fp32 buffers at its peak:
+# about 300 GB at 16 layers, 46 GB at 2 (1.045B params) and 64 GB at 3, too
+# near the bound below to plan on. LM_TRAIN_MICRO_BATCHES microbatches of
+# 8 sequences: beside the about 17 GB of params, moments and gradients,
+# the flash op's fp32 backward keeps about 3.2 GB a sequence, and a layer's
+# recompute keeps 32 groups' dispatch, combine, expert buffers and SwiGLU
+# tensors in bf16 (about 0.2 GB a group of 1024) and as much again in
+# gradients.
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_PEAK_BYTES = 70e9
+# flash against chunked attention on the first microbatch. A token whose
+# router logits lie within the two routes' bf16 rounding of its k-th place
+# picks another expert on one of them, which moves its own hidden state by
+# a share of a whole expert output, the drops of its group's later tokens,
+# and through the next layer's attention every later token's state: on an
+# H100 (seeds 0 and 1) a free chunked run routed 0.30-0.32% of layer 0's
+# (token, expert) assignments and 1.78-1.83% of layer 1's apart from the
+# flash run, and every gradient leaf then parted by 0.04-0.33 of its
+# largest |g| (the phase line's "free" readings), the embedding, router and
+# expert leaves as much as the others. So the chunked run replays the
+# flash run's routing (RouteLog), every leaf is held to PARITY_GRAD_RTOL
+# (0.0155 at most there), and the control, flash's gradient at the targets
+# shifted by one against that replayed run, must break it on every leaf
+# (0.41 at least there). The free run's flips are held to at most
+# MOE_TRAIN_FLIP_SHARE of a layer's assignments.
+MOE_TRAIN_FLIP_SHARE = 0.05
+# remat "full" against "none" on one sequence, flash in both: the same
+# forward (the losses, drops and routes equal, and the recompute's routes
+# the forward's), and each gradient leaf within this share of its largest
+# |g| (the embedding's backward adds with atomics, in an order that varies)
+MOE_TRAIN_REMAT_GRAD_RTOL = 1e-3
+# the step-0 loss: ln V + 1/2 (LM_TRAIN_LOSS_SLACK) plus the aux term,
+# router_aux_weight x top_k = 0.08 at uniform routing (E sum_e f_e p_e = k
+# when each f_e = k / E and p_e = 1 / E). At these random weights the late
+# tokens of a sequence route alike (their hidden states are mostly the
+# attention's average over the same prefix), so the aux term reads more
+# (0.133 on an H100) and 24-40% of a layer's assignments drop.
 
 # fused_topk at k > 128 (row states in global memory): the k values held
 # against the plain version at the eval_topk and serve_topk shapes
@@ -2886,6 +2960,418 @@ def phase_moe_serve(torch):
     }
 
 
+def leaf_names(tree, prefix=""):
+    """The '/'-joined key paths of a param tree's leaves, in tree_leaves'
+    order."""
+    if isinstance(tree, dict):
+        return [name for key, sub in tree.items() for name in leaf_names(sub, f"{prefix}{key}/")]
+    return [prefix[:-1]]
+
+
+class RouteLog:
+    """``models.moe._route`` wrapped inside a ``with`` block: each call's
+    routed and kept masks (G, g, E) recorded as bool, in call order (under
+    remat "full" the backward calls it again for each layer, the last layer
+    first). With ``replay`` (one routed mask a layer, from another run's
+    forward), every call routes each token to the experts of that mask in
+    place of its own top k, with JAX's formulation: the gates are those
+    experts' probs renormalised, the slots the cumulative count a group."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe._route
+        moe._route = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._route
+
+    def forward_masks(self, n_layers):
+        return [routed for routed, _ in self.calls[:n_layers]]
+
+    def _call(self, router, xs, cfg, cap):
+        import torch
+
+        probs, disp, combine, mask, keep = self._route(router, xs, cfg, cap)
+        if self.replay is not None:
+            n, c = len(self.replay), len(self.calls)
+            mask = self.replay[c if c < n else 2 * n - 1 - c].to(probs.dtype)
+            gates = probs * mask
+            if cfg.normalize_top_k:
+                gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+            pos = torch.cumsum(mask, dim=-2) - 1.0
+            keep = mask * (pos < cap).to(torch.float32)
+            slot = torch.where(keep > 0, pos, -1.0)
+            disp = (slot[..., None] == torch.arange(cap, dtype=slot.dtype, device=xs.device)
+                    ).to(xs.dtype)
+            combine = disp * gates[..., None].to(xs.dtype)
+        self.calls.append((mask.bool(), keep.bool()))
+        return probs, disp, combine, mask, keep
+
+
+def routing_diff(a, b):
+    """Per layer, the (token, expert) assignments routed differently by two
+    runs' masks (each moved assignment counted once) and the tokens with
+    any such move."""
+    return {"assignments_moved": [int((x != y).sum()) // 2 for x, y in zip(a, b)],
+            "tokens_moved": [int((x != y).any(-1).sum()) for x, y in zip(a, b)]}
+
+
+def dropped_shares(log, n_layers):
+    """Each layer's dropped share in a run's forward: 1 - kept / routed."""
+    return [1.0 - keep.sum().item() / routed.sum().item()
+            for routed, keep in log.calls[:n_layers]]
+
+
+def moe_train_parts_ms(torch, lp, cfg, y):
+    """Device ms of the MoE FFN's parts on tokens y (T, d) with one layer's
+    params lp, forward (``moe_parts_ms``) and backward: each part's
+    autograd backward from a seeded output gradient to its inputs (routing:
+    the combine tensor back to the router and the tokens; dispatch: the
+    buffers back to the tokens; experts: their outputs back to the buffers
+    and the three weights; combine: the output back to the combine tensor
+    and the experts' outputs)."""
+    from repro_torch.kernels._timing import device_ms
+    from repro_torch.models import moe
+
+    mc = cfg.moe
+    t, d = y.shape
+    g = min(mc.group_size, t)
+    n, cap = t // g, moe._capacity(g, mc)
+    gen = torch.Generator(device=y.device).manual_seed(SEED + 8)
+    router = lp["router"].detach().float().requires_grad_(True)
+    weights = {key: lp[key].detach().requires_grad_(True) for key in ("w_gate", "w_up", "w_down")}
+    xs = y.reshape(n, g, d).detach().requires_grad_(True)
+    _, disp, combine, _, _ = moe._route(router, xs, mc, cap)
+    xe = torch.einsum("Ggec,Ggd->Gecd", disp, xs)
+    xe_in = xe.detach().requires_grad_(True)
+    ye = moe._experts(weights, xe_in)
+    combine_in, ye_in = combine.detach().requires_grad_(True), ye.detach().requires_grad_(True)
+    out = torch.einsum("Ggec,Gecd->Ggd", combine_in, ye_in)
+
+    def backward_ms(output, inputs):
+        grad = torch.randn(output.shape, generator=gen, device=y.device).to(output.dtype)
+        return device_ms(lambda: torch.autograd.grad(output, inputs, grad, retain_graph=True), 3)
+
+    res = {"route_bwd_ms": backward_ms(combine, (router, xs)),
+           "dispatch_bwd_ms": backward_ms(xe, (xs,)),
+           "experts_bwd_ms": backward_ms(ye, (xe_in, *weights.values())),
+           "combine_bwd_ms": backward_ms(out, (combine_in, ye_in))}
+    del disp, combine, xe, xe_in, ye, combine_in, ye_in, out
+    return {**moe_parts_ms(torch, {key: w.detach() for key, w in lp.items()}, cfg, y), **res}
+
+
+def attention_train_ms(torch, cfg, b, s):
+    """Device ms of one layer's causal attention at the shape (b, s) of a
+    train microbatch through ``cfg.attention_impl``: the forward, and the
+    backward from a seeded output gradient to q, k and v (the flash op's
+    recomputes through autograd of chunked attention)."""
+    from repro_torch.kernels._timing import device_ms
+    from repro_torch.models.attention import attention
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+
+    def rand(heads):
+        return torch.randn((b, s, heads, cfg.dh), generator=gen, device=DEVICE).to(
+            cfg.dtype).requires_grad_(True)
+
+    q, k, v = rand(cfg.n_heads), rand(cfg.n_kv_heads), rand(cfg.n_kv_heads)
+
+    def forward():
+        return attention(q, k, v, impl=cfg.attention_impl, causal=True, q_chunk=cfg.q_chunk,
+                         kv_chunk=cfg.kv_chunk)
+
+    out = forward()
+    grad = torch.randn(out.shape, generator=gen, device=DEVICE).to(out.dtype)
+    return {"fwd_ms": device_ms(forward, 3),
+            "bwd_ms": device_ms(lambda: torch.autograd.grad(out, (q, k, v), grad,
+                                                            retain_graph=True), 3)}
+
+
+def phase_moe_train(torch):
+    """olmoe-1b-7b's train_4k cell (launch/steps.py's causal-LM train
+    program) at full width, MOE_TRAIN_LAYERS of 16 layers, through the flash
+    kernel: the first microbatch's loss and gradient through flash held
+    against chunked attention (the routing replayed, the flips counted),
+    remat "full" against "none" on one sequence, then MOE_TRAIN_STEPS
+    steps, then one microbatch profiled and the MoE FFN's parts timed."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.common.treemath import tree_leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_infonce import ops as infonce_ops
+    from repro_torch.kernels.fused_topk import ops as topk_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).model_cfg, n_layers=MOE_TRAIN_LAYERS,
+                              attention_impl=FLASH_IMPL, remat="full")
+    n_layers = cfg.n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prog = steps.build_cell(MOE_ARCH, "train_4k", DEVICE, model_cfg=cfg,
+                            micro_batches=LM_TRAIN_MICRO_BATCHES)
+    info, cell = prog.static_info, get_arch(MOE_ARCH).shapes["train_4k"].params
+    m, shape = info["microbatches"], tuple(prog.args[1].shape)
+    require(m == LM_TRAIN_MICRO_BATCHES and shape == (m, cell["global_batch"] // m,
+                                                       cell["seq_len"]),
+            f"train_4k inputs are {shape}")
+    b, s = shape[1:]
+    require((b, s, cfg.n_heads, cfg.n_kv_heads, cfg.dh) == FLASH_LM_PATH_SHAPES["moe_train"],
+            f"the microbatch's attention is not {FLASH_LM_PATH_SHAPES['moe_train']}")
+    state = prog.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    names = leaf_names(state.params)
+
+    def next_tokens(rng, size):
+        tokens = rng.integers(0, cfg.vocab_size, size=size, dtype=np.int32)
+        targets = np.roll(tokens, -1, axis=-1)
+        targets[..., -1] = -1
+        return torch.from_numpy(tokens).to(DEVICE), torch.from_numpy(targets).to(DEVICE)
+
+    rng = np.random.default_rng(SEED)
+    batches = [next_tokens(rng, shape) for _ in range(MOE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def loss_and_grads(c, params, tokens, targets, log=None):
+        """One microbatch's lm_loss forward and backward, as the train step
+        runs it: (loss, moe_aux, the gradient leaves)."""
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with log if log is not None else contextlib.nullcontext():
+            loss, aux = lm.lm_loss(leaves, c, tokens, targets)
+            loss.backward()
+        return loss.item(), aux["moe_aux"].item(), [t.grad for t in tree_leaves(leaves)]
+
+    def leaf_errs(got, want):
+        return [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
+
+    def flash_vs_chunked(params, tokens, targets, control=False):
+        """The first microbatch through flash, and through chunked attention
+        twice: routed freely (its forward's flips against flash's counted)
+        and with flash's routing replayed; each gradient leaf's largest
+        difference over its largest |g|. With ``control``, flash's gradient
+        at the targets shifted by one against the replayed run's too."""
+        chunked = dataclasses.replace(cfg, attention_impl="chunked")
+        flash_log, free_log = RouteLog(), RouteLog()
+        fl, fl_aux, fg = loss_and_grads(cfg, params, tokens, targets, flash_log)
+        flash_masks = flash_log.forward_masks(n_layers)
+        free_loss, _, free_g = loss_and_grads(chunked, params, tokens, targets, free_log)
+        free_errs = leaf_errs(free_g, fg)
+        del free_g
+        replay_log = RouteLog(replay=flash_masks)
+        cl, _, cg = loss_and_grads(chunked, params, tokens, targets, replay_log)
+        errs = leaf_errs(fg, cg)
+        del fg
+        res = {"flash_loss": fl, "chunked_loss": cl, "loss_rel_err": rel_err(fl, cl),
+               "moe_aux": fl_aux, "dropped_frac_by_layer": dropped_shares(flash_log, n_layers),
+               "grad_errs_by_leaf": dict(zip(names, errs)), "grad_err_of_max": max(errs),
+               # the replay's slots and drops are _route's on the same mask
+               "replay_keeps_as_flash": all(
+                   torch.equal(flash_log.calls[i][1], replay_log.calls[i][1])
+                   for i in range(n_layers)),
+               "flips": {**routing_diff(flash_masks, free_log.forward_masks(n_layers)),
+                         "assignments": [int(x.sum()) for x in flash_masks]},
+               "free": {"chunked_loss": free_loss, "loss_rel_err": rel_err(fl, free_loss),
+                        "grad_errs_by_leaf": dict(zip(names, free_errs))}}
+        if control:
+            shifted = torch.roll(targets, 1, dims=-1)
+            _, _, sg = loss_and_grads(cfg, params, tokens, shifted)
+            control_errs = leaf_errs(sg, cg)
+            res["control_shifted_targets"] = {"grad_errs_by_leaf": dict(zip(names, control_errs)),
+                                              "grad_err_of_min": min(control_errs)}
+            del sg
+        del cg
+        return res
+
+    # parity (a): the first microbatch, flash against chunked attention on
+    # the same params and tokens (launches not counted)
+    tokens0, targets0 = batches[0][0][0], batches[0][1][0]
+    parity = flash_vs_chunked(state.params, tokens0, targets0, control=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same with params and tokens of the next seed: recorded, not held
+    seed2 = lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(SEED + 1), device=DEVICE)
+    parity_seed2 = flash_vs_chunked(seed2, *next_tokens(np.random.default_rng(SEED + 1),
+                                                       shape[1:]))
+    del seed2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # parity (b): remat "full" against "none" on one sequence, flash in both
+    tk1, tg1 = tokens0[:1], targets0[:1]
+    full_log, none_log = RouteLog(), RouteLog()
+    full_loss, full_aux, full_g = loss_and_grads(cfg, state.params, tk1, tg1, full_log)
+    none_loss, none_aux, none_g = loss_and_grads(dataclasses.replace(cfg, remat="none"),
+                                                 state.params, tk1, tg1, none_log)
+    remat_errs = leaf_errs(full_g, none_g)
+    del full_g, none_g
+    remat = {
+        "tokens": s, "full_loss": full_loss, "none_loss": none_loss,
+        "full_moe_aux": full_aux, "none_moe_aux": none_aux,
+        "full_dropped_by_layer": dropped_shares(full_log, n_layers),
+        "none_dropped_by_layer": dropped_shares(none_log, n_layers),
+        "route_calls": [len(full_log.calls), len(none_log.calls)],
+        # the backward's recompute of layer i is call 2n - 1 - i
+        "recompute_routes_as_forward": len(full_log.calls) == 2 * n_layers and all(
+            torch.equal(full_log.calls[i][j], full_log.calls[2 * n_layers - 1 - i][j])
+            for i in range(n_layers) for j in (0, 1)),
+        "forward_routes_as_none": all(
+            torch.equal(x[j], y[j]) for x, y in zip(full_log.calls, none_log.calls)
+            for j in (0, 1)),
+        "grad_errs_by_leaf": dict(zip(names, remat_errs)), "grad_err_of_max": max(remat_errs),
+    }
+    del full_log, none_log
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the main path: MOE_TRAIN_STEPS steps of the cell, counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.reset_launches()
+    infonce_ops.reset_launches()
+    topk_ops.reset_launches()
+    losses, times, launches_per_step = [], [], []
+    for i, (tokens, targets) in enumerate(batches):
+        before = flash_ops.flash_attention.launches
+        t1 = time.perf_counter()
+        state, metrics = prog.fn(state, tokens, targets)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t1)
+        launches_per_step.append(flash_ops.flash_attention.launches - before)
+        print(f"[moe_train] step {i}: {times[-1]:.3f} s, loss {losses[-1]:.5f}", file=sys.stderr,
+              flush=True)
+    torch.cuda.synchronize()
+    flash_launches = flash_ops.flash_attention.launches      # read just after the run
+    flash_paths = dict(flash_ops.flash_attention.paths)
+    other = {"fused_infonce": sum(getattr(infonce_ops, f"fused_infonce_{k}").launches
+                                  for k in ("fwd", "dq", "dp")),
+             "fused_topk": topk_ops.fused_topk.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    final_step = int(state.step)
+
+    # the first microbatch's aux term and drops after the steps
+    after_log = RouteLog()
+    with torch.no_grad(), after_log:
+        _, after_aux = lm.lm_loss(state.params, cfg, tokens0, targets0)
+    after = {"moe_aux": after_aux["moe_aux"].item(),
+             "dropped_frac_by_layer": dropped_shares(after_log, n_layers)}
+    del after_log
+
+    # where the time goes: one microbatch under the profiler, and the MoE
+    # FFN's parts at its 8 x 4096 tokens, forward and backward
+    t1 = time.perf_counter()
+    profile = profile_step_share(torch, lambda: loss_and_grads(cfg, state.params, tokens0,
+                                                                targets0))
+    profile_s = time.perf_counter() - t1
+    layer0 = {key: leaf[0] for key, leaf in state.params["layers"]["ffn"].items()}
+    del state, batches, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    parts = moe_train_parts_ms(torch, layer0, cfg, torch.randn(
+        (b * s, cfg.d_model), generator=g, device=DEVICE).to(cfg.dtype))
+    del layer0
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn = attention_train_ms(torch, cfg, b, s)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    want_loss = math.log(cfg.vocab_size) + 0.5 + cfg.moe.router_aux_weight * cfg.moe.top_k
+    require(math.isfinite(parity["flash_loss"])
+            and parity["loss_rel_err"] <= LM_TRAIN_LOSS_RTOL,
+            f"lm_loss through flash {parity['flash_loss']} vs chunked {parity['chunked_loss']}")
+    require(parity["replay_keeps_as_flash"],
+            "the replayed routing keeps other assignments than the flash run's")
+    require(parity["grad_err_of_max"] <= PARITY_GRAD_RTOL,
+            f"lm_loss gradient through flash vs chunked (routing replayed): "
+            f"{parity['grad_errs_by_leaf']}")
+    flip_shares = [moved / total for moved, total in zip(parity["flips"]["assignments_moved"],
+                                                         parity["flips"]["assignments"])]
+    require(max(flip_shares) <= MOE_TRAIN_FLIP_SHARE,
+            f"flash and chunked attention route {flip_shares} of a layer's assignments apart")
+    require(parity["control_shifted_targets"]["grad_err_of_min"] > PARITY_GRAD_RTOL,
+            f"flash's gradient at shifted targets passes the check: "
+            f"{parity['control_shifted_targets']}")
+    require(remat["full_loss"] == remat["none_loss"]
+            and remat["full_dropped_by_layer"] == remat["none_dropped_by_layer"]
+            and remat["recompute_routes_as_forward"] and remat["forward_routes_as_none"],
+            f"remat full against none: {remat}")
+    require(remat["grad_err_of_max"] <= MOE_TRAIN_REMAT_GRAD_RTOL,
+            f"remat full against none, gradients: {remat['grad_errs_by_leaf']}")
+    require(all(math.isfinite(x) for x in losses), f"non-finite moe_train loss {losses}")
+    require(abs(losses[0] - want_loss) <= LM_TRAIN_LOSS_SLACK,
+            f"step-0 loss {losses[0]} is not within {LM_TRAIN_LOSS_SLACK} of {want_loss}")
+    require(final_step == MOE_TRAIN_STEPS, f"state.step is {final_step}")
+    per_step = n_layers * 2 * m         # forward and remat recompute, each microbatch
+    require(launches_per_step == [per_step] * MOE_TRAIN_STEPS,
+            f"flash_attention launched {launches_per_step} a step, not {per_step}")
+    require(flash_paths["hopper"] == flash_launches,
+            f"flash_attention took {flash_paths}, not all the bf16 Hopper kernel")
+    require(other == {"fused_infonce": 0, "fused_topk": 0}, f"moe_train launched {other}")
+    require(peak_bytes < MOE_TRAIN_PEAK_BYTES, f"moe_train peak memory {peak_bytes / 1e9:.1f} GB")
+    require(bool(profile.get("flash_launches")) and bool(profile.get("flash_ms")),
+            f"the profiled moe_train microbatch shows no flash_fwd_kernel time: {profile}")
+    step_s = statistics.median(times)
+    tokens_per_step = info["tokens_per_step"]
+    device_ms_ = profile.get("device_ms")
+    fwd = sum(parts[k] for k in ("route_ms", "dispatch_ms", "experts_ms", "combine_ms"))
+    bwd = sum(parts[k] for k in ("route_bwd_ms", "dispatch_bwd_ms", "experts_bwd_ms",
+                                 "combine_bwd_ms"))
+    # a microbatch runs each layer's MoE FFN and attention forward twice
+    # (the forward and the recompute) and backward once
+    shares = None if not device_ms_ else {
+        **{f"{k[:-3]}_share": 2 * parts[k] * n_layers / device_ms_
+           for k in ("route_ms", "dispatch_ms", "experts_ms", "combine_ms")},
+        **{f"{k[:-3]}_share": parts[k] * n_layers / device_ms_
+           for k in ("route_bwd_ms", "dispatch_bwd_ms", "experts_bwd_ms", "combine_bwd_ms")},
+        "moe_forward_share": 2 * fwd * n_layers / device_ms_,
+        "moe_backward_share": bwd * n_layers / device_ms_}
+    attn_shares = None if not device_ms_ else {
+        "fwd_share": 2 * attn["fwd_ms"] * n_layers / device_ms_,
+        "bwd_share": attn["bwd_ms"] * n_layers / device_ms_}
+    return {
+        "model": f"{MOE_ARCH} MoE causal LM (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+                 f"{cfg.n_kv_heads} KV heads of {cfg.dh}, {cfg.moe.n_experts} experts, top "
+                 f"{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}, capacity factor "
+                 f"{cfg.moe.capacity_factor}, groups of {cfg.moe.group_size}, vocab "
+                 f"{cfg.vocab_size}; {n_layers} of 16 layers; seeded init; remat full; "
+                 f"attention {FLASH_IMPL})",
+        "cell": "train_4k", "steps": MOE_TRAIN_STEPS, "microbatches": m,
+        "microbatch_shape": [b, s], "tokens_per_step": tokens_per_step,
+        "params": info["params"], "active_params": info["active_params"],
+        "model_flops": info["model_flops"], "setup_s": setup_s,
+        "parity": {**parity, "seed2": parity_seed2, "flip_share_by_layer": flip_shares},
+        "remat_full_vs_none": remat,
+        "losses": losses, "step0_loss_expected": want_loss,
+        "first_microbatch_step0": {"moe_aux": parity["moe_aux"],
+                                   "dropped_frac_by_layer": parity["dropped_frac_by_layer"]},
+        "first_microbatch_after": after,
+        "step_times_s": times, "median_step_s": step_s,
+        "tokens_per_s": tokens_per_step / step_s,
+        "model_flops_share": info["model_flops"] / step_s / PEAK_BF16_FLOPS,
+        "max_memory_allocated": peak_bytes, "flash_attention_launches": flash_launches,
+        "flash_launches_per_step": per_step, "flash_attention_paths": flash_paths,
+        "other_launches": other,
+        "profile": {"scope": "one microbatch: lm_loss forward and backward", **profile},
+        "profile_s": profile_s,
+        "moe_parts": {**parts, **(shares or {})},
+        "attention_parts": {"shape": [b, s, cfg.n_heads, cfg.n_kv_heads, cfg.dh], **attn,
+                            **(attn_shares or {})},
+        "flash_ms_per_step": profile["flash_ms"] / profile["flash_launches"] * per_step,
+        "microbatch_kernels_share_of_step": m * profile["device_ms"] / (step_s * 1e3),
+    }
+
+
 def bag_bound_ms(indices, n_bags: int, d: int, itemsize: int):
     """(bound_ms, "bytes", distinct rows) of one embedding_bag call: each
     distinct row read once, the indices and bag ids once (8 bytes a lookup),
@@ -3260,6 +3746,11 @@ def main(argv=None) -> int:
           "nvidia_smi": smi})
 
     t0 = time.perf_counter()
+    moe_train = phase_moe_train(torch)
+    emit({"phase": "moe_train", **moe_train, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
     recsys = phase_recsys(torch)
     emit({"phase": "recsys", **recsys, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
@@ -3321,7 +3812,8 @@ def main(argv=None) -> int:
                      "lm": lm["flash_attention_launches"],
                      "lm_train": lm_train["flash_attention_launches"],
                      "lm_serve": lm_serve["flash_attention_launches"],
-                     "moe_serve": moe_serve["flash_attention_launches"]}
+                     "moe_serve": moe_serve["flash_attention_launches"],
+                     "moe_train": moe_train["flash_attention_launches"]}
     lines.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

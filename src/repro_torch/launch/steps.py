@@ -29,9 +29,11 @@ that entry (a smaller microbatch to fit one card), and
 smaller batch, or a smaller cache, to fit one card). JAX's sharding specs
 have no meaning on one device and are left out.
 
-The LM cells take the dense archs and the MoE one (olmoe-1b-7b) alike.
-Not yet ported: the SchNet cells (ROADMAP A9e) and the contrastive and
-retrieval cells of dpr-bert-base (A10).
+The LM cells take the dense archs and the MoE ones (olmoe-1b-7b,
+qwen3-moe-235b-a22b) alike; an MoE train step takes the gradient of
+``lm_loss``'s token loss plus its ``moe_aux`` term, as JAX's does. Not yet
+ported: the SchNet cells (ROADMAP A9e) and the contrastive and retrieval
+cells of dpr-bert-base (A10).
 """
 
 from __future__ import annotations
@@ -81,13 +83,22 @@ def _pad_to(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
+#: bf16 AdamW moments for the >=100B configs (their HBM budget; the configs'
+#: notes), fp32 for every other arch
+MOMENT_DTYPE = {
+    "qwen1.5-110b": torch.bfloat16,
+    "qwen3-moe-235b-a22b": torch.bfloat16,
+}
+
+
 def _make_tx(arch_id: str, *, lr: float = 3e-4, clip: float = 1.0):
-    """Clip, then AdamW with fp32 moments on the JAX package's schedule.
-    ``arch_id`` keeps the JAX signature: the JAX package gives bf16 moments
-    only to qwen1.5-110b and qwen3-moe-235b-a22b, which the port does not
-    register yet (dry-run configs, ROADMAP A10)."""
+    """Clip, then AdamW on the JAX package's schedule, its moments stored in
+    the arch's ``MOMENT_DTYPE`` (fp32 arithmetic, rounded on store)."""
     sched = linear_warmup_linear_decay(lr, 2000, 200_000)
-    return chain(clip_by_global_norm(clip), adamw(sched, moment_dtype=torch.float32))
+    return chain(
+        clip_by_global_norm(clip),
+        adamw(sched, moment_dtype=MOMENT_DTYPE.get(arch_id, torch.float32)),
+    )
 
 
 def _meta(shape, dtype) -> torch.Tensor:

@@ -275,7 +275,27 @@ def test_meta_build_matches_jax(micro_batches, want):
     assert len(tree_leaves(state.opt)) == len(jax.tree_util.tree_leaves(jprog.args[0].opt))
 
 
-@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "stablelm-3b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch_id", ["qwen1.5-110b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_qwen_cells_build_on_meta_as_jax(arch_id, shape):
+    """The pod-scale qwen archs' LM cells build on meta tensors (allocating
+    nothing) with JAX's input shapes and static_info; the train cell's AdamW
+    moments are bf16, as JAX's MOMENT_DTYPE gives them."""
+    prog = steps.build_cell(arch_id, shape, "cpu")
+    jprog = jax_steps.build_cell(arch_id, shape, _mesh())
+    assert prog.kind == jprog.kind and prog.static_info == jprog.static_info
+    assert all(t.device.type == "meta" for t in tree_leaves(prog.args))
+    got = [(tuple(t.shape), str(t.dtype).replace("torch.", "")) for t in tree_leaves(prog.args)]
+    want = [(tuple(s.shape), np.dtype(s.dtype).name) for s in jax.tree_util.tree_leaves(jprog.args)]
+    assert got == want
+    if shape == "train_4k":
+        moments = tree_leaves([prog.args[0].opt[1].mu, prog.args[0].opt[1].nu])
+        assert len(moments) == 2 * len(tree_leaves(prog.args[0].params))
+        assert {t.dtype for t in moments} == {torch.bfloat16}
+
+
+@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "stablelm-3b", "olmoe-1b-7b",
+                                     "qwen1.5-110b", "qwen3-moe-235b-a22b"])
 @pytest.mark.parametrize("train", [True, False])
 def test_lm_flops_equal_jax(arch_id, train):
     cfg, jcfg = get_arch(arch_id).model_cfg, jax_get_arch(arch_id).model_cfg

@@ -16,6 +16,12 @@
 - A small MoE LM's decode step keeps the cache's storage, launches no
   flash kernel and never waits for the card (a sync raises under
   sync_debug_mode "error").
+- A small MoE LM's lm_loss through the flash kernel under remat "full"
+  against "none": the backward's recompute routes each layer as its
+  forward did (the routed and kept masks equal), so the losses, the aux
+  term and the dropped shares are equal and every gradient leaf agrees
+  within 1e-3 of its largest |g| (the embedding's backward adds with
+  atomics, in an order that varies).
 """
 
 import dataclasses
@@ -23,7 +29,7 @@ import dataclasses
 import pytest
 import torch
 
-from repro_torch.common.treemath import tree_map
+from repro_torch.common.treemath import tree_leaves, tree_map
 from repro_torch.configs import get_arch
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.models import lm, moe
@@ -95,3 +101,45 @@ def test_moe_decode_writes_the_cache_in_place_without_a_host_sync(dev):
     assert (cache.k.data_ptr(), cache.v.data_ptr()) == ptrs
     assert ops.flash_attention.launches == 0
     assert cache.length.tolist() == [520, 520] and bool(torch.isfinite(logits.float()).all())
+
+
+@pytest.mark.cuda
+def test_moe_lm_loss_under_full_remat_equals_no_remat(dev, monkeypatch):
+    cfg = dataclasses.replace(OLMOE, n_layers=2, d_model=256, n_heads=2, n_kv_heads=2,
+                              vocab_size=1024, attention_impl="pallas",
+                              moe=dataclasses.replace(OLMOE.moe, d_expert=128, group_size=256))
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, 1024, (2, 512), generator=torch.Generator(device=dev).manual_seed(4),
+                           device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    targets[:, -1] = -1
+    route, calls = moe._route, []
+
+    def recorded(*args):
+        out = route(*args)
+        calls.append((out[3].bool(), out[4].bool()))        # routed and kept masks
+        return out
+
+    monkeypatch.setattr(moe, "_route", recorded)
+    runs = {}
+    for remat in ("none", "full"):
+        calls.clear()
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, aux = lm.lm_loss(leaves, dataclasses.replace(cfg, remat=remat), tokens, targets)
+        loss.backward()
+        runs[remat] = (loss.item(), aux["moe_aux"].item(), list(calls),
+                       [t.grad for t in tree_leaves(leaves)])
+    (loss, moe_aux, none_calls, none_g), (f_loss, f_aux, full_calls, full_g) = (
+        runs["none"], runs["full"])
+    assert (f_loss, f_aux) == (loss, moe_aux)
+    # the forward calls each layer's routing once, the backward's recompute
+    # once more, the last layer first
+    assert len(none_calls) == 2 and len(full_calls) == 4
+    for i, (routed, kept) in enumerate(none_calls):
+        for j, mask in ((0, routed), (1, kept)):
+            assert torch.equal(full_calls[i][j], mask) and torch.equal(full_calls[3 - i][j], mask)
+    dropped = [1.0 - kept.sum().item() / routed.sum().item() for routed, kept in none_calls]
+    assert max(dropped) > 0
+    for got, want in zip(full_g, none_g):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * want.abs().max().item())

@@ -172,12 +172,13 @@ def _cells(shapes):
 
 def test_configs_and_shapes_equal_jax():
     assert list_archs() == ["dcn-v2", "deepfm", "dlrm-mlperf", "dlrm-rm2", "internlm2-1.8b",
-                            "olmoe-1b-7b", "stablelm-3b"]
+                            "olmoe-1b-7b", "qwen1.5-110b", "qwen3-moe-235b-a22b",
+                            "stablelm-3b"]
     assert _cells(RECSYS_SHAPES) == _cells(JAX_RECSYS_SHAPES)
     for arch_id in list_archs():
         mine, theirs = get_arch(arch_id), jax_get_arch(arch_id)
-        assert (mine.family, _cells(mine.shapes), mine.micro_batches) == (
-            theirs.family, _cells(theirs.shapes), theirs.micro_batches)
+        assert (mine.family, _cells(mine.shapes), mine.micro_batches, mine.notes) == (
+            theirs.family, _cells(theirs.shapes), theirs.micro_batches, theirs.notes)
         a, b = dataclasses.asdict(mine.model_cfg), dataclasses.asdict(theirs.model_cfg)
         for key in ("dtype", "param_dtype"):
             assert str(a.pop(key)).replace("torch.", "") == np.dtype(b.pop(key)).name
@@ -249,7 +250,7 @@ def test_three_train_steps_match_jax():
 
 def test_cells_build_on_meta_and_other_kinds_raise():
     cells = steps.list_cells()
-    assert len(cells) == 28 and ("dcn-v2", "train_batch") in cells
+    assert len(cells) == 36 and ("dcn-v2", "train_batch") in cells
     prog = steps.build_cell("dcn-v2", "train_batch", "cpu")
     state, dense, sparse, labels = prog.args
     assert state.params["table"].device.type == "meta"
