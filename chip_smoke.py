@@ -102,7 +102,7 @@ Phases, one JSON line each:
                refresh on the miner's stream, its encodes as CUDA graphs),
                checkpointed and resumed with a new miner, then a sync turn,
                from the same seeded state with the train phase's full banks,
-               14 steps each. Each turn's train_s (until its last refresh
+               MINE_STEPS steps each. Each turn's train_s (until its last refresh
                lands), step times and which steps had a refresh in flight,
                each refresh's encode, search and filter times, losses,
                launches by path, peak memory. Checks: finite losses, full
@@ -257,6 +257,31 @@ Phases, one JSON line each:
                losses; checks finite losses, table rows no batch indexed
                bit-identical at the end and every indexed row moved, and
                one step at a small cap on the card against the CPU.
+ 14. xdev    - cross-device ContAccum in a one-rank NCCL group (a FileStore
+               in a temporary directory): dpr-bert-base at full width, fp32,
+               the fused loss kernels, one rank's share (XDEV_RANK_BATCH
+               queries, 4 chunks) of the contaccum_xdev cell, both banks of
+               8192 filled before step 1 with pairs the towers encode;
+               XDEV_STEPS steps each, in turns, of contaccum_xdev (sharded
+               banks, bank columns all-gathered), contaccum_xdev_ring (the
+               ring-streamed loss) and the one-device contaccum program on
+               the same config, from one state and the same batches.
+               Checks: the all-gather program's loss and gradient norm
+               against the one-device program's (XDEV_LOSS_RTOL,
+               XDEV_GRAD_NORM_RTOL), the ring's loss against the all-gather
+               program's and each of its gradient leaves within
+               GRAD_RTOL_FP32 of the largest |g|; all-gathers and
+               all-reduces counted through NCCL in both sharded programs
+               (DistCtx's counts) and none in the one-device one; every
+               fused_infonce launch on the fp32 kernels, 2/1/2 a chunk
+               (forward, dQ, dP) for the all-gather and one-device
+               programs and 3/2/1 for the ring, and no call of the plain
+               version; bank fill 8192. Median step times, peak memory,
+               and the fp32 forward, dQ and dP at the path's shapes (the
+               32 local and 8192 bank rows against 8256 columns; the
+               ring's 8224 rows against its 8192- and 64-column chunks)
+               against the plain version, beside their bound and the
+               dense backend.
 Then the kernels line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.
 
@@ -264,6 +289,10 @@ Then the kernels line, the nvidia-smi line, and the final
 
 runs the serve phase with plain and flash towers in turns (plain, flash,
 flash, plain, ...), one line a run, and the nvidia-smi line; no final line.
+
+    python3 chip_smoke.py --xdev            # builds, then only the xdev phase
+
+runs the xdev phase alone, its line and the nvidia-smi line; no final line.
 Any failed check raises and the script
 exits non-zero before the final line. Without a CUDA device, or without the
 repo's ``src/repro_torch`` beside it, it exits non-zero at once.
@@ -319,9 +348,11 @@ GRAD_RTOL_FP32 = 1e-4
 N_BANK_MASKED = 1000
 
 # the train phase: steps (16 x 8 = 128 pushes a step wrap the 2048-slot
-# banks after 16), the corpus it draws from (and evaluates on), the paper's
-# peak learning rate (Appendix B) with a short warmup for a short run
-TRAIN_STEPS = 20
+# banks after 16; 18, not 20, since the xdev phase joined: the whole run
+# must stay inside 1200 s on a slower host too), the corpus it draws from
+# (and evaluates on), the paper's peak learning rate (Appendix B) with a
+# short warmup for a short run
+TRAIN_STEPS = 18
 N_CORPUS = 4096
 PEAK_LR = 2e-5
 WARMUP_STEPS = 2
@@ -354,7 +385,8 @@ SERVE_TURN_PAIRS = 2
 # stablelm_3b.py) that no path of the port runs yet: (B, S, H, Hk, D), causal
 FLASH_LM_SHAPES = {"internlm2_prefill": (1, 4096, 16, 8, 128),
                    "stablelm_prefill": (1, 2048, 32, 32, 80)}
-FLASH_TRAIN_STEPS = 5
+# 3, not 5, since the xdev phase joined (the whole run's time)
+FLASH_TRAIN_STEPS = 3
 # passages whose reps are held against the plain-attention towers
 FLASH_PARITY_PASSAGES = 256
 
@@ -365,12 +397,12 @@ FLASH_PARITY_PASSAGES = 256
 # cell runs fp32 and the dense loss); a miner over a MINE_CORPUS-passage
 # corpus (its queries are the loader's), top MINE_TOPK through fused_topk
 # (256 queries a search), the band MINE_BAND, a refresh every MINE_EVERY
-# steps: MINE_STEPS gives refreshes after steps 3, 7 and 11 and two steps
-# after the last. One async and one sync turn from the same seeded state,
+# steps: MINE_STEPS gives refreshes after steps 3 and 7 and two steps after
+# the last (10, not 14, since the xdev phase joined: the whole run's time). One async and one sync turn from the same seeded state,
 # both with the train phase's last banks (full: 2048 each), so every chunk
 # has the cell's 2096 columns from the first step.
 MINE_CORPUS = 32768
-MINE_STEPS = 14
+MINE_STEPS = 10
 MINE_EVERY = 4
 MINE_TOPK = 32
 MINE_BAND = (1, 32)
@@ -610,6 +642,30 @@ RECSYS_STEPS = 20
 RECSYS_PARITY_CAP, RECSYS_PARITY_BATCH = 100_000, 4096
 RECSYS_LOSS_RTOL, RECSYS_GRAD_RTOL = 1e-5, 1e-4
 RECSYS_MAX_FLIPPED = 0.01
+
+# Where the xdev phase departs from the contaccum_xdev and
+# contaccum_xdev_ring cells: one rank of a one-rank NCCL group (NCCL takes
+# no two ranks on one card, and `python3 chip_smoke.py` takes one card), training
+# XDEV_RANK_BATCH queries a step, one rank's share of the cells' 2048 under
+# the 16-way data axis of the JAX package's production mesh (the whole 2048
+# in fp32 does not fit one card); the banks' 8192 slots are filled before
+# the first step with pairs the towers encode from the corpus, so every
+# bank column is live; XDEV_STEPS steps of each program from the same state
+# and batches. The cells' other params are kept: fp32, the fused loss
+# kernels, 4 chunks (of 32 queries here), 1 hard negative, q_len 32, p_len
+# 256, remat as BERT_BASE's.
+XDEV_RANK_BATCH = 128
+XDEV_STEPS = 3
+XDEV_CORPUS = 16384
+# the sharded all-gather program against the one-device program: each step's
+# loss and gradient global norm to 1e-5 relative (at one rank every
+# collective is a copy; the same kernels on the same operands); the ring
+# against the all-gather program: the loss to 1e-5 relative and every
+# gradient leaf to GRAD_RTOL_FP32 of its largest |g| (the ring merges the
+# 64 in-batch and 8192 bank columns' statistics: fp32 sums in another
+# order)
+XDEV_LOSS_RTOL = 1e-5
+XDEV_GRAD_NORM_RTOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -940,8 +996,10 @@ def infonce_bound_ms(m: int, n: int, n_valid: int, d: int, itemsize: int, kernel
     """(bound_ms, bound_by) of one fused_infonce kernel: inputs read once
     (q, p, labels, col_valid; the backward also lse, g_lse, g_pos) and
     outputs written once, over HBM bandwidth; the products over the valid
-    columns over the bf16 peak: 2*M*N_valid*d for the forward, 4*M*N_valid*d
-    for dQ or dP (the scores again, then the product)."""
+    columns over the peak of their type (bf16 tensor cores for 2-byte
+    operands, fp32 outside the tensor cores for 4-byte ones, which the fp32
+    kernels use): 2*M*N_valid*d for the forward, 4*M*N_valid*d for dQ or dP
+    (the scores again, then the product)."""
     moved = (m + n) * d * itemsize + 4 * m + n
     if kernel == "fwd":
         moved += 3 * 4 * m
@@ -949,7 +1007,8 @@ def infonce_bound_ms(m: int, n: int, n_valid: int, d: int, itemsize: int, kernel
     else:
         moved += 3 * 4 * m + (m if kernel == "dq" else n) * d * itemsize
         ops = 4.0 * m * n_valid * d
-    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -3638,6 +3697,311 @@ def phase_recsys(torch):
     }
 
 
+def infonce_at(torch, kernel, q, p, labels, valid):
+    """One fused_infonce kernel ("fwd", "dq" or "dp") on CUDA operands: held
+    to the plain version (statistics to STATS_RTOL of the largest |logit|,
+    a gradient to GRAD_RTOL_FP32 or GRAD_RTOL_BF16 of its largest |g|),
+    timed beside it, beside the dense backend (the library call: one matmul
+    and torch's logsumexp, or their autograd) and beside its bound. These
+    launches are counted: read the path's counts before."""
+    from repro_torch.core.loss import DenseLossBackend
+    from repro_torch.core.precision import NEG_INF
+    from repro_torch.kernels._timing import device_ms
+    from repro_torch.kernels.fused_infonce import ops, ref
+
+    g = torch.Generator(device=q.device).manual_seed(SEED + 7)
+    m = q.shape[0]
+    g_lse = torch.rand((m,), generator=g, device=q.device)
+    g_pos = -torch.rand((m,), generator=g, device=q.device)
+    dense = DenseLossBackend()
+    if kernel == "fwd":
+        fn = lambda: ops.fused_infonce_fwd(q, p, labels, valid)            # noqa: E731
+        plain = lambda: ref.infonce_stats_ref(q, p, labels, valid)         # noqa: E731
+        library = lambda: dense.chunk_stats(q, p, labels, valid, temperature=1.0)  # noqa: E731
+        (lse, pos, amax), (rl, rp, ra) = fn(), plain()
+        live = rp > NEG_INF / 2
+        finite = torch.cat([ra, rp[live]])
+        tol = STATS_RTOL * max(1.0, finite.abs().max().item())
+        err = max((lse - rl).abs().max().item(), (amax - ra).abs().max().item(),
+                  (pos[live] - rp[live]).abs().max().item() if live.any() else 0.0)
+        require(err <= tol, f"fused_infonce forward at M={m}: err {err} > {tol}")
+    else:
+        lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
+        args = (q, p, labels, valid, lse, g_lse, g_pos)
+        fn = (lambda: ops.fused_infonce_dq(*args)) if kernel == "dq" else (   # noqa: E731
+            lambda: ops.fused_infonce_dp(*args))
+
+        def backward_of(stats_fn):
+            qf = q.detach().requires_grad_(kernel == "dq")
+            pf = p.detach().requires_grad_(kernel == "dp")
+            sl, sp, _ = stats_fn(qf, pf)
+            wrt = qf if kernel == "dq" else pf
+            return lambda: torch.autograd.grad((sl, sp), wrt, (g_lse, g_pos), retain_graph=True)
+
+        plain = backward_of(lambda qf, pf: ref.infonce_stats_ref(qf, pf, labels, valid))
+        library = backward_of(
+            lambda qf, pf: dense.chunk_stats(qf, pf, labels, valid, temperature=1.0))
+        want = ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos)[kernel == "dp"]
+        tol_rtol = GRAD_RTOL_BF16 if q.dtype == torch.bfloat16 else GRAD_RTOL_FP32
+        err = close_err(fn(), want, tol_rtol, f"fused_infonce {kernel} at M={m}")
+    bound_ms, bound_by = infonce_bound_ms(m, p.shape[0], int(valid.sum().item()), q.shape[1],
+                                          q.element_size(), kernel)
+    return {"M": m, "N": p.shape[0], "d": q.shape[1], "dtype": str(q.dtype).replace("torch.", ""),
+            "path": ops.path_of(kernel, q.dtype, m, q.shape[1]), "max_abs_err": err,
+            "ms": device_ms(fn, 10), "plain_ms": device_ms(plain, 3),
+            "library_ms": device_ms(library, 3), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_xdev(torch):
+    """Cross-device ContAccum on one rank of a one-rank NCCL group: the
+    contaccum_xdev program (sharded banks, all-gathered bank columns), the
+    contaccum_xdev_ring program (the ring-streamed loss) and the one-device
+    contaccum program on the same config, from one state and the same
+    batches, step by step in turns; then the fp32 fused_infonce kernels at
+    the path's shapes."""
+    import os
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.common.treemath import tree_leaves, tree_map
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, CONTACCUM_XDEV, CONTACCUM_XDEV_RING
+    from repro_torch.core import dist as port_dist
+    from repro_torch.core.memory_bank import init_bank, shard_push_pair
+    from repro_torch.core.methods import build_step_program, init_state
+    from repro_torch.core.types import ContrastiveConfig, RetrievalBatch
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.retrieval import SyntheticRetrievalCorpus
+    from repro_torch.kernels.fused_infonce import ops
+    from repro_torch.models.towers import make_bert_dual_encoder
+    from repro_torch.optim import adamw, chain, clip_by_global_norm, linear_warmup_linear_decay
+    from repro_torch.optim.adamw import GradientTransformation
+
+    cell = CONTACCUM_XDEV
+    require(CONTACCUM_XDEV_RING == {**cell, "loss_comm": "ring"} and "precision" not in cell
+            and cell["loss_impl"] == "fused", f"the xdev cells changed: {cell}")
+    k, bank, precision = cell["accum_steps"], cell["bank_size"], "fp32"
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    t_setup = time.perf_counter()
+    enc = make_bert_dual_encoder(BERT_BASE, precision=precision)
+    corpus = SyntheticRetrievalCorpus(
+        n_passages=XDEV_CORPUS, vocab_size=BERT_BASE.vocab_size, q_len=cell["q_len"],
+        p_len=cell["p_len"], n_hard=cell["n_hard"], seed=SEED,
+    )
+    loader = ShardedLoader(XDEV_CORPUS, XDEV_RANK_BATCH, seed=SEED)
+
+    def on_card(b):
+        return RetrievalBatch(*(torch.from_numpy(np.asarray(b[key], np.int64)).to(dev)
+                                for key in ("query", "passage_pos", "passage_hard")))
+
+    batches = [on_card(corpus.batch(loader.next_indices())) for _ in range(XDEV_STEPS)]
+    sched = linear_warmup_linear_decay(PEAK_LR, WARMUP_STEPS, XDEV_STEPS + WARMUP_STEPS)
+
+    def config(**kw):
+        return ContrastiveConfig(method=cell["method"], accumulation_steps=k, bank_size=bank,
+                                 loss_impl=cell["loss_impl"], precision=precision,
+                                 temperature=1.0, grad_clip_norm=2.0, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            backend = dist.get_backend()
+            cfgs = {"all_gather": config(dp_axis="data", shard_banks=True),
+                    "ring": config(dp_axis="data", shard_banks=True, loss_comm="ring"),
+                    "one_device": config()}
+            params0 = enc.init(torch.Generator().manual_seed(SEED), dev)
+            # both banks filled to every slot before step 1: pairs the towers
+            # encode from the corpus (its first `bank` queries and passages)
+            with torch.no_grad():
+                reps = [(enc.encode_query(params0, b.query),
+                         enc.encode_passage(params0, b.passage_pos))
+                        for b in (on_card(corpus.batch(np.arange(lo, lo + 256)))
+                                  for lo in range(0, bank, 256))]
+                empty = [init_bank(bank, enc.rep_dim, cfgs["one_device"].resolved_bank_dtype(),
+                                   device=dev) for _ in range(2)]
+                bank_q, bank_p = shard_push_pair(
+                    *empty, torch.cat([r[0] for r in reps]), torch.cat([r[1] for r in reps]),
+                    step=0, shard_index=0, num_shards=1)
+            del reps, empty
+            runs = {}
+            for name, cfg in cfgs.items():
+                sink = {}
+                inner = chain(clip_by_global_norm(cfg.grad_clip_norm), adamw(sched))
+
+                def capture(grads, opt_state, params=None, inner=inner, sink=sink):
+                    sink["grads"] = grads
+                    return inner.update(grads, opt_state, params)
+
+                tx = GradientTransformation(inner.init, capture)
+                state = init_state(None, enc, tx, cfg, params=tree_map(torch.clone, params0),
+                                   device=dev)
+                require(state.bank_q.buf.shape[0] == bank, f"{name}: bank of "
+                        f"{state.bank_q.buf.shape[0]} slots on one rank, not {bank}")
+                runs[name] = types.SimpleNamespace(
+                    update=build_step_program(enc, tx, cfg).update, sink=sink,
+                    state=state._replace(bank_q=bank_q, bank_p=bank_p), metrics=[], times=[],
+                    launches=dict.fromkeys(("fwd", "dq", "dp"), 0),
+                    paths={kn: dict.fromkeys(ops.PATHS, 0) for kn in ("fwd", "dq", "dp")},
+                    collectives=dict.fromkeys(port_dist.KINDS, 0))
+            del params0
+            setup_s = time.perf_counter() - t_setup
+
+            # every fused_infonce call of the three programs on a CUDA kernel:
+            # the plain version is counted, and must not run
+            plain_calls = []
+            real_ref = (ops.infonce_stats_ref, ops.infonce_stats_vjp_ref)
+
+            def counted(fn):
+                def call(*a, **kw):
+                    plain_calls.append(fn.__name__)
+                    return fn(*a, **kw)
+                return call
+
+            ops.infonce_stats_ref, ops.infonce_stats_vjp_ref = (counted(f) for f in real_ref)
+            torch.cuda.reset_peak_memory_stats()
+            grad_checks = []
+            try:
+                for step in range(XDEV_STEPS):
+                    grads = {}
+                    for name, r in runs.items():
+                        torch.cuda.synchronize()
+                        ops.reset_launches()            # this program's step starts here
+                        port_dist.reset_collectives()
+                        t0 = time.perf_counter()
+                        r.state, m = r.update(r.state, batches[step])
+                        torch.cuda.synchronize()
+                        r.times.append(time.perf_counter() - t0)
+                        for kn in ("fwd", "dq", "dp"):      # read just after the step
+                            fn = getattr(ops, f"fused_infonce_{kn}")
+                            r.launches[kn] += fn.launches
+                            for path, n in fn.paths.items():
+                                r.paths[kn][path] += n
+                        for kind, n in port_dist.collectives.items():
+                            r.collectives[kind] += n
+                        r.metrics.append({key: float(v) for key, v in m._asdict().items()})
+                        grads[name] = r.sink.pop("grads")
+                    # the ring's gradient against the all-gather program's,
+                    # leaf by leaf
+                    worst = 0.0
+                    for i, (ga, gb) in enumerate(zip(tree_leaves(grads["all_gather"]),
+                                                     tree_leaves(grads["ring"]))):
+                        scale = ga.abs().max().item()
+                        diff = (ga - gb).abs().max().item()
+                        worst = max(worst, diff / scale if scale else diff)
+                        require(diff <= GRAD_RTOL_FP32 * scale,
+                                f"step {step}: the ring's gradient leaf {i} is {diff} from "
+                                f"the all-gather one (> {GRAD_RTOL_FP32} of {scale})")
+                    grad_checks.append(worst)
+                    del grads
+            finally:
+                ops.infonce_stats_ref, ops.infonce_stats_vjp_ref = real_ref
+            peak_bytes = torch.cuda.max_memory_allocated()
+            require(not plain_calls, f"the plain fused_infonce version ran: {plain_calls[:5]}")
+
+            for name, r in runs.items():
+                losses = [mm["loss"] for mm in r.metrics]
+                require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+                for mm in r.metrics:
+                    require(mm["bank_fill_q"] == mm["bank_fill_p"] == bank,
+                            f"{name}: bank fill {mm['bank_fill_q']}, {mm['bank_fill_p']}")
+                    n_neg = XDEV_RANK_BATCH // k * (1 + cell["n_hard"]) + bank - 1
+                    require(mm["n_negatives"] == n_neg,
+                            f"{name}: n_negatives {mm['n_negatives']} != {n_neg}")
+                for kn in ("fwd", "dq", "dp"):
+                    require(r.launches[kn] > 0, f"{name}: no fused_infonce {kn} launch")
+                    require(r.paths[kn]["fp32"] == r.launches[kn],
+                            f"{name}: fused_infonce {kn} took {r.paths[kn]}, not all fp32 kernels")
+            want = {"all_gather": {"fwd": 2, "dq": 1, "dp": 2},
+                    "ring": {"fwd": 3, "dq": 2, "dp": 1},
+                    "one_device": {"fwd": 2, "dq": 1, "dp": 2}}
+            for name, per_chunk in want.items():
+                got = runs[name].launches
+                require(got == {kn: n * k * XDEV_STEPS for kn, n in per_chunk.items()},
+                        f"{name}: fused_infonce launches {got}, not {per_chunk} a chunk")
+            for name in ("all_gather", "ring"):
+                c = runs[name].collectives
+                require(backend == "nccl" and c["all_gather"] > 0 and c["all_reduce"] > 0,
+                        f"{name}: collectives {c} on {backend}, not all-gathers and "
+                        f"all-reduces through NCCL")
+            require(not any(runs["one_device"].collectives.values()),
+                    f"the one-device program ran collectives {runs['one_device'].collectives}")
+            parity = {}
+            for a, b, field, rtol in (("all_gather", "one_device", "loss", XDEV_LOSS_RTOL),
+                                      ("all_gather", "one_device", "grad_norm",
+                                       XDEV_GRAD_NORM_RTOL),
+                                      ("ring", "all_gather", "loss", XDEV_LOSS_RTOL)):
+                pairs = [(ma[field], mb[field])
+                         for ma, mb in zip(runs[a].metrics, runs[b].metrics)]
+                parity[f"{a}_vs_{b}_{field}"] = pairs
+                for step, (va, vb) in enumerate(pairs):
+                    require(abs(va - vb) <= rtol * abs(vb),
+                            f"step {step}: {a} {field} {va} vs {b} {vb} (rtol {rtol})")
+            parity["ring_vs_all_gather_grad_worst_share_of_max"] = grad_checks
+
+            # the fp32 kernels at the path's shapes, on its own operands: a
+            # chunk's 32 queries against its 64 in-batch and the bank's 8192
+            # columns (all_gather), and the ring's 8224 rows against the bank
+            # chunk and the in-batch chunk
+            r = runs["all_gather"]
+            chunk = batches[0]
+            lc = XDEV_RANK_BATCH // k
+            with torch.no_grad():
+                params = r.state.params
+                q_loc = enc.encode_query(params, chunk.query[:lc])
+                pp = enc.encode_passage(params, chunk.passage_pos[:lc])
+                ph = enc.encode_passage(params, chunk.passage_hard[:lc].reshape(lc, -1))
+            bq, bp = r.state.bank_q, r.state.bank_p
+            n_a = 2 * lc
+            p_all = torch.cat([pp, ph, bp.buf])
+            valid = torch.ones((p_all.shape[0],), dtype=torch.bool, device=dev)
+            valid[n_a:] = bp.valid
+            lab_loc = torch.arange(lc, dtype=torch.int32, device=dev)
+            lab_bank = (n_a + torch.arange(bank, device=dev)).to(torch.int32)
+            rows = torch.cat([q_loc, bq.buf])
+            lab_rows = torch.cat([lab_loc, lab_bank])
+            ones = torch.ones((n_a,), dtype=torch.bool, device=dev)
+            shapes = {
+                "local_rows": (q_loc, p_all, lab_loc, valid, ("fwd", "dq", "dp")),
+                "bank_rows": (bq.buf, p_all, lab_bank, valid, ("fwd", "dp")),
+                "ring_bank_chunk": (rows, bp.buf, lab_rows - n_a, bp.valid, ("fwd", "dq")),
+                "ring_inbatch_chunk": (rows, p_all[:n_a].contiguous(), lab_rows, ones,
+                                       ("fwd", "dq", "dp")),
+            }
+            kernels = {name: {kn: infonce_at(torch, kn, qq.contiguous(), pq.contiguous(), ll, vv)
+                              for kn in kns}
+                       for name, (qq, pq, ll, vv, kns) in shapes.items()}
+        finally:
+            dist.destroy_process_group()
+
+    def median_s(times):
+        return statistics.median(times[1:] if len(times) > 2 else times)
+
+    return {
+        "model": "dpr-bert-base (2 x bert-base-uncased, 12 layers, d 768, seeded init, remat full)",
+        "cells": ["contaccum_xdev", "contaccum_xdev_ring"], "backend": backend, "world_size": 1,
+        "steps": XDEV_STEPS, "rank_batch": XDEV_RANK_BATCH, "accumulation_steps": k,
+        "bank_size": bank, "q_len": cell["q_len"], "p_len": cell["p_len"],
+        "n_hard": cell["n_hard"], "precision": precision, "loss_impl": cell["loss_impl"],
+        "setup_s": setup_s,
+        "median_step_s": {name: median_s(r.times) for name, r in runs.items()},
+        "step_s": {name: r.times for name, r in runs.items()},
+        "losses": {name: [mm["loss"] for mm in r.metrics] for name, r in runs.items()},
+        "grad_norms": {name: [mm["grad_norm"] for mm in r.metrics] for name, r in runs.items()},
+        "bank_fill": [runs["ring"].metrics[-1]["bank_fill_q"],
+                      runs["ring"].metrics[-1]["bank_fill_p"]],
+        "n_negatives": runs["ring"].metrics[-1]["n_negatives"],
+        "launches": {name: r.launches for name, r in runs.items()},
+        "infonce_paths": {name: r.paths for name, r in runs.items()},
+        "collectives": {name: r.collectives for name, r in runs.items()},
+        "plain_calls": len(plain_calls), "parity": parity,
+        "max_memory_allocated": peak_bytes, "fused_infonce_fp32": kernels,
+    }
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3645,6 +4009,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-turns", action="store_true",
                     help="only build, then serve with plain and flash towers in turns "
                          f"(plain, flash, flash, plain, ...), {SERVE_TURN_PAIRS} runs of each")
+    ap.add_argument("--xdev", action="store_true",
+                    help="only build, then run the xdev phase (cross-device ContAccum in a "
+                         "one-rank NCCL group)")
     args = ap.parse_args(argv)
     if not (REPO / "src" / "repro_torch").is_dir():
         print("chip_smoke.py runs from a checkout of the repo: src/repro_torch is missing",
@@ -3683,6 +4050,12 @@ def main(argv=None) -> int:
     emit({"phase": "build", "kernels": sorted(logs), "seconds": time.perf_counter() - t0})
     if args.serve_turns:
         serve_turns(torch, ops, ref, SERVE_TURN_PAIRS)
+        print(card(), flush=True)
+        return 0
+    if args.xdev:
+        t0 = time.perf_counter()
+        xdev = phase_xdev(torch)
+        emit({"phase": "xdev", **xdev, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
         print(card(), flush=True)
         return 0
 
@@ -3754,6 +4127,10 @@ def main(argv=None) -> int:
     recsys = phase_recsys(torch)
     emit({"phase": "recsys", **recsys, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
+    t0 = time.perf_counter()
+    xdev = phase_xdev(torch)
+    emit({"phase": "xdev", **xdev, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+
     ev = kernels["eval_topk"]
     topk_by_path = {"serve": serve["launches"]["fused_topk"],
                     "eval": train["eval_fused_topk_launches"], "mine": mine["fused_topk_launches"],
@@ -3784,7 +4161,8 @@ def main(argv=None) -> int:
                                      ("dp", 229, "bank_rows", "dp_max_abs_err")):
         t = infonce[shape][kernel]
         by_path = {"train": train["launches"][kernel], "mine": mine["infonce_launches"][kernel],
-                   "lm": lm["infonce_launches"][kernel]}
+                   "lm": lm["infonce_launches"][kernel],
+                   "xdev": sum(n[kernel] for n in xdev["launches"].values())}
         lm_shapes = {"lm_shape": infonce["lm_" + shape]}
         if kernel != "dq":   # the split kernels at the LM retriever's local rows
             lm_shapes["lm_local_rows_shape"] = infonce["lm_local_rows"]
@@ -3805,6 +4183,11 @@ def main(argv=None) -> int:
                       **{key: sh[kernel][key] for key in ("parent_route", "parent_ms")
                          if key in sh[kernel]}}
                for name, sh in lm_shapes.items()},
+            # the fp32 kernels on the xdev path (one rank of contaccum_xdev):
+            # the all-gather program's largest shape, and the ring's
+            "xdev_shape": xdev["fused_infonce_fp32"][shape][kernel],
+            **({"xdev_ring_shape": xdev["fused_infonce_fp32"]["ring_bank_chunk"][kernel]}
+               if kernel != "dp" else {}),
         })
     # flash_attention at the BERT passage pass (the phase line has every shape)
     fa = flash_k["bert_passage"]

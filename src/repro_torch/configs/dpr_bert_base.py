@@ -1,10 +1,9 @@
 """dpr-bert-base: the paper's retriever (two bert-base-uncased towers) and
 the shapes of its cells, as in ``repro.configs.dpr_bert_base``: the
-single-device training cells and the retrieval cells, as dicts.
+single-device training cells, the cross-device ones and the retrieval
+cells, as dicts.
 
-Not here yet: the cross-device cells (``contaccum_xdev``,
-``contaccum_xdev_ring``, ``contcache_xdev``: multi-device is not yet ported)
-and ``contrastive_16k`` (a pod-scale batch).
+Not here yet: ``contrastive_16k`` (a pod-scale batch).
 """
 
 from __future__ import annotations
@@ -52,6 +51,21 @@ PAPER_BATCH_MINED = {
 CONTACCUM_MINED = {**_PAPER, "method": "contaccum", "accum_steps": 16, "mined_negatives": 4}
 CONTCACHE_BATCH = {**_PAPER, "method": "contcache", "accum_steps": 16}
 PREBATCH_CACHE_BATCH = {**_PAPER, "method": "prebatch_cache", "accum_steps": 16}
+
+#: the cross-device cells: the batch and the memory banks sharded over the
+#: data-parallel ranks (``shard_banks``: bank_size / D slots a rank), fp32
+#: (no ``precision``). ``contaccum_xdev`` all-gathers the passage-bank
+#: columns for every loss evaluation (a transient (bank_size, d) block a
+#: rank), ``contaccum_xdev_ring`` streams the D shards around the ring
+#: instead (``loss_comm='ring'``: O(bank_size * d / D), the same loss),
+#: ``contcache_xdev`` is the full-batch rep-cache backprop over the sharded
+#: banks. ``global_batch`` is the whole group's; ``chip_smoke.py`` trains
+#: contaccum_xdev and contaccum_xdev_ring at one rank's share of it
+_XDEV = {"global_batch": 2048, "bank_size": 8192, "q_len": 32, "p_len": 256, "n_hard": 1,
+         "xdev": True, "shard_banks": True}
+CONTACCUM_XDEV = {**_XDEV, "method": "contaccum", "accum_steps": 4, "loss_impl": "fused"}
+CONTACCUM_XDEV_RING = {**CONTACCUM_XDEV, "loss_comm": "ring"}
+CONTCACHE_XDEV = {**_XDEV, "method": "contcache", "accum_steps": 16}
 
 #: online serving: one coalesced query batch against a 1M-passage index,
 #: bf16 index rows (the policy's bank dtype), fp32 scores. The JAX cell

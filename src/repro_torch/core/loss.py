@@ -18,14 +18,20 @@ materialises the (M, N) fp32 logits; ``fused`` streams them through the
 hand-written CUDA kernels of kernels/fused_infonce (their plain version on
 CPU tensors). Both return fp32 statistics whatever the input types.
 
-Not yet ported (multi-device): the ring-streamed loss (``ExtraColumns`` with
-``sharded=True``) and the sharded-bank blocks; they raise.
+Across a data-parallel group (core/dist.py) the in-batch columns are
+all-gathered and each rank reduces over its own rows; ``loss_dev`` is then
+this rank's share, and the sum over the ranks is the global loss. Sharded
+banks (``sharded_bank_extra_columns``/``_rows``) hand the loss this rank's
+bank shard: its rows enter at full weight, and its columns are either
+all-gathered into the global block or, with ``loss_comm='ring'``
+(``ExtraColumns(sharded=True)``), streamed shard by shard around the ring
+(``_ring_row_stats``): the same loss at one shard of transient memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Protocol, Tuple, Union
+from typing import List, NamedTuple, Optional, Protocol, Tuple, Union
 
 import torch
 
@@ -35,18 +41,21 @@ from repro_torch.core.precision import NEG_INF, STATS_DTYPE, PrecisionPolicy, re
 
 
 class LossAux(NamedTuple):
-    loss: torch.Tensor          # scalar loss (detached)
-    accuracy: torch.Tensor      # accuracy over valid rows
-    n_rows: torch.Tensor        # number of rows in the mean
+    loss: torch.Tensor          # global scalar loss (summed over ranks, detached)
+    accuracy: torch.Tensor      # global accuracy over valid rows
+    n_rows: torch.Tensor        # global number of rows in the mean
     n_negatives: torch.Tensor   # valid columns - 1 (negatives per query)
-    q_global: torch.Tensor      # query reps (for the bank push), detached
-    p_global: torch.Tensor      # positive-passage reps (for the bank push), detached
+    q_global: torch.Tensor      # gathered query reps (for the bank push), detached
+    p_global: torch.Tensor      # gathered positive-passage reps (for the push), detached
 
 
 class ExtraColumns(NamedTuple):
     """Extra similarity columns owned by a negative source (e.g. a passage
-    bank); ``valid`` masks slots exactly. ``sharded=True`` (a bank shard
-    streamed around a device ring) is not yet ported."""
+    bank); ``valid`` masks slots exactly. ``sharded=False``: ``reps`` is the
+    whole (global) block. ``sharded=True``: ``reps`` is this rank's
+    ``C_global / D`` shard of a block laid out shard-major over the ring
+    (shard s owns global columns ``[s*C_local, (s+1)*C_local)``), and the
+    loss streams the shards around the ring instead of gathering them."""
 
     reps: torch.Tensor   # (C, d)
     valid: torch.Tensor  # (C,) bool
@@ -55,8 +64,12 @@ class ExtraColumns(NamedTuple):
 
 class ExtraRows(NamedTuple):
     """Extra query rows owned by a negative source (e.g. a query bank).
-    ``labels`` index into the source's ExtraColumns block; ``weight`` in
-    [0, 1] scales each row's contribution (0 masks it out)."""
+    ``labels`` index into the source's ExtraColumns block in its global
+    (gathered) layout; ``weight`` in [0, 1] scales each row's contribution
+    (0 masks it out). ``sharded=False``: the rows are replicated on every
+    rank, and each rank takes a 1/D share of them. ``sharded=True``: they
+    are this rank's own partition of the global rows (a sharded query bank)
+    and enter at full weight."""
 
     reps: torch.Tensor    # (R, d)
     labels: torch.Tensor  # (R,) int: positive's index within ExtraColumns
@@ -176,12 +189,6 @@ def contrastive_loss(
     match. Statistics and row reductions stay fp32."""
     ctx = ctx or DistCtx()
     be = resolve_loss_backend(backend)
-    if extra_cols is not None and extra_cols.sharded:
-        raise NotImplementedError(
-            "ExtraColumns(sharded=True), the ring-streamed loss, is not yet ported to repro_torch"
-        )
-    if extra_rows is not None and extra_rows.sharded:
-        raise NotImplementedError("sharded ExtraRows are not yet ported to repro_torch")
     if precision is not None:
         pol = resolve_precision(precision)
         q_local = pol.cast_compute(q_local)
@@ -190,39 +197,70 @@ def contrastive_loss(
     dev = q_local.device
     b_local = q_local.shape[0]
 
+    # columns, gathered over the ranks
     p_pos = ctx.gather(p_pos_local)
     cols = [p_pos]
     if p_hard_local is not None and p_hard_local.shape[0] > 0:
         cols.append(ctx.gather(p_hard_local))
     b_g = p_pos.shape[0]
     n_hard = 0 if len(cols) == 1 else cols[1].shape[0]
-    n_extra = 0 if extra_cols is None else extra_cols.reps.shape[0]
-    if n_extra > 0:
+
+    # ring mode: extra_cols is this rank's bank shard; the global extra
+    # block is the D shards streamed around the ring, never gathered
+    ring = extra_cols is not None and extra_cols.sharded
+    n_extra_local = 0 if extra_cols is None else extra_cols.reps.shape[0]
+    n_extra = n_extra_local * ctx.device_count() if ring else n_extra_local
+    if n_extra_local > 0 and not ring:
         cols.append(extra_cols.reps.to(p_pos.dtype))
     p_all = torch.cat(cols, dim=0)
     col_mask = torch.ones((b_g + n_hard,), dtype=torch.bool, device=dev)
-    if n_extra > 0:
+    if n_extra_local > 0 and not ring:
         col_mask = torch.cat([col_mask, extra_cols.valid], dim=0)
 
+    # local rows: this rank's queries
     labels_local = ctx.shard_index() * b_local + torch.arange(b_local, device=dev)
-    per_row, correct = be.row_stats(q_local, p_all, labels_local, col_mask,
-                                    temperature=temperature)
-    loss_sum = per_row.sum()
-    correct_sum = correct.sum()
-    n_rows_dev = torch.full((), float(b_local), dtype=STATS_DTYPE, device=dev)
-
-    if extra_rows is not None and extra_rows.reps.shape[0] > 0 and n_extra > 0:
+    have_extra_rows = extra_rows is not None and extra_rows.reps.shape[0] > 0 and n_extra > 0
+    if have_extra_rows:
         labels_extra = (b_g + n_hard + extra_rows.labels.long()) % (b_g + n_hard + n_extra)
         w = extra_rows.weight.to(STATS_DTYPE)
-        inv_d = 1.0 / ctx.device_count()
-        per_row_x, correct_x = be.row_stats(
-            extra_rows.reps.to(q_local.dtype), p_all, labels_extra, col_mask,
+        # replicated rows: each rank takes a 1/D share; sharded rows are
+        # this rank's own partition, at full weight
+        inv_d = 1.0 if extra_rows.sharded else 1.0 / ctx.device_count()
+    n_rows_dev = torch.full((), float(b_local), dtype=STATS_DTYPE, device=dev)
+
+    if ring:
+        # the local queries and the bank rows in one pass of the ring
+        rows, labels_all = [q_local], [labels_local]
+        if have_extra_rows:
+            rows.append(extra_rows.reps.to(q_local.dtype))
+            labels_all.append(labels_extra)
+        per_row, correct = _ring_row_stats(
+            torch.cat(rows), torch.cat(labels_all), p_all, extra_cols, ctx, be,
             temperature=temperature,
         )
-        loss_sum = loss_sum + inv_d * torch.sum(per_row_x * w)
-        correct_sum = correct_sum + inv_d * torch.sum(correct_x * w)
-        n_rows_dev = n_rows_dev + inv_d * w.sum()
-    n_cols_valid = col_mask.sum().to(STATS_DTYPE)
+        loss_sum = per_row[:b_local].sum()
+        correct_sum = correct[:b_local].sum()
+        if have_extra_rows:
+            loss_sum = loss_sum + inv_d * torch.sum(per_row[b_local:] * w)
+            correct_sum = correct_sum + inv_d * torch.sum(correct[b_local:] * w)
+            n_rows_dev = n_rows_dev + inv_d * w.sum()
+        # the global column mask never exists: count the valid bank slots
+        # with a sum over the shards
+        n_cols_valid = float(b_g + n_hard) + ctx.psum(extra_cols.valid.sum().to(STATS_DTYPE))
+    else:
+        per_row, correct = be.row_stats(q_local, p_all, labels_local, col_mask,
+                                        temperature=temperature)
+        loss_sum = per_row.sum()
+        correct_sum = correct.sum()
+        if have_extra_rows:
+            per_row_x, correct_x = be.row_stats(
+                extra_rows.reps.to(q_local.dtype), p_all, labels_extra, col_mask,
+                temperature=temperature,
+            )
+            loss_sum = loss_sum + inv_d * torch.sum(per_row_x * w)
+            correct_sum = correct_sum + inv_d * torch.sum(correct_x * w)
+            n_rows_dev = n_rows_dev + inv_d * w.sum()
+        n_cols_valid = col_mask.sum().to(STATS_DTYPE)
 
     n_rows_g = torch.clamp(ctx.psum(n_rows_dev).detach(), min=1.0)
     loss_dev = loss_sum / n_rows_g
@@ -231,10 +269,116 @@ def contrastive_loss(
         accuracy=(ctx.psum(correct_sum) / n_rows_g).detach(),
         n_rows=n_rows_g,
         n_negatives=n_cols_valid - 1.0,
-        q_global=ctx.gather(q_local).detach(),
+        q_global=ctx.gather(q_local.detach()),
         p_global=p_pos.detach(),
     )
     return loss_dev, aux
+
+
+def _ring_row_stats(q_rows, labels, p_inbatch, extra_cols: ExtraColumns, ctx: DistCtx,
+                    be: LossBackend, *, temperature: float):
+    """Ring-streamed (per_row_loss, correct) over the global columns
+    [in-batch block] ++ [bank shard 0] ++ ... ++ [shard D-1], holding at
+    most one bank shard at a time. ``labels`` are global column indices.
+
+    Each of the 1 + D chunk evaluations gives the backend's online-softmax
+    state ``(lse, pos, amax)``, and ``merge_row_stats`` composes them into
+    the statistics over every column. The merge's chain rule scales each
+    chunk's lse cotangent by ``exp(lse_k - lse)``, so each chunk's backward
+    sees global softmax coefficients. Accuracy takes the fused kernel's tie
+    rule (``pos >= amax``) on both backends."""
+    from repro_torch.kernels.fused_infonce.ops import merge_row_stats
+
+    n_a = p_inbatch.shape[0]
+    lse_a, pos_a, amax_a = be.chunk_stats(
+        q_rows, p_inbatch, labels, torch.ones((n_a,), dtype=torch.bool, device=q_rows.device),
+        temperature=temperature,
+    )
+    owns_a = (labels >= 0) & (labels < n_a)
+    lse_s, pos_s, owns_s, amax_s = _StreamBankChunks.apply(
+        q_rows, labels, extra_cols.reps, extra_cols.valid, ctx, be, n_a, temperature,
+    )
+    lse, pos, amax = merge_row_stats(
+        torch.cat([lse_a[None], lse_s]), torch.cat([pos_a[None], pos_s]),
+        torch.cat([owns_a[None], owns_s]), torch.cat([amax_a[None], amax_s]),
+    )
+    correct = (pos >= amax).to(STATS_DTYPE).detach()
+    return lse - pos, correct
+
+
+def _chunk_eval(be, q_rows, labels, reps, valid, offset, temperature):
+    """One bank chunk's (lse, pos, owns, amax), its columns starting at
+    global column ``offset``."""
+    local_labels = labels - offset
+    lse, pos, amax = be.chunk_stats(q_rows, reps.to(q_rows.dtype), local_labels, valid,
+                                    temperature=temperature)
+    owns = (local_labels >= 0) & (local_labels < reps.shape[0])
+    return lse, pos, owns, amax
+
+
+class _StreamBankChunks(torch.autograd.Function):
+    """Per-chunk stats ``(lse, pos, owns, amax)``, each stacked (D, M), of
+    the D bank shards streamed around the ring, with a backward that
+    streams the ring again.
+
+    After k hops of the (i -> i+1) rotation rank i holds the shard of rank
+    (i - k) mod D, global columns ``[n_a + owner*C_local, ...)``. Autograd
+    through the hops would keep every visiting shard for the backward (all
+    D at once, the whole bank again); the forward keeps only this rank's
+    own shard instead, and the backward rotates the shards once more,
+    recomputing each chunk's ``chunk_stats`` under ``enable_grad`` and
+    taking its dq (and dp, where the shard needs a gradient) with
+    ``torch.autograd.grad``. dq sums over the hops on this rank. Each
+    shard's dP buffer travels with the shard: every rank adds its part as
+    the pair passes, and the last hop delivers the sum to the owner (what
+    ``ppermute``'s transpose does in JAX). Bank buffers are detached at
+    push, so on the train path no dP is computed or carried."""
+
+    @staticmethod
+    def forward(fctx, q_rows, labels, reps, valid, ctx, be, n_a, temperature):
+        d_ring, cap_local, sidx = ctx.device_count(), reps.shape[0], ctx.shard_index()
+        shard = (reps, valid)
+        out: List[Tuple[torch.Tensor, ...]] = []
+        for k in range(d_ring):
+            owner = (sidx - k) % d_ring
+            out.append(_chunk_eval(be, q_rows, labels, *shard, n_a + owner * cap_local,
+                                   temperature))
+            if k < d_ring - 1:      # the saved own shard needs no trip home
+                shard = ctx.ring_rotate(shard)
+        fctx.save_for_backward(q_rows, labels, reps, valid)
+        fctx.ring = (ctx, be, n_a, temperature)
+        lse, pos, owns, amax = (torch.stack(t) for t in zip(*out))
+        fctx.mark_non_differentiable(owns, amax)
+        return lse, pos, owns, amax
+
+    @staticmethod
+    def backward(fctx, g_lse, g_pos, _g_owns, _g_amax):
+        q_rows, labels, reps, valid = fctx.saved_tensors
+        ctx, be, n_a, temperature = fctx.ring
+        need_q, need_p = fctx.needs_input_grad[0], fctx.needs_input_grad[2]
+        d_ring, cap_local, sidx = ctx.device_count(), reps.shape[0], ctx.shard_index()
+        dq = torch.zeros(q_rows.shape, dtype=STATS_DTYPE, device=q_rows.device)
+        shard, d_shard = (reps, valid), torch.zeros_like(reps) if need_p else None
+        for k in range(d_ring):
+            owner = (sidx - k) % d_ring
+            with torch.enable_grad():
+                qr = q_rows.detach().requires_grad_(need_q)
+                pc = shard[0].detach().requires_grad_(need_p)
+                lse, pos, _, _ = _chunk_eval(be, qr, labels, pc, shard[1],
+                                             n_a + owner * cap_local, temperature)
+                wrt = [t for t, need in ((qr, need_q), (pc, need_p)) if need]
+                grads = iter(torch.autograd.grad((lse, pos), wrt, (g_lse[k], g_pos[k])))
+            if need_q:
+                dq += next(grads).to(STATS_DTYPE)
+            if need_p:
+                d_shard = d_shard + next(grads).to(d_shard.dtype)
+                # the shard and its dP ride on together; the last hop
+                # delivers the dP home
+                shard, d_shard = ctx.ring_rotate((shard, d_shard))
+            elif k < d_ring - 1:
+                shard = ctx.ring_rotate(shard)
+        return (dq.to(q_rows.dtype) if need_q else None, None, d_shard, None, None, None,
+                None, None)
 
 
 def bank_extra_columns(bank_p: Optional[BankState]) -> Optional[ExtraColumns]:
@@ -259,6 +403,44 @@ def bank_extra_rows(
         reps=bank_q.buf,
         labels=torch.arange(cq, dtype=torch.int32, device=bank_q.buf.device),
         weight=aligned_valid(bank_q, bank_p).to(STATS_DTYPE),
+    )
+
+
+def sharded_bank_extra_columns(
+    bank_p: Optional[BankState], ctx: DistCtx, comm: str = "all_gather"
+) -> Optional[ExtraColumns]:
+    """This rank's passage-bank shard -> extra columns, under
+    ``ContrastiveConfig.loss_comm``: ``"all_gather"`` gathers the rows and
+    validity into the global block (shard-major, the bank's global ring
+    layout; O(N_mem*d) transient memory whatever D); ``"ring"`` keeps the
+    shard local (``sharded=True``) and the loss streams the D shards
+    around the ring (O(N_mem*d/D)). Without an axis the shard is the whole
+    bank and the gather the identity."""
+    if bank_p is None or bank_p.buf.shape[0] == 0:
+        return None
+    if comm == "ring" and ctx.is_distributed:
+        return ExtraColumns(reps=bank_p.buf, valid=bank_p.valid, sharded=True)
+    return ExtraColumns(reps=ctx.gather(bank_p.buf), valid=ctx.gather(bank_p.valid))
+
+
+def sharded_bank_extra_rows(
+    bank_q: Optional[BankState], bank_p: Optional[BankState], ctx: DistCtx
+) -> Optional[ExtraRows]:
+    """This rank's dual-bank shards -> its partition of the extra query
+    rows. Nothing is gathered: each rank evaluates its own bank rows,
+    labeled with their global slots, and the sum over the ranks counts
+    every global row once."""
+    if bank_q is None or bank_q.buf.shape[0] == 0:
+        return None
+    if bank_p is None or bank_p.buf.shape[0] == 0:
+        return None
+    cap_local = bank_q.buf.shape[0]
+    return ExtraRows(
+        reps=bank_q.buf,
+        labels=ctx.shard_index() * cap_local
+        + torch.arange(cap_local, dtype=torch.int32, device=bank_q.buf.device),
+        weight=aligned_valid(bank_q, bank_p).to(STATS_DTYPE),
+        sharded=True,
     )
 
 

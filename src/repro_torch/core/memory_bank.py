@@ -16,7 +16,15 @@ costs one bank (2048 x 768 bf16 = 3 MiB) per push.
 
 Buffers are stored in the PrecisionPolicy's ``bank_dtype``; pushes cast the
 incoming rows to it here and the loss casts reads back to its compute dtype.
-Sharded banks (``shard_push*``, ``bank_spec``) wait for multi-device.
+
+Two distribution modes (core/step_program.py, ``cfg.shard_banks``):
+replicated, where every rank carries the full ring and pushes the gathered
+global rows (``push``/``push_pair``), and sharded, where each rank owns a
+``capacity/D`` contiguous block of ring slots, laid out shard-major so that
+``DistCtx.gather`` over the shards gives the replicated ring
+(``shard_push``/``shard_push_pair``). A rank's state holds its own block
+only: JAX's ``bank_spec`` (a PartitionSpec over one global array) has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -108,6 +116,77 @@ def push_pair(
     if q.shape[0] != p.shape[0]:
         raise ValueError("dual banks must be pushed in lockstep")
     return push(bank_q, q, step), push(bank_p, p, step)
+
+
+def shard_push(
+    bank: BankState,
+    x: torch.Tensor,
+    step: Union[torch.Tensor, int] = 0,
+    *,
+    shard_index: int,
+    num_shards: int,
+) -> BankState:
+    """Shard-local ``push``: write only this rank's slots of a globally
+    ring-addressed enqueue.
+
+    ``bank`` is this rank's ``capacity_global / num_shards`` block of a
+    global ring laid out shard-major (shard i owns global slots
+    ``[i*cap_local, (i+1)*cap_local)``). ``x`` is the full global row block
+    (every rank holds the same gathered rows) and ``bank.head`` the
+    replicated *global* head, which every shard advances alike. The union
+    of the shards after a shard_push equals a replicated ``push`` of the
+    same rows.
+
+    JAX scatters every row and drops the other shards' with an out-of-range
+    index; on the card an out-of-range index asserts. Here each local slot
+    picks its row instead: slot j (global g) takes row ``(g - start) mod
+    cap_global`` of x where that is below n, and keeps its value elsewhere
+    (a mask; no data-dependent shape, so no wait for the device)."""
+    x = x.detach()
+    n = x.shape[0]
+    cap_local = bank.buf.shape[0]
+    cap_global = cap_local * num_shards
+    if n == 0 or cap_local == 0:
+        return bank
+    start = bank.head.long()
+    if n > cap_global:
+        x = x[n - cap_global :]
+        start = start + (n - cap_global)
+        n = cap_global
+    gslot = shard_index * cap_local + torch.arange(cap_local, device=x.device)
+    row = (gslot - start) % cap_global
+    own = row < n
+    taken = x.index_select(0, row.clamp(max=n - 1)).to(bank.buf.dtype)
+    step = torch.as_tensor(step, dtype=torch.int32, device=x.device)
+    return BankState(
+        buf=torch.where(own[:, None], taken, bank.buf),
+        valid=bank.valid | own,
+        head=((start + n) % cap_global).to(torch.int32),
+        age=torch.where(own, step, bank.age),
+    )
+
+
+def shard_push_pair(
+    bank_q: BankState,
+    bank_p: BankState,
+    q: torch.Tensor,
+    p: torch.Tensor,
+    step: Union[torch.Tensor, int] = 0,
+    *,
+    shard_index: int,
+    num_shards: int,
+) -> Tuple[BankState, BankState]:
+    """Lockstep ``shard_push`` of both banks (see push_pair)."""
+    if q.shape[0] != p.shape[0]:
+        raise ValueError("dual banks must be pushed in lockstep")
+    kw = dict(shard_index=shard_index, num_shards=num_shards)
+    return shard_push(bank_q, q, step, **kw), shard_push(bank_p, p, step, **kw)
+
+
+def capacity(bank: BankState) -> int:
+    """Capacity of the ring (0 for a disabled bank); a shard's own slots
+    for a sharded bank."""
+    return bank.buf.shape[0]
 
 
 def columns_view(bank: BankState) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,7 +5,7 @@ StepProgram compositions of core/step_program.py (``repro.core.methods``).
 ``grad_cache`` (rep_cache x in-batch), ``contaccum`` (scan x dual banks, the
 paper's method), ``contcache`` (rep_cache x dual banks), ``prebatch`` and
 ``prebatch_cache`` (passage bank), ``mined*`` (mined negatives) and
-``dpr_xdev`` (cross-device in-batch; not yet ported). Every method honours
+``dpr_xdev`` (cross-device in-batch; needs ``dp_axis``). Every method honours
 ``cfg.loss_impl`` ('dense' | 'fused') and ``cfg.precision``.
 """
 

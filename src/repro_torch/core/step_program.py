@@ -4,8 +4,9 @@
 An update is a *negative source* x a *backprop strategy*:
 
   * sources: ``in_batch`` (no extras), ``mined`` (in-batch math; mined
-    negatives arrive as extra ``passage_hard`` columns), ``dual_bank`` (the
-    paper's dual FIFO banks) and ``passage_bank`` (pre-batch ablation);
+    negatives arrive as extra ``passage_hard`` columns), ``gathered``
+    (cross-device in-batch negatives; needs ``dp_axis``), ``dual_bank``
+    (the paper's dual FIFO banks) and ``passage_bank`` (pre-batch ablation);
   * strategies: ``direct`` (one forward/backward over the batch), ``scan``
     (a Python loop over K chunks, loss restricted to each chunk, paper Eq. 4;
     grads accumulate in fp32 and are scaled by 1/K; the bank carry threads
@@ -20,8 +21,17 @@ copies of the params (leaves whose ``.grad`` accumulates in the param type,
 fp32), so the state it is given is left as it was. ``cfg.loss_impl`` picks
 the loss backend, ``cfg.precision`` the PrecisionPolicy, orthogonally.
 
-Not yet ported (multi-device): the ``gathered`` source (``dpr_xdev``),
-``dp_axis``, ``shard_banks`` and ``loss_comm='ring'``; they raise.
+Across a data-parallel group (``cfg.dp_axis``: the initialized default
+process group, core/dist.py) each rank runs the update on its own rows of
+the global batch; the loss gathers the columns over the ranks, and the
+update sums the gradients over the ranks (one ``psum_tree`` after the
+strategy, where each of JAX's strategies ends with one) before the
+optimizer. ``cfg.shard_banks`` gives each rank a ``bank_size / D`` block of
+ring slots (``init_state`` allocates only that): pushes write only the
+rank's own slots of the gathered rows, the loss evaluates only the rank's
+query-bank rows, and ``cfg.loss_comm`` picks how the passage-bank columns
+reach it: ``'all_gather'`` (the global block on every rank) or ``'ring'``
+(the shards streamed around the ring, core/loss.py ``_ring_row_stats``).
 """
 
 from __future__ import annotations
@@ -40,8 +50,18 @@ from repro_torch.core.loss import (
     bank_extra_rows,
     contrastive_loss,
     resolve_loss_backend,
+    sharded_bank_extra_columns,
+    sharded_bank_extra_rows,
 )
-from repro_torch.core.memory_bank import BankState, clear, init_bank, push, push_pair
+from repro_torch.core.memory_bank import (
+    BankState,
+    clear,
+    init_bank,
+    push,
+    push_pair,
+    shard_push,
+    shard_push_pair,
+)
 from repro_torch.core.precision import STATS_DTYPE, resolve_precision
 from repro_torch.core.types import (
     ContrastiveConfig,
@@ -60,18 +80,25 @@ Carry = Tuple[BankState, BankState]
 
 LOSS_COMMS = ("all_gather", "ring")
 
-_MULTI_DEVICE = "not yet ported to repro_torch (multi-device, ROADMAP A8)"
 
-
-def _validate_single_device(cfg: ContrastiveConfig) -> None:
+def _validate_loss_comm(cfg: ContrastiveConfig, *, uses_banks: bool) -> None:
+    """The loss_comm checks, at program build."""
     if cfg.loss_comm not in LOSS_COMMS:
         raise ValueError(f"unknown loss_comm {cfg.loss_comm!r}; one of {sorted(LOSS_COMMS)}")
-    if cfg.dp_axis is not None:
-        raise NotImplementedError(f"dp_axis={cfg.dp_axis!r}: {_MULTI_DEVICE}")
-    if cfg.shard_banks:
-        raise NotImplementedError(f"shard_banks=True: {_MULTI_DEVICE}")
     if cfg.loss_comm == "ring":
-        raise NotImplementedError(f"loss_comm='ring': {_MULTI_DEVICE}")
+        if not uses_banks:
+            raise ValueError(
+                "loss_comm='ring' streams sharded bank columns around the DP "
+                "ring, but this negatives source has no bank columns — use a "
+                "bank-consuming source (dual_bank / passage_bank) or leave "
+                "loss_comm='all_gather'"
+            )
+        if not cfg.shard_banks:
+            raise ValueError(
+                "loss_comm='ring' needs shard_banks=True (each device must "
+                "own one N_mem/D shard to stream); replicated banks already "
+                "hold the full column block locally"
+            )
 
 
 # --------------------------------------------------------------------------
@@ -104,7 +131,7 @@ class InBatchNegatives:
         return cfg.resolved_bank_sizes()
 
     def validate(self, cfg):
-        _validate_single_device(cfg)
+        _validate_loss_comm(cfg, uses_banks=False)
 
     def begin(self, state, cfg):
         return (state.bank_q, state.bank_p)
@@ -124,6 +151,23 @@ class MinedNegatives(InBatchNegatives):
     ``passage_hard`` columns, so inside the update the math is in-batch."""
 
     name = "mined"
+
+
+class GatheredInBatch(InBatchNegatives):
+    """Cross-device in-batch negatives (``dpr_xdev``): the in-batch math
+    (the loss gathers the columns whenever ``cfg.dp_axis`` is set), but it
+    states the intent and refuses to build without a DP axis."""
+
+    name = "gathered"
+    needs_mesh = True
+
+    def validate(self, cfg):
+        super().validate(cfg)
+        if cfg.dp_axis is None:
+            raise ValueError(
+                "negatives='gathered' needs cfg.dp_axis naming the mesh axes "
+                "to all-gather representations over"
+            )
 
 
 class DualBankNegatives:
@@ -147,25 +191,49 @@ class DualBankNegatives:
                 f"bank_size=, or disable one bank (capacity 0) for the "
                 f"pre-batch ablation."
             )
-        _validate_single_device(cfg)
+        if cfg.shard_banks and cfg.dp_axis is None:
+            raise ValueError(
+                "shard_banks=True needs cfg.dp_axis naming the mesh axes the "
+                "bank rows are sharded over (single-device banks are already "
+                "'sharded' into one shard — just leave shard_banks off)"
+            )
+        _validate_loss_comm(cfg, uses_banks=True)
 
     def begin(self, state, cfg):
         if cfg.reset_banks_each_update:
             return (clear(state.bank_q), clear(state.bank_p))
         return (state.bank_q, state.bank_p)
 
+    def _sharded(self, cfg, ctx) -> bool:
+        return cfg.shard_banks and ctx.is_distributed
+
     def loss(self, q, pp, ph, carry, *, cfg, ctx, backend=None):
         bank_q, bank_p = carry
+        if self._sharded(cfg, ctx):
+            # this rank's bank shards: the columns reach the loss gathered
+            # or streamed around the ring (loss_comm); the rows are this
+            # rank's own partition either way
+            extra_cols = sharded_bank_extra_columns(bank_p, ctx, cfg.loss_comm)
+            extra_rows = sharded_bank_extra_rows(bank_q, bank_p, ctx)
+        else:
+            extra_cols = bank_extra_columns(bank_p)
+            extra_rows = bank_extra_rows(bank_q, bank_p)
         return contrastive_loss(
-            q, pp, ph,
-            extra_cols=bank_extra_columns(bank_p),
-            extra_rows=bank_extra_rows(bank_q, bank_p),
+            q, pp, ph, extra_cols=extra_cols, extra_rows=extra_rows,
             temperature=cfg.temperature, ctx=ctx, backend=backend,
             precision=cfg.resolved_precision(),
         )
 
     def push(self, carry, aux, step, *, cfg, ctx):
         bank_q, bank_p = carry
+        if self._sharded(cfg, ctx):
+            # each rank writes only its own slots of the gathered rows; the
+            # global head advances alike on every rank
+            return shard_push_pair(
+                bank_q, bank_p, aux.q_global, aux.p_global, step,
+                shard_index=ctx.shard_index(), num_shards=ctx.device_count(),
+            )
+        # the gathered rows, the same on every rank: replicated banks
         return push_pair(bank_q, bank_p, aux.q_global, aux.p_global, step)
 
 
@@ -181,26 +249,25 @@ class PassageBankNegatives(DualBankNegatives):
 
     def loss(self, q, pp, ph, carry, *, cfg, ctx, backend=None):
         _, bank_p = carry
+        extra_cols = (
+            sharded_bank_extra_columns(bank_p, ctx, cfg.loss_comm)
+            if self._sharded(cfg, ctx)
+            else bank_extra_columns(bank_p)
+        )
         return contrastive_loss(
-            q, pp, ph,
-            extra_cols=bank_extra_columns(bank_p),
+            q, pp, ph, extra_cols=extra_cols,
             temperature=cfg.temperature, ctx=ctx, backend=backend,
             precision=cfg.resolved_precision(),
         )
 
     def push(self, carry, aux, step, *, cfg, ctx):
         bank_q, bank_p = carry
+        if self._sharded(cfg, ctx):
+            return bank_q, shard_push(
+                bank_p, aux.p_global, step,
+                shard_index=ctx.shard_index(), num_shards=ctx.device_count(),
+            )
         return bank_q, push(bank_p, aux.p_global, step)
-
-
-class GatheredInBatch(InBatchNegatives):
-    """Cross-device in-batch negatives (``dpr_xdev``): needs a mesh."""
-
-    name = "gathered"
-    needs_mesh = True
-
-    def validate(self, cfg):
-        raise NotImplementedError(f"negatives='gathered': {_MULTI_DEVICE}")
 
 
 # --------------------------------------------------------------------------
@@ -434,12 +501,16 @@ class StepProgram:
     cfg: ContrastiveConfig
 
 
-def _metrics(grads, aux: LossAux, bank_q: BankState, bank_p: BankState) -> StepMetrics:
+def _metrics(grads, aux: LossAux, bank_q: BankState, bank_p: BankState, *,
+             ctx: Optional[DistCtx] = None, sharded_banks: bool = False) -> StepMetrics:
     gq = subtree_norm(grads, "query")
     gp = subtree_norm(grads, "passage")
 
     def fill(bank: BankState) -> torch.Tensor:
-        return bank.valid.sum().to(STATS_DTYPE)
+        f = bank.valid.sum().to(STATS_DTYPE)
+        # a shard's fill differs from another's mid-warm-up (low ring slots
+        # fill first): the sum over the ranks is the global fill
+        return ctx.psum(f) if sharded_banks and ctx is not None else f
 
     return StepMetrics(
         loss=aux.loss,
@@ -465,7 +536,7 @@ def build_step_program(
     strategy.validate(cfg)
     resolve_loss_backend(cfg.loss_impl)  # fail fast on unknown loss_impl
     resolve_precision(cfg.precision)     # fail fast on unknown precision
-    ctx = DistCtx()
+    ctx = DistCtx(cfg.dp_axis)
 
     def update(state: ContrastiveState, batch: RetrievalBatch):
         carry = source.begin(state, cfg)
@@ -474,9 +545,9 @@ def build_step_program(
             aux, (bank_q, bank_p) = strategy.compute(
                 encoder, leaves, batch, source, carry, state.step, cfg, ctx
             )
-        grads = tree_map(
+        grads = ctx.psum_tree(tree_map(
             lambda leaf: torch.zeros_like(leaf) if leaf.grad is None else leaf.grad, leaves
-        )
+        ))
         with torch.no_grad():
             updates, opt_state = tx.update(grads, state.opt_state, state.params)
             new_state = ContrastiveState(
@@ -486,7 +557,8 @@ def build_step_program(
                 bank_q=bank_q,
                 bank_p=bank_p,
             )
-            metrics = _metrics(grads, aux, bank_q, bank_p)
+            metrics = _metrics(grads, aux, bank_q, bank_p, ctx=ctx,
+                               sharded_banks=cfg.shard_banks and ctx.is_distributed)
         return new_state, metrics
 
     return StepProgram(update=update, source=source, strategy=strategy, cfg=cfg)
@@ -505,7 +577,9 @@ def init_state(
     """Initial train state on ``device``, with the bank capacities the cfg's
     negative source asks for, in the policy's ``bank_dtype``. ``params``
     (nested dicts of tensors) are used as given (moved to ``device``), else
-    drawn from ``generator``."""
+    drawn from ``generator``. With ``cfg.shard_banks`` and a ``dp_axis`` the
+    state is this rank's: each bank holds its ``capacity / D`` slots (JAX
+    keeps one global array and shards it with a spec)."""
     device = torch.device(device)
     if params is None:
         params = encoder.init(generator, device)
@@ -513,6 +587,12 @@ def init_state(
         params = tree_map(lambda t: t.to(device), params)
     source, _ = resolve_composition(cfg)
     nq, np_ = source.bank_sizes(cfg)
+    if cfg.shard_banks and cfg.dp_axis is not None:
+        n_shards = DistCtx(cfg.dp_axis).device_count()
+        if nq % n_shards or np_ % n_shards:
+            raise ValueError(f"bank sizes ({nq}, {np_}) are not divisible by the {n_shards} "
+                             f"ranks they are sharded over")
+        nq, np_ = nq // n_shards, np_ // n_shards
     d = bank_dim or encoder.rep_dim
     bank_dtype = cfg.resolved_bank_dtype()
     return ContrastiveState(

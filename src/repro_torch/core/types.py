@@ -55,9 +55,17 @@ class ContrastiveConfig:
     pre-batch ablation (w/o M_q). ``loss_impl``: 'dense' (the (M, N) logits
     block) or 'fused' (the CUDA kernels of kernels/fused_infonce).
     ``precision``: a PrecisionPolicy or preset name. ``bank_dtype``
-    overrides the policy's bank dtype. ``dp_axis``, ``shard_banks`` and
-    ``loss_comm='ring'`` are multi-device and not yet ported: the program
-    builder raises for them.
+    overrides the policy's bank dtype. ``dp_axis``: None for one device,
+    else the name(s) of the data-parallel axes, which in the port means the
+    initialized default ``torch.distributed`` process group (core/dist.py).
+    ``shard_banks``: each rank owns a ``bank_size / D`` block of ring slots
+    instead of the whole ring (needs ``dp_axis``); the loss gathers the
+    passage-bank columns and evaluates only the rank's query-bank rows.
+    ``loss_comm``: how sharded bank columns reach the loss, ``'all_gather'``
+    (the whole (N_mem, d) block on every rank) or ``'ring'`` (the D shards
+    streamed around the ring, merging online-softmax statistics: the same
+    loss at O(N_mem*d/D) transient memory; needs ``shard_banks`` and a
+    bank-consuming source).
     """
 
     method: str = "contaccum"

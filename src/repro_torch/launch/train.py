@@ -1,5 +1,5 @@
 """Training driver of the port: the paper's dense-retriever training (any
-single-device method) on the synthetic corpus, through the fault-tolerant
+of the methods) on the synthetic corpus, through the fault-tolerant
 Trainer, with the flags of ``repro.launch.train``. Runs on the GPU;
 ``--device cpu`` runs it on the CPU.
 
@@ -20,16 +20,33 @@ stream); ``--mine-sync`` makes each refresh block the loop instead:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --method contaccum --negatives mined --mine-every 50 --mine-topk 32
 
-Not yet ported: ``--dp``, ``--shard-banks`` and ``--loss-comm ring``
-(multi-device, ROADMAP A8); they raise.
+Data parallel: ``--dp N`` starts N ranks (``torch.multiprocessing``, a
+``FileStore`` in a temporary directory, no network), one a GPU under NCCL
+(rank r on ``cuda:r``), or on the CPU under gloo with ``--device cpu``
+(one torch thread a rank). Each rank trains on its ``total/N`` rows of
+every global batch with cross-device in-batch negatives; ``--shard-banks``
+gives each rank a bank/N shard of the memory banks instead of the whole
+ring, and ``--loss-comm ring`` then streams those shards around the ring
+at loss time instead of all-gathering them (core/loss.py). Rank 0 prints;
+with ``--checkpoint-dir`` each rank keeps its own state under ``rank<r>/``;
+with ``--negatives mined`` each rank runs its own miner over the corpus.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --method contaccum --dp 2 --shard-banks --loss-comm ring \
+      --total-batch 16 --local-batch 8 --bank 32 --steps 5 --corpus-size 64
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.methods import (
@@ -48,13 +65,18 @@ from repro_torch.launch.serve import tiny_bert
 from repro_torch.models.towers import make_bert_dual_encoder
 from repro_torch.optim.adamw import adamw, chain, clip_by_global_norm
 from repro_torch.optim.schedules import linear_warmup_linear_decay
-from repro_torch.runtime.trainer import PeriodicHook, Trainer, TrainerConfig, priority_stream
-
-_NOT_PORTED = "not yet ported to repro_torch (ROADMAP A8)"
+from repro_torch.runtime.trainer import (
+    PeriodicHook,
+    Trainer,
+    TrainerConfig,
+    TrainerReport,
+    priority_stream,
+)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    # mesh-requiring compositions (dpr_xdev) are built through the API
     methods = [m for m in available_methods() if not method_needs_mesh(m)]
     ap.add_argument("--method", default="contaccum", choices=methods)
     ap.add_argument("--loss-impl", default="dense", choices=["dense", "fused"],
@@ -67,11 +89,16 @@ def main(argv=None):
     ap.add_argument("--local-batch", type=int, default=8)
     ap.add_argument("--bank", type=int, default=256)
     ap.add_argument("--dp", type=int, default=0,
-                    help="data-parallel devices (multi-device: not yet ported)")
+                    help="train on N data-parallel ranks, one a GPU (NCCL) or on the "
+                         "CPU with --device cpu (gloo); 0 = one process")
     ap.add_argument("--shard-banks", action="store_true",
-                    help="shard the banks over the DP mesh (not yet ported)")
+                    help="shard the memory banks over the ranks (bank/N rows a rank) "
+                         "instead of replicating them")
     ap.add_argument("--loss-comm", default="all_gather", choices=["all_gather", "ring"],
-                    help="how sharded bank columns reach the loss ('ring': not yet ported)")
+                    help="how sharded bank columns reach the loss (needs --shard-banks): "
+                         "all_gather materializes the full (bank, d) block per eval; "
+                         "ring streams one bank/N shard at a time around the ring with "
+                         "an online-softmax merge (exact; transient O(bank*d/N))")
     ap.add_argument("--negatives", default=None, choices=["mined"],
                     help="override the method's negative source: 'mined' runs "
                          "the asynchronous hard-negative miner (mining/) and "
@@ -102,9 +129,63 @@ def main(argv=None):
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.dp or args.shard_banks or args.loss_comm == "ring":
-        raise NotImplementedError(f"--dp/--shard-banks/--loss-comm ring: {_NOT_PORTED}")
+    dp = args.dp
+    if args.shard_banks and not dp:
+        raise SystemExit("--shard-banks needs --dp N (banks shard over the DP mesh)")
+    if args.shard_banks and not method_uses_banks(args.method):
+        raise SystemExit(f"--shard-banks: method {args.method!r} has no memory banks")
+    if args.loss_comm == "ring" and not args.shard_banks:
+        raise SystemExit("--loss-comm ring needs --shard-banks (it streams "
+                         "the per-device bank shards around the DP ring)")
+    if dp:
+        # ranks on the CPU are processes; on the GPU, one a card
+        have = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else dp
+        if have < dp:
+            raise SystemExit(f"--dp {dp} needs >= {dp} devices (have {have}; one rank "
+                             f"runs on each GPU, or on the CPU with --device cpu)")
+        if args.total_batch % dp:
+            raise SystemExit(f"--total-batch {args.total_batch} not divisible by --dp {dp}")
+        if args.shard_banks and args.bank % dp:
+            raise SystemExit(f"--bank {args.bank} not divisible by --dp {dp}")
+        return _spawn(args)
+    return _train(args)
+
+
+def _spawn(args):
+    """Run ``_train`` on ``args.dp`` ranks; returns (None, rank 0's report):
+    each rank's state is its own and stays in its process."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(_rank_main, args=(args, tmp), nprocs=args.dp, join=True)
+        report = torch.load(os.path.join(tmp, "report.pt"), weights_only=False)
+    return None, TrainerReport(**report)
+
+
+def _rank_main(rank, args, tmp):
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"), args.dp),
+                            rank=rank, world_size=args.dp)
+    try:
+        with contextlib.ExitStack() as stack:
+            if rank:        # rank 0 prints for the group
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            _, report = _train(args, rank)
+        if rank == 0:
+            torch.save(dataclasses.asdict(report), os.path.join(tmp, "report.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, rank: int = 0):
+    dp = args.dp
     device = resolve_device(args.device)
+    if dp and device.type == "cuda":
+        device = torch.device("cuda", rank)
 
     source, backprop = method_composition(args.method)
     mine = args.negatives == "mined" or source == "mined"
@@ -113,7 +194,9 @@ def main(argv=None):
     negatives = "mined" if mine and not method_uses_banks(args.method) else None
 
     bank = args.bank if method_uses_banks(args.method) else 0
-    k = max(args.total_batch // args.local_batch, 1)
+    # with --dp a rank's batch is total/dp; accumulation chunks split the
+    # *local* batch so K still targets --local-batch rows per chunk
+    k = max(args.total_batch // max(dp, 1) // args.local_batch, 1)
     cfg = ContrastiveConfig(
         method=args.method,
         negatives=negatives,
@@ -123,6 +206,9 @@ def main(argv=None):
         precision=args.precision,
         temperature=1.0,
         grad_clip_norm=2.0,
+        dp_axis="data" if dp else None,
+        shard_banks=bool(args.shard_banks and dp and bank),
+        loss_comm=args.loss_comm,
     )
     enc = make_bert_dual_encoder(tiny_bert(), precision=args.precision)
     tx = chain(
@@ -171,6 +257,11 @@ def main(argv=None):
                          prefix="mine/", name="mine")
         )
 
+    rows = slice(None)
+    if dp:   # this rank's contiguous block of the global batch
+        n_local = args.total_batch // dp
+        rows = slice(rank * n_local, (rank + 1) * n_local)
+
     def next_batch(step):
         idx = loader.next_indices()
         b = corpus.batch(idx)
@@ -179,14 +270,17 @@ def main(argv=None):
             mined_ids = injector.mined_ids(idx, gold=idx, step=step)
             hard = np.concatenate([hard, corpus.passages[mined_ids]], axis=1)
         return RetrievalBatch(
-            *(torch.from_numpy(np.asarray(x, np.int64)).to(device)
+            *(torch.from_numpy(np.asarray(x[rows], np.int64)).to(device)
               for x in (b["query"], b["passage_pos"], hard))
         )
 
+    ckpt_dir = args.checkpoint_dir
+    if ckpt_dir and dp:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
     trainer = Trainer(
         TrainerConfig(
             total_steps=args.steps,
-            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_dir=ckpt_dir,
             checkpoint_every=args.checkpoint_every,
         ),
         update,
@@ -211,6 +305,10 @@ def main(argv=None):
         f"final grad-norm ratio "
         f"{report.final_metrics.get('grad_norm_ratio', float('nan')):.3f}"
     )
+    if bank:
+        fm = report.final_metrics
+        print(f"bank fill: q {fm.get('bank_fill_q', float('nan')):.0f}, "
+              f"p {fm.get('bank_fill_p', float('nan')):.0f} of {bank}")
     return state, report
 
 

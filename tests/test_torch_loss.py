@@ -25,6 +25,7 @@ from repro.core.loss import contrastive_step_loss as jax_step_loss
 from repro.core.memory_bank import init_bank as jax_init_bank
 from repro.core.memory_bank import push_pair as jax_push_pair
 from repro_torch.core import infonce
+from repro_torch.core.dist import DistCtx
 from repro_torch.core.loss import (
     DenseLossBackend,
     ExtraColumns,
@@ -65,14 +66,16 @@ def _jax_run(x, backend, extras, temperature):
     return float(l), aux, [np.asarray(g) for g in grads]
 
 
-def _port_run(x, backend, extras, temperature):
+def _port_run(x, backend, extras, temperature, sharded=False):
     ts = [torch.from_numpy(x[k]).requires_grad_(True) for k in ("q", "pp", "ph", "cols", "rows")]
     q, pp, ph, cr, rr = ts
     l, aux = contrastive_loss(
         q, pp, ph,
-        extra_cols=ExtraColumns(reps=cr, valid=torch.from_numpy(x["valid"])) if extras else None,
+        extra_cols=ExtraColumns(reps=cr, valid=torch.from_numpy(x["valid"]),
+                                sharded=sharded) if extras else None,
         extra_rows=ExtraRows(reps=rr, labels=torch.from_numpy(x["labels"]),
-                             weight=torch.from_numpy(x["weight"])) if extras else None,
+                             weight=torch.from_numpy(x["weight"]),
+                             sharded=sharded) if extras else None,
         temperature=temperature, backend=backend,
     )
     grads = torch.autograd.grad(l, ts, allow_unused=True)
@@ -167,10 +170,24 @@ def test_chunk_stats_match_jax_both_backends():
 
 
 def test_backend_resolution_and_sharded_blocks_raise():
+    """Backend names resolve or raise. The sharded blocks on one device (no
+    axis): a shard is the whole bank, the ring a ring of one chunk (the
+    in-batch block and the bank merged by merge_row_stats), and sharded
+    rows enter at full weight, so the loss, its aux and every gradient
+    equal JAX's over the plain blocks, on both backends. A context with an
+    axis and no process group raises."""
     assert isinstance(resolve_loss_backend(None), DenseLossBackend)
     with pytest.raises(ValueError, match="unknown loss_impl"):
         resolve_loss_backend("sparse")
-    x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        contrastive_loss(x, x, extra_cols=ExtraColumns(reps=x, valid=torch.ones(2, dtype=torch.bool),
-                                                       sharded=True))
+    x = _inputs()
+    for backend in ("dense", "fused"):
+        jl, jaux, jg = _jax_run(x, backend, True, 0.7)
+        tl, taux, tg = _port_run(x, backend, True, 0.7, sharded=True)
+        np.testing.assert_allclose(tl, jl, rtol=RTOL, atol=ATOL)
+        for field in ("loss", "accuracy", "n_rows", "n_negatives"):
+            np.testing.assert_allclose(float(getattr(taux, field)), float(getattr(jaux, field)),
+                                       rtol=RTOL, atol=ATOL, err_msg=field)
+        for name, a, b in zip(("dq", "dpp", "dph", "dcols", "drows"), tg, jg):
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=f"{backend} {name}")
+    with pytest.raises(RuntimeError, match="process group"):
+        DistCtx("data")

@@ -76,3 +76,66 @@ def test_bank_dtype_is_kept_on_push():
     tb = tmb.push(tb, torch.full((2, 2), 1.0 / 3.0))
     assert tb.buf.dtype == torch.bfloat16
     assert tb.buf[0, 0].item() == torch.tensor(1.0 / 3.0).to(torch.bfloat16).item()
+
+
+def _shards(num_shards, cap_local, d=4, dtype=None):
+    return [tmb.init_bank(cap_local, d, dtype, device="cpu") for _ in range(num_shards)], \
+        [jmb.init_bank(cap_local, d) for _ in range(num_shards)]
+
+
+@pytest.mark.parametrize("num_shards,cap_local,pushes", [
+    (4, 2, [[1, 2, 3], [4, 5, 6, 7, 8], [9]]),          # fill, then wrap across shards
+    (2, 3, [[1, 2, 3, 4, 5, 6, 7, 8, 9, 10]]),         # oversized from head 0: newest 6 win
+    (3, 2, [[1, 2, 3, 4], [5, 6, 7, 8, 9, 10, 11]]),   # oversized from head 4
+    (2, 2, [[], [1], [2, 3, 4, 5, 6]]),                # an empty push is a no-op
+])
+def test_shard_push_matches_jax_and_its_union_is_a_replicated_push(num_shards, cap_local, pushes):
+    """Each shard against JAX's shard_push of the same rows; the shards'
+    shard-major union against a replicated push (port and JAX) of the
+    whole capacity."""
+    tshards, jshards = _shards(num_shards, cap_local)
+    tfull = tmb.init_bank(num_shards * cap_local, 4, device="cpu")
+    for step, vals in enumerate(pushes):
+        x = _rows(vals)
+        tshards = [tmb.shard_push(b, torch.from_numpy(x), step=step + 5, shard_index=i,
+                                  num_shards=num_shards) for i, b in enumerate(tshards)]
+        jshards = [jmb.shard_push(b, jnp.asarray(x), step=step + 5, shard_index=i,
+                                  num_shards=num_shards) for i, b in enumerate(jshards)]
+        tfull = tmb.push(tfull, torch.from_numpy(x), step=step + 5)
+        for tb, jb in zip(tshards, jshards):
+            _same(tb, jb)
+        for field in ("buf", "valid", "age"):
+            union = torch.cat([getattr(b, field) for b in tshards])
+            np.testing.assert_array_equal(union.numpy(), getattr(tfull, field).numpy(),
+                                          err_msg=field)
+        assert all(int(b.head) == int(tfull.head) for b in tshards)
+    assert tmb.capacity(tshards[0]) == jmb.capacity(jshards[0]) == cap_local
+
+
+def test_shard_push_pair_moves_both_banks_in_lockstep():
+    tq, jq = _shards(2, 3)
+    tp, jp = _shards(2, 3)
+    q, p = _rows([1, 2, 3, 4], 4), _rows([5, 6, 7, 8], 4)
+    for _ in range(2):
+        out_t = [tmb.shard_push_pair(tq[i], tp[i], torch.from_numpy(q), torch.from_numpy(p),
+                                     step=3, shard_index=i, num_shards=2) for i in range(2)]
+        out_j = [jmb.shard_push_pair(jq[i], jp[i], jnp.asarray(q), jnp.asarray(p),
+                                     step=3, shard_index=i, num_shards=2) for i in range(2)]
+        tq, tp = [o[0] for o in out_t], [o[1] for o in out_t]
+        jq, jp = [o[0] for o in out_j], [o[1] for o in out_j]
+        for i in range(2):
+            _same(tq[i], jq[i])
+            _same(tp[i], jp[i])
+            np.testing.assert_array_equal(tq[i].valid.numpy(), tp[i].valid.numpy())
+            assert int(tq[i].head) == int(tp[i].head)
+    with pytest.raises(ValueError, match="lockstep"):
+        tmb.shard_push_pair(tq[0], tp[0], torch.from_numpy(q), torch.from_numpy(p[:2]),
+                            shard_index=0, num_shards=2)
+
+
+def test_shard_push_detaches_and_keeps_the_bank_dtype():
+    tb = tmb.init_bank(2, 2, torch.bfloat16, device="cpu")
+    x = torch.full((3, 2), 1.0 / 3.0, requires_grad=True)
+    out = tmb.shard_push(tb, x * 1.0, shard_index=1, num_shards=2)
+    assert out.buf.dtype == torch.bfloat16 and not out.buf.requires_grad
+    assert out.valid.tolist() == [True, False] and not tb.valid.any()   # global slots 2 and 3

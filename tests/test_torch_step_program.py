@@ -168,13 +168,27 @@ def test_contaccum_step_with_flash_attention_towers_matches_jax():
 
 
 def test_registry_and_multi_device_paths_raise():
+    """The registry, and build_step_program's refusals: the multi-device ones with
+    the JAX package's ValueError messages (dpr_xdev or shard_banks without a
+    dp_axis, loss_comm='ring' without sharded banks or on a source without
+    banks, an unknown loss_comm); a dp_axis with no process group raises."""
     assert available_methods() == sorted(COMPOSITIONS)
     assert method_needs_mesh("dpr_xdev") and not method_needs_mesh("contaccum")
     enc, tx = torch_mlp_encoder(), sgd(0.1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_step_program(enc, tx, ContrastiveConfig(method="dpr_xdev"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_step_program(enc, tx, ContrastiveConfig(bank_size=4, shard_banks=True))
+    for kw in (dict(method="dpr_xdev"), dict(bank_size=4, shard_banks=True),
+               dict(bank_size=4, loss_comm="ring"), dict(method="dpr", loss_comm="ring"),
+               dict(method="prebatch_cache", bank_size=4, loss_comm="ring"),
+               dict(bank_size=4, loss_comm="psum")):
+        with pytest.raises(ValueError) as jax_err:
+            jax_build(make_mlp_encoder(), jsgd(0.1), JConfig(**kw))
+        with pytest.raises(ValueError) as port_err:
+            build_step_program(enc, tx, ContrastiveConfig(**kw))
+        assert str(port_err.value) == str(jax_err.value), kw
+    with pytest.raises(RuntimeError, match="process group"):
+        build_step_program(enc, tx, ContrastiveConfig(method="dpr_xdev", dp_axis="data"))
+    with pytest.raises(RuntimeError, match="process group"):
+        init_state(None, enc, tx, ContrastiveConfig(bank_size=4, dp_axis="data",
+                                                    shard_banks=True), params={}, device="cpu")
     with pytest.raises(ValueError, match="equal non-zero capacities"):
         build_step_program(enc, tx, ContrastiveConfig(bank_size_q=4, bank_size_p=8))
     with pytest.raises(ValueError, match="unknown method"):

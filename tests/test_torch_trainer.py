@@ -176,9 +176,51 @@ def test_train_driver_tracks_the_jax_driver(tmp_path):
 
 
 def test_train_driver_refuses_what_is_not_ported():
-    for extra in (["--dp", "2"], ["--shard-banks"], ["--loss-comm", "ring"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    """launch/train.py's refusals of flag combinations it cannot run, with
+    the JAX package's launch/train.py SystemExit messages: the three that JAX reaches here (one
+    device) against JAX's own, the --dp ones (JAX stops at its device count
+    first) as JAX words them; --dp 2 on the GPU without two cards."""
+    for extra, msg in (
+        (["--shard-banks"], "--shard-banks needs --dp N (banks shard over the DP mesh)"),
+        (["--shard-banks", "--method", "grad_accum"], "--shard-banks needs --dp N"),
+        (["--loss-comm", "ring"], "--loss-comm ring needs --shard-banks (it streams "
+                                  "the per-device bank shards around the DP ring)"),
+    ):
+        with pytest.raises(SystemExit) as port_exit:
             port_train.main(extra + ["--device", "cpu"])
+        with pytest.raises(SystemExit) as jax_exit:
+            jax_train.main(extra)
+        assert str(port_exit.value) == str(jax_exit.value)
+        assert str(port_exit.value).startswith(msg)
+    for extra, msg in (
+        (["--dp", "2", "--shard-banks", "--method", "grad_accum"],
+         "--shard-banks: method 'grad_accum' has no memory banks"),
+        (["--dp", "3", "--total-batch", "16"], "--total-batch 16 not divisible by --dp 3"),
+        (["--dp", "2", "--shard-banks", "--bank", "33"], "--bank 33 not divisible by --dp 2"),
+    ):
+        with pytest.raises(SystemExit, match=f"^{msg}$"):
+            port_train.main(extra + ["--device", "cpu"])
+    have = torch.cuda.device_count()
+    with pytest.raises(SystemExit, match=f"^--dp {have + 1} needs >= {have + 1} devices"):
+        port_train.main(["--dp", str(have + 1)])
+
+
+def test_train_dp2_sharded_ring_run_matches_one_process(capfd):
+    """launch/train.py --dp 2 --shard-banks --loss-comm ring on two gloo
+    ranks: finite losses, full banks reported, and per-step losses within
+    rtol 2e-4 (the JAX package's multi-device tolerance) of one process
+    training on the same global chunks of 16."""
+    flags = ["--device", "cpu", "--method", "contaccum", "--loss-impl", "fused",
+             "--total-batch", "16", "--bank", "32", "--steps", "4", "--corpus-size", "64"]
+    _, dp_report = port_train.main(flags + ["--dp", "2", "--shard-banks", "--loss-comm", "ring",
+                                            "--local-batch", "8"])
+    out = capfd.readouterr().out
+    _, one_report = port_train.main(flags + ["--local-batch", "16"])
+    losses = [h["loss"] for h in dp_report.history]
+    assert dp_report.steps_run == 4 and np.isfinite(losses).all()
+    assert "bank fill: q 32, p 32 of 32" in out
+    assert dp_report.final_metrics["bank_fill_q"] == dp_report.final_metrics["bank_fill_p"] == 32
+    np.testing.assert_allclose(losses, [h["loss"] for h in one_report.history], rtol=2e-4)
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
