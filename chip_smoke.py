@@ -314,9 +314,10 @@ REPO = Path(__file__).resolve().parent
 SEED = 0
 DEVICE = "cuda"
 
-# H100 SXM data sheet (dense): bf16 tensor-core peak, fp32 peak outside the
-# tensor cores, and HBM bandwidth
+# H100 SXM data sheet (dense): bf16 and TF32 tensor-core peaks, fp32 peak
+# outside the tensor cores, and HBM bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -345,6 +346,10 @@ CLIENTS = 64
 STATS_RTOL = 1e-5
 GRAD_RTOL_BF16 = 1e-2
 GRAD_RTOL_FP32 = 1e-4
+# the fp32 dQ and dP on 3xTF32 against ref.py run in float64: at most this
+# many times the fp32 plain version's own error against it (one TF32 pass
+# would sit ~500x above; fp32 products summed in another order near 1x)
+FP64_ERR_RATIO = 10.0
 N_BANK_MASKED = 1000
 
 # the train phase: steps (16 x 8 = 128 pushes a step wrap the 2048-slot
@@ -992,14 +997,16 @@ def phase_serve(torch, topk_ref, bert_cfg, counters):
     }
 
 
-def infonce_bound_ms(m: int, n: int, n_valid: int, d: int, itemsize: int, kernel: str):
+def infonce_bound_ms(m: int, n: int, n_valid: int, d: int, itemsize: int, kernel: str,
+                     route: str = ""):
     """(bound_ms, bound_by) of one fused_infonce kernel: inputs read once
     (q, p, labels, col_valid; the backward also lse, g_lse, g_pos) and
     outputs written once, over HBM bandwidth; the products over the valid
     columns over the peak of their type (bf16 tensor cores for 2-byte
-    operands, fp32 outside the tensor cores for 4-byte ones, which the fp32
-    kernels use): 2*M*N_valid*d for the forward, 4*M*N_valid*d for dQ or dP
-    (the scores again, then the product)."""
+    operands, fp32 outside the tensor cores for 4-byte ones on the "fp32"
+    route): 2*M*N_valid*d for the forward, 4*M*N_valid*d for dQ or dP (the
+    scores again, then the product); on the "tf32x3" route three times
+    those on the TF32 tensor cores (each product is three TF32 products)."""
     moved = (m + n) * d * itemsize + 4 * m + n
     if kernel == "fwd":
         moved += 3 * 4 * m
@@ -1008,6 +1015,8 @@ def infonce_bound_ms(m: int, n: int, n_valid: int, d: int, itemsize: int, kernel
         moved += 3 * 4 * m + (m if kernel == "dq" else n) * d * itemsize
         ops = 4.0 * m * n_valid * d
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    if route == "tf32x3":
+        ops, peak = 3 * ops, PEAK_TF32_FLOPS
     t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1020,6 +1029,42 @@ def close_err(x, ref, rtol_of_max, what):
     err = (x - ref).abs().max().item()
     require(err <= tol, f"{what}: max abs err {err} > {tol}")
     return err
+
+
+def fp64_err_ratio(torch, got, plain, exact, plain_given, given, what):
+    """A fp32 kernel's max error against ``exact`` (ref.py in float64) over
+    the fp32 plain version's (``plain``, ref.py in fp32) against it; raises
+    above FP64_ERR_RATIO. Also, not held: both given the forward's lse, the
+    kernel's error and the plain version's (``plain_given``) against ref.py
+    in float64 with that lse (``given``): the two arithmetics on one
+    problem, without the plain version's advantage that its coefficients
+    share its own lse's rounding (a dominant one comes out exactly 1)."""
+    err = (got.double() - exact).abs().max().item()
+    own = (plain.double() - exact).abs().max().item()
+    ratio = err / own if own else (0.0 if err == 0 else math.inf)
+    require(ratio <= FP64_ERR_RATIO, f"{what}: error against float64 {err} is {ratio}x the fp32 "
+                                     f"plain version's {own} (> {FP64_ERR_RATIO}x)")
+    err_given = (got.double() - given).abs().max().item()
+    plain_err_given = (plain_given.double() - given).abs().max().item()
+    return {"fp64_max_abs_err": err, "plain_fp64_max_abs_err": own, "fp64_err_ratio": ratio,
+            "fp64_given_lse_max_abs_err": err_given,
+            "plain_fp64_given_lse_max_abs_err": plain_err_given,
+            "fp64_given_lse_err_ratio": err_given / plain_err_given if plain_err_given else None}
+
+
+def grad_turns(torch, fn, parent_fn, reps, what):
+    """Device ms of ``fn`` and of its parent route in turns (parent, new,
+    new, parent); raises unless the new route is faster in every turn."""
+    from repro_torch.kernels._timing import device_ms
+
+    turns = {"ms": [], "parent_ms": []}
+    for key, call in (("parent_ms", parent_fn), ("ms", fn), ("ms", fn), ("parent_ms", parent_fn)):
+        turns[key].append(device_ms(call, reps))
+    require(max(turns["ms"]) < min(turns["parent_ms"]),
+            f"{what}: the new route ({turns['ms']} ms) is not faster than its parent "
+            f"({turns['parent_ms']} ms) in every turn")
+    return {"ms_turns": turns["ms"], "parent_ms": statistics.mean(turns["parent_ms"]),
+            "parent_ms_turns": turns["parent_ms"]}
 
 
 def phase_infonce_kernels(torch):
@@ -1086,6 +1131,17 @@ def phase_infonce_kernels(torch):
                "dq_max_abs_err": close_err(dq, rdq, grad_rtol, f"{name} dq"),
                "dp_max_abs_err": close_err(dp, rdp, grad_rtol, f"{name} dp"),
                "grad_rtol_of_max": grad_rtol, "paths": paths}
+        if q.dtype == torch.float32:   # dQ and dP on 3xTF32, the forward on the fp32 kernel
+            require(paths == {"fwd": "fp32", "dq": "tf32x3", "dp": "tf32x3"},
+                    f"{name}: paths {paths}, not the fp32 forward and the tf32x3 dQ and dP")
+            plain_given = ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, lse=lse)
+            given, own = (ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos,
+                                                    dtype=torch.float64, lse=l)
+                          for l in (lse, None))
+            out["dq_fp64"] = fp64_err_ratio(torch, dq, rdq, own[0], plain_given[0], given[0],
+                                            f"{name} dq")
+            out["dp_fp64"] = fp64_err_ratio(torch, dp, rdp, own[1], plain_given[1], given[1],
+                                            f"{name} dp")
         if not timed:
             return out
         m, n, dd = q.shape[0], p.shape[0], q.shape[1]
@@ -1836,13 +1892,14 @@ def infonce_instantiations(log: str):
     ptxas's report of it from the build log. Fails unless the log reports
     every kernel with the card's register count, on a bf16 kernel that
     spills, and on a Hopper kernel (``ops.HOPPER_KERNELS``, the train path's
-    forward, dQ and dP) with any local memory."""
+    forward, dQ and dP; ``ops.TF32X3_KERNELS``, the xdev path's fp32 dQ and
+    dP) that spills or has any local memory."""
     from repro_torch.kernels.fused_infonce import ops
 
     types = {"13__nv_bfloat16": "<bf16>", "f": "<fp32>", "Lb1": "<dq>", "Lb0": "<dp>"}
     ptxas = {}
     for e in ptxas_report(log):
-        m = re.search(r"(infonce_[a-z_]+_kernel)(?:I(13__nv_bfloat16|f|Lb[01])E)?", e["entry"])
+        m = re.search(r"\d(infonce_[a-z0-9_]+?_kernel)(?:I(13__nv_bfloat16|f|Lb[01])E)?", e["entry"])
         if m:
             ptxas[m.group(1) + types.get(m.group(2), "")] = e
     out = []
@@ -1850,11 +1907,13 @@ def infonce_instantiations(log: str):
         attrs, e = ops.kernel_attributes(name), ptxas.get(name)
         require(e is not None and e.get("registers") == attrs["registers"],
                 f"the build log has no ptxas report of {name} with the card's {attrs}: {e}")
-        row = {"name": name, "bf16": "fp32" not in name and name != "infonce_stats_merge_kernel",
-               "hopper": name in ops.HOPPER_KERNELS, **attrs,
+        row = {"name": name, "bf16": "fp32" not in name and name != "infonce_stats_merge_kernel"
+               and name not in ops.TF32X3_KERNELS,
+               "hopper": name in ops.HOPPER_KERNELS or name in ops.TF32X3_KERNELS, **attrs,
                **{k: v for k, v in e.items() if k not in ("entry", "registers")}}
-        require(not row["bf16"] or row["spill_store_bytes"] == row["spill_load_bytes"] == 0,
-                f"a bf16 fused_infonce kernel spills: {row}")
+        require(not (row["bf16"] or row["hopper"])
+                or row["spill_store_bytes"] == row["spill_load_bytes"] == 0,
+                f"a bf16 or Hopper fused_infonce kernel spills: {row}")
         require(not row["hopper"] or row["local_bytes"] == row["stack_bytes"] == 0,
                 f"a Hopper fused_infonce kernel uses local memory: {row}")
         out.append(row)
@@ -3702,8 +3761,11 @@ def infonce_at(torch, kernel, q, p, labels, valid):
     to the plain version (statistics to STATS_RTOL of the largest |logit|,
     a gradient to GRAD_RTOL_FP32 or GRAD_RTOL_BF16 of its largest |g|),
     timed beside it, beside the dense backend (the library call: one matmul
-    and torch's logsumexp, or their autograd) and beside its bound. These
-    launches are counted: read the path's counts before."""
+    and torch's logsumexp, or their autograd) and beside its bound. A fp32
+    dQ or dP on the "tf32x3" route is also held to ref.py in float64 (at
+    most FP64_ERR_RATIO times the plain version's own error) and timed in
+    turns with the "fp32" route it took before (faster in every turn).
+    These launches are counted: read the path's counts before."""
     from repro_torch.core.loss import DenseLossBackend
     from repro_torch.core.precision import NEG_INF
     from repro_torch.kernels._timing import device_ms
@@ -3714,6 +3776,8 @@ def infonce_at(torch, kernel, q, p, labels, valid):
     g_lse = torch.rand((m,), generator=g, device=q.device)
     g_pos = -torch.rand((m,), generator=g, device=q.device)
     dense = DenseLossBackend()
+    route = ops.path_of(kernel, q.dtype, m, q.shape[1])
+    extra = {}
     if kernel == "fwd":
         fn = lambda: ops.fused_infonce_fwd(q, p, labels, valid)            # noqa: E731
         plain = lambda: ref.infonce_stats_ref(q, p, labels, valid)         # noqa: E731
@@ -3743,13 +3807,30 @@ def infonce_at(torch, kernel, q, p, labels, valid):
             lambda qf, pf: dense.chunk_stats(qf, pf, labels, valid, temperature=1.0))
         want = ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos)[kernel == "dp"]
         tol_rtol = GRAD_RTOL_BF16 if q.dtype == torch.bfloat16 else GRAD_RTOL_FP32
-        err = close_err(fn(), want, tol_rtol, f"fused_infonce {kernel} at M={m}")
+        got = fn()
+        err = close_err(got, want, tol_rtol, f"fused_infonce {kernel} at M={m}")
+        if route == "tf32x3":
+            i = int(kernel == "dp")
+            plain_given = ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, lse=lse)[i]
+            given, own = (ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos,
+                                                    dtype=torch.float64, lse=l)[i]
+                          for l in (lse, None))
+            extra.update(fp64_err_ratio(torch, got, want, own, plain_given, given,
+                                        f"fused_infonce {kernel} at M={m}"))
+            del plain_given, given, own
+            parent = lambda: ops.grad_on_path(kernel, "fp32", *args)   # noqa: E731
+            extra["parent_max_abs_err"] = close_err(parent(), want, tol_rtol,
+                                                    f"fused_infonce {kernel} at M={m}, fp32 route")
+            extra.update(parent_route="fp32", **grad_turns(
+                torch, fn, parent, 3, f"fused_infonce {kernel} at M={m}"))
+        del got, want
     bound_ms, bound_by = infonce_bound_ms(m, p.shape[0], int(valid.sum().item()), q.shape[1],
-                                          q.element_size(), kernel)
+                                          q.element_size(), kernel, route)
     return {"M": m, "N": p.shape[0], "d": q.shape[1], "dtype": str(q.dtype).replace("torch.", ""),
-            "path": ops.path_of(kernel, q.dtype, m, q.shape[1]), "max_abs_err": err,
+            "path": route, "max_abs_err": err,
             "ms": device_ms(fn, 10), "plain_ms": device_ms(plain, 3),
-            "library_ms": device_ms(library, 3), "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": device_ms(library, 3), "bound_ms": bound_ms, "bound_by": bound_by,
+            **extra}
 
 
 def phase_xdev(torch):
@@ -3911,10 +3992,11 @@ def phase_xdev(torch):
                     n_neg = XDEV_RANK_BATCH // k * (1 + cell["n_hard"]) + bank - 1
                     require(mm["n_negatives"] == n_neg,
                             f"{name}: n_negatives {mm['n_negatives']} != {n_neg}")
-                for kn in ("fwd", "dq", "dp"):
+                for kn in ("fwd", "dq", "dp"):   # the fp32 forward; dQ and dP on 3xTF32
+                    route = "fp32" if kn == "fwd" else "tf32x3"
                     require(r.launches[kn] > 0, f"{name}: no fused_infonce {kn} launch")
-                    require(r.paths[kn]["fp32"] == r.launches[kn],
-                            f"{name}: fused_infonce {kn} took {r.paths[kn]}, not all fp32 kernels")
+                    require(r.paths[kn][route] == r.launches[kn],
+                            f"{name}: fused_infonce {kn} took {r.paths[kn]}, not all {route}")
             want = {"all_gather": {"fwd": 2, "dq": 1, "dp": 2},
                     "ring": {"fwd": 3, "dq": 2, "dp": 1},
                     "one_device": {"fwd": 2, "dq": 1, "dp": 2}}
@@ -4184,10 +4266,14 @@ def main(argv=None) -> int:
                          if key in sh[kernel]}}
                for name, sh in lm_shapes.items()},
             # the fp32 kernels on the xdev path (one rank of contaccum_xdev):
-            # the all-gather program's largest shape, and the ring's
+            # the all-gather program's largest shape, then each other shape
+            # of the path that runs the kernel (the local rows, the ring's
+            # bank and in-batch chunks)
             "xdev_shape": xdev["fused_infonce_fp32"][shape][kernel],
-            **({"xdev_ring_shape": xdev["fused_infonce_fp32"]["ring_bank_chunk"][kernel]}
-               if kernel != "dp" else {}),
+            **{f"xdev_{name}_shape": sh[kernel] for name, sh in xdev["fused_infonce_fp32"].items()
+               if kernel in sh and name != shape},
+            "xdev_cuda_kernels": (["infonce_fwd_kernel<fp32>", "infonce_stats_merge_kernel"]
+                                  if kernel == "fwd" else list(infonce_ops.TF32X3_KERNELS)),
         })
     # flash_attention at the BERT passage pass (the phase line has every shape)
     fa = flash_k["bert_passage"]

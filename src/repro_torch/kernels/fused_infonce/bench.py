@@ -18,9 +18,17 @@ kernel, then the card's name and power limit. The LM retriever's chunk
 and columns, masked and all valid; each of its Hopper kernels also on the
 ``wmma`` kernels it took before (``parent_ms``: ``ops.stats_on_path`` for
 the forward, ``ops.grad_on_path`` for dQ at M = 8 and dP; dQ at M = 2048
-has no caller and is on ``wmma`` either way).
+has no caller and is on ``wmma`` either way). The xdev path's fp32 shapes
+(one rank of contaccum_xdev, d = 768, every column valid; ``--only xdev``
+times them alone): the bank rows (M = 8192 against N = 8256), the ring's
+8224 rows against its 8192-column bank chunk and its 64-column in-batch
+chunk, and the 32 local rows against 8256; dQ and dP there run on 3xTF32
+("tf32x3"), each timed in turns with the "fp32" route it took before
+(``ops.grad_on_path``: parent, new, new, parent; ``ms_turns``,
+``parent_ms_turns``), its bound three times the products at the TF32 peak
+(495 TFLOP/s) beside the 67 TFLOP/s one of fp32 FMAs (``bound_ms_fp32``).
 
-    PYTHONPATH=src python -m repro_torch.kernels.fused_infonce.bench [--reps 20] [--only lm|mined]
+    PYTHONPATH=src python -m repro_torch.kernels.fused_infonce.bench [--reps 20] [--only lm|mined|xdev]
 
 ``ms`` is the device time of a call (``_timing.device_ms``: the calls
 queued behind a sleep kernel); ``kernels_ms`` sums each kernel's device time
@@ -54,6 +62,8 @@ N_PATH, N_MINED, D, LM_D, N_MASKED = 2064, 2096, 768, 2048, 1000
 #: dense operations/s of each operand type (fp32 on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: the TF32 tensor cores' peak: the "tf32x3" route runs each product three times there
+PEAK_TF32_FLOPS = 495e12
 #: (name, M, N, d, dtype, masked columns)
 SHAPES = (("local_rows", 8, N_PATH, D, torch.bfloat16, N_MASKED),
           ("bank_rows", 2048, N_PATH, D, torch.bfloat16, N_MASKED),
@@ -66,7 +76,11 @@ SHAPES = (("local_rows", 8, N_PATH, D, torch.bfloat16, N_MASKED),
           ("lm_local_rows", 8, N_PATH, LM_D, torch.bfloat16, N_MASKED),
           ("lm_bank_rows", 2048, N_PATH, LM_D, torch.bfloat16, N_MASKED),
           ("lm_local_rows_all_valid", 8, N_PATH, LM_D, torch.bfloat16, 0),
-          ("lm_bank_rows_all_valid", 2048, N_PATH, LM_D, torch.bfloat16, 0))
+          ("lm_bank_rows_all_valid", 2048, N_PATH, LM_D, torch.bfloat16, 0),
+          ("xdev_local_rows", 32, 8256, D, torch.float32, 0),
+          ("xdev_bank_rows", 8192, 8256, D, torch.float32, 0),
+          ("xdev_ring_bank_chunk", 8224, 8192, D, torch.float32, 0),
+          ("xdev_ring_inbatch_chunk", 8224, 64, D, torch.float32, 0))
 
 
 def profile_kernels(fn, reps: int) -> dict:
@@ -85,17 +99,21 @@ def profile_kernels(fn, reps: int) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def bound_ms(kernel: str, m: int, n: int, n_valid: int, d: int, dtype) -> tuple:
+def bound_ms(kernel: str, m: int, n: int, n_valid: int, d: int, dtype, route=None) -> tuple:
     """(bound_ms, bound_by) of one call: q, p, labels, col_valid (and the
     backward's lse, g_lse, g_pos) read once and the outputs written once,
     against 2 m n_valid d operations for the forward and 4 m n_valid d for
-    dQ or dP (the scores again, then the product)."""
+    dQ or dP (the scores again, then the product); on the "tf32x3" route
+    three times those at the TF32 peak."""
     item = torch.tensor([], dtype=dtype).element_size()
     moved = (m + n) * d * item + 4 * m + n + 3 * 4 * m
     if kernel != "fwd":
         moved += (m if kernel == "dq" else n) * d * item
     flop = (2.0 if kernel == "fwd" else 4.0) * m * n_valid * d
-    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, flop / PEAK_FLOPS[dtype]
+    peak = PEAK_FLOPS[dtype]
+    if route == "tf32x3":
+        flop, peak = 3 * flop, PEAK_TF32_FLOPS
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S, flop / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -105,8 +123,12 @@ def _case(m, n, d, dtype, n_masked, dev, g):
     valid = torch.ones((n,), dtype=torch.bool, device=dev)
     if n_masked:
         valid[-n_masked:] = False
-    # the local rows' own positives, or each bank row's column after a chunk's own
-    labels = torch.arange(m, device=dev) + (0 if m == 8 else n - 2048)
+    # the local rows' own positives, or each bank row's column after a chunk's
+    # own (the xdev shapes: row i's label column i, wrapped)
+    if dtype == torch.float32 and d == D and n != N_PATH:
+        labels = torch.arange(m, device=dev) % n
+    else:
+        labels = torch.arange(m, device=dev) + (0 if m == 8 else n - 2048)
     g_lse = torch.rand((m,), generator=g, device=dev)
     g_pos = -torch.rand((m,), generator=g, device=dev)
     return q, p, labels.to(torch.int32), valid, g_lse, g_pos
@@ -132,9 +154,9 @@ def _took(counter, before):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("lm", "mined"), default=None,
-                    help="time only the LM retriever's chunk (d = 2048) or the "
-                         "contaccum_mined chunk (N = 2096)")
+    ap.add_argument("--only", choices=("lm", "mined", "xdev"), default=None,
+                    help="time only the LM retriever's chunk (d = 2048), the "
+                         "contaccum_mined chunk (N = 2096) or the xdev path's fp32 shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench.py needs a CUDA device")
@@ -174,13 +196,23 @@ def main(argv=None):
             fn()
             torch.cuda.synchronize()
             took = _took(counter, before)
-            ms = device_ms(fn, args.reps)
-            bound, bound_by = bound_ms(kernel, m, n, n_valid, d, dtype)
-            parent_ms, parent = None, on_path[kernel]
+            route = next(iter(took)) if took and len(took) == 1 else None
+            bound, bound_by = bound_ms(kernel, m, n, n_valid, d, dtype, route)
+            parent_ms, parent, turns = None, on_path[kernel], {}
             if d == LM_D and parent is not None and (kernel != "dq" or m <= ops.SMALL_M):
                 call = (functools.partial(parent, "wmma", q, p, labels, valid) if kernel == "fwd"
                         else functools.partial(parent, kernel, "wmma", *args_))
                 parent_ms = device_ms(call, args.reps)
+            if route == "tf32x3" and parent is not None:
+                # the fp32 FMA kernels this call took before, in turns
+                call = functools.partial(parent, kernel, "fp32", *args_)
+                turns = {"ms_turns": [], "parent_ms_turns": []}
+                for key, f in (("parent_ms_turns", call), ("ms_turns", fn), ("ms_turns", fn),
+                               ("parent_ms_turns", call)):
+                    turns[key].append(device_ms(f, args.reps))
+                parent_ms = sum(turns["parent_ms_turns"]) / 2
+                turns["bound_ms_fp32"] = bound_ms(kernel, m, n, n_valid, d, dtype)[0]
+            ms = sum(turns["ms_turns"]) / 2 if turns else device_ms(fn, args.reps)
             print(json.dumps({
                 "shape": name, "kernel": kernel, "M": m, "N": n, "n_valid": n_valid, "d": d,
                 "dtype": str(dtype).removeprefix("torch."), "ms": ms,
@@ -188,7 +220,8 @@ def main(argv=None):
                 "kernels_ms": profile_kernels(fn, args.reps),
                 "plain_ms": device_ms(plain_fn, max(5, args.reps // 4)),
                 "library_ms": device_ms(library_fn, max(5, args.reps // 4)),
-                "paths": took, "bound_ms": bound, "bound_by": bound_by, "nvidia_smi": smi,
+                "paths": took, "bound_ms": bound, "bound_by": bound_by, **turns,
+                "nvidia_smi": smi,
             }), flush=True)
     print(smi, flush=True)
 

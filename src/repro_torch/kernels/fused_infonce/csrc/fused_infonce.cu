@@ -9,12 +9,16 @@
 //                                 infonce_stats_merge_kernel); else infonce_fwd_kernel
 //   dQ       _dq_kernel (:205) -> bf16: hp::infonce_small_kernel<true> at up to 16
 //                                 query rows (hp::infonce_dq_split_kernel past d =
-//                                 1024) (+ infonce_grad_reduce_kernel); else
+//                                 1024) (+ infonce_grad_reduce_kernel); fp32 with d
+//                                 a multiple of 4: tx::infonce_tf32x3_kernel<true>
+//                                 (3xTF32, + the reduce kernel where split); else
 //                                 infonce_dq_kernel
 //   dP       _dp_kernel (:229) -> bf16: hp::infonce_small_kernel<false> at up to 16
 //                                 query rows (hp::infonce_dp_split_kernel past d =
-//                                 1024), hp::infonce_dp_cluster_kernel above;
-//                                 else infonce_dp_kernel (+ infonce_grad_reduce_kernel)
+//                                 1024), hp::infonce_dp_cluster_kernel above; fp32
+//                                 with d a multiple of 4:
+//                                 tx::infonce_tf32x3_kernel<false>; else
+//                                 infonce_dp_kernel (+ infonce_grad_reduce_kernel)
 // ops.py picks the kernel of each call (ops.path_of). Same contract. s = (q .
 // p_n) * inv_tau, products accumulated in fp32; an invalid column
 // (col_valid[n] == 0) has s = -1e30 (finite, never -inf), so a fully masked
@@ -98,9 +102,10 @@
 //  - A dQ or dP block whose passages are all masked writes zeros and
 //    computes nothing.
 //
-// The fp32 kernels and the bf16 shapes the Hopper kernels do not take (d
-// not a multiple of 8 or above 8192; dQ above 16 rows, dP above 6144 rows)
-// keep the first design: 64 x 64 score tiles on wmma bf16 16x16x16 (fp32
+// fp32 dQ and dP with d a multiple of 4 (up to 1536) run 3xTF32 on wgmma
+// (namespace tx, below). The fp32 forward, fp32 dQ and dP at other d, and
+// the bf16 shapes the Hopper kernels do not take (d not a multiple of 8 or
+// above 8192; dQ above 16 rows, dP above 6144 rows) keep the first design: 64 x 64 score tiles on wmma bf16 16x16x16 (fp32
 // inputs: a CUDA-core FMA loop, no TF32), looping over d in chunks of 64
 // with synchronous loads; the backward kernels first compute the block's
 // coefficient strip (64 x up to 512) into shared memory, then take the
@@ -280,6 +285,13 @@ template <> struct ScoreAcc<__nv_bfloat16> {
   }
 };
 
+// fp32: each 8 columns of d summed by FMAs from 0, then added to the score.
+// A running sum over all of d = 768 puts the score of a logit of ~100
+// many ulp off (each FMA rounds at the running sum's size), and the fp32
+// backward's coefficients exp(s - lse) take this lse against scores of
+// their own (3xTF32 on the tensor cores), which share none of its
+// rounding: its error would reach the gradients whole. The partial sums
+// cost one add per 8 FMAs.
 template <> struct ScoreAcc<float> {
   static constexpr int BK = Tile<float>::BK, LD = Tile<float>::LD;
   float a[4][4];
@@ -292,17 +304,28 @@ template <> struct ScoreAcc<float> {
   }
   __device__ __forceinline__ void mma(const float* q_s, const float* p_s) {
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = q_s[(ty + 16 * i) * LD + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = p_s[(tx + 16 * j) * LD + kk];
+    for (int k8 = 0; k8 < BK; k8 += 8) {
+      float c[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) a[i][j] = fmaf(x[i], y[j], a[i][j]);
+        for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+#pragma unroll
+      for (int kk = k8; kk < k8 + 8; ++kk) {
+        float x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = q_s[(ty + 16 * i) * LD + kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[j] = p_s[(tx + 16 * j) * LD + kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) c[i][j] = fmaf(x[i], y[j], c[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[i][j] += c[i][j];
     }
   }
   __device__ __forceinline__ void store(float* score_s) const {
@@ -2009,6 +2032,633 @@ cudaError_t fwd_tiles(const void* q, const void* p, const int* labels, const uin
 
 }  // namespace hp
 
+// ============================================================================
+// fp32 dQ and dP on Hopper: 3xTF32 on wgmma (namespace tx)
+// ============================================================================
+// What bounds them on an H100 SXM: the products. 3xTF32 runs each product
+// three times on the TF32 tensor cores (495 TFLOP/s): the scores and the
+// gradient product, 3 x 4 M N d operations, 1.26 ms at the xdev bank rows
+// (M = 8192, N = 8256, d = 768) against 3.10 ms for fp32 FMAs at 67 TFLOP/s.
+// One TF32 pass keeps 10 mantissa bits (a score of ~100 off by ~0.01, a
+// coefficient by 1%): not an fp32 result. Each operand x is split into hi =
+// tf32(x) and lo = tf32(x - hi) (round to nearest), and each product is
+// hi hi + hi lo + lo hi: the dropped lo lo and lo's rounding are ~2^-22 of
+// |x y| a term.
+//
+// The split runs once a call, before the products: infonce_tf32_split_kernel
+// writes q and p as hi and lo planes (2, rows, d) (it reads 4 and writes 8
+// bytes an element: ~50 us at the xdev bank rows). Split per use inside the
+// product kernel, every element of the streamed operand would cost a load
+// and three conversions per 768 operations of each product: more
+// instructions than one warpgroup issues in the products' time.
+//
+// The two products, both on K-major operands (tf32 wgmma takes no
+// transposed operand, so Y is read as it lies by one product and
+// transposed into registers for the other):
+//   X: the output's rows (dP: passages, dQ: queries), a cluster's tile of 64
+//   Y: the contraction rows (dP: queries, dQ: passages), 32 a step
+//   S^T (X x Y) = X Y^T     A = X (hi, lo: resident in shared memory),
+//                           B = the step's Y (hi, lo: streamed by TMA, two
+//                           stages), both as they lie (K = d); m64n32k8
+//   C  = the coefficients of S^T, computed in its registers (the file's
+//        header; dQ keeps each of a thread's two query rows' lse, g_lse,
+//        g_pos and label in registers, dP reads the step's 32 queries' from
+//        shared memory), written as hi and lo to shared memory as a K-major
+//        B (row x: the step's 32 Y rows)
+//   out^T (d x X) += Y^T C  A = Y^T (registers: this warp's d rows of the
+//                           step's hi and lo boxes read transposed, 8 loads
+//                           a k-step), B = C; m64n64k8
+// C never reaches device memory. d is shared across a cluster of `ranks`
+// blocks (ops.tf32x3_ranks: 4 at d = 768), rank r on columns [192 r, 192 r +
+// 192): PAIRS = 3 M-tiles of 64 columns of out^T and the same columns of X
+// (hi + lo, 96 KB resident). The whole d = 768 tile would not fit one SM: X
+// alone is 384 KB as hi and lo, and 64 x 768 accumulators fill three
+// quarters of the register file. A rank's scores are partial (its 192
+// columns of d): the ranks exchange their 64 x 32 partials through
+// distributed shared memory each step and sum them in rank order, so every
+// rank holds the same scores and C, and two calls give the same bits.
+// A block is two consumer warpgroups that share each step: warpgroup w
+// takes 3 of the rank's 6 chunks of the scores (their partials meet in C's
+// boxes, which no product reads then), then half of the step's Y rows: it
+// publishes and gathers that half of the partials, computes that half of C,
+// and runs the gradient product over those 16 rows for all 3 M-tiles into
+// accumulators of its own (96 registers a thread, over every step of the
+// block), added to the other warpgroup's once at the end (one warpgroup a
+// block runs every phase in one instruction stream, its waits exposed).
+// Thread 0 issues every TMA
+// load, refilling a Y stage once both warpgroups have read it, a step
+// ahead; a producer warp would have to take part in every cluster barrier
+// (one a step) and could run at most a step ahead, so the stages are
+// refilled at the same moment either way.
+// Accuracy: the tensor cores round each wgmma's sum into its fp32
+// accumulator toward zero at the accumulator's size, so a score summed over
+// a rank's 72 wgmmas (24 k-steps x 3) in one accumulator loses tens of ulp
+// of its size. Each
+// half-chunk (2 k-steps) of the scores and each M-tile's step of the
+// gradient sum into a fresh accumulator (wgmma's scale-d 0; zeroing it
+// instead makes ptxas serialize the products), the small hi lo and lo hi
+// terms first, promoted by fp32 adds; the warpgroups' and ranks' sums of
+// the partial scores keep their rounding errors (two_sum) up to the
+// coefficient's argument.
+// The answers this design gives: (1) tf32 wgmma takes both operands
+// K-major, so the gradient product's Y is not transposed in shared memory
+// but read transposed into registers (its A operand; 2-way bank conflicts)
+// from the same boxes the score product reads by descriptor, and C is
+// staged through shared memory as the K-major B (the score accumulator's
+// layout is not a tf32 A fragment's); (2) shared memory holds X's 96 KB,
+// two 48 KB Y stages, C's 16 KB (also the warpgroups' scratch), two 8 KB
+// exchange buffers: 226 KB of the 227; (3) the tensor maps are encoded with
+// the device's primary context made current (hopper.cuh), as an autograd
+// worker's first call needs; (4) ptxas gives the two kernels about 250
+// registers a thread, no spills (chip_smoke.py's build report has the
+// numbers); (5) the fp32 forward (the CUDA-core kernel above) sums each 8 columns
+// of d before adding them to the score (its ScoreAcc<float>), so that its
+// lse, which these coefficients are taken against, is within ~1 ulp.
+// Splits: the contraction axis is split only where the output tiles cannot
+// fill the card (ops.tf32x3_split_plan: the 32 local queries' dQ, one tile;
+// the ring's in-batch dP, one tile of 64 passages): split s writes its fp32
+// partial of out, and infonce_grad_reduce_kernel<float> sums them in split
+// order. A block whose passages (dP: its X tile; dQ: its Y range) are all
+// masked writes zeros and computes nothing.
+namespace tx {
+
+using namespace hopper;
+
+constexpr int XT = 64;                 // output rows a cluster: the scores' M, the gradient's N
+constexpr int YT = 32;                 // contraction rows a step: the scores' N, the gradient's K
+constexpr int XBOX = 64 * 128;         // 64 rows x 32 fp32 columns, 128-byte swizzled (8 KB)
+constexpr int YBOX = YT * 128;         // 32 rows x 32 fp32 columns (4 KB)
+constexpr int PAIRS = 3;               // 64-column M-tiles of out^T a rank holds
+constexpr int NCH = 2 * PAIRS;         // 32-column chunks of d a rank holds (192 columns)
+constexpr int STAGE = 2 * NCH * YBOX;  // a step's Y: NCH hi boxes, then NCH lo boxes (48 KB)
+constexpr int NSTAGE = 2;
+constexpr int EXCH = 128 * 16 * 4;     // a 64 x 32 partial score tile, 16 values a thread (8 KB)
+constexpr int OFF_XHI = 0;
+constexpr int OFF_XLO = NCH * XBOX;
+constexpr int OFF_Y = 2 * NCH * XBOX;
+constexpr int OFF_CHI = OFF_Y + NSTAGE * STAGE;   // C: 64 X rows x 32 Y rows, hi then lo
+constexpr int OFF_CLO = OFF_CHI + XBOX;
+constexpr int OFF_EX = OFF_CLO + XBOX;            // two exchange buffers, steps alternating
+constexpr int OFF_YV = OFF_EX + 2 * EXCH;         // dP: a stage's queries' lse, G, H, label
+constexpr int OFF_BAR = OFF_YV + NSTAGE * 4 * YT * 4;
+constexpr int N_BARS = NSTAGE + 1;                // a full barrier a stage, and X's
+constexpr int SMEM = OFF_BAR + 8 * N_BARS + 1024;   // + slack to align the base
+constexpr int BLOCK = 256;                        // two consumer warpgroups
+constexpr int D_MAX = hp::RANKS_MAX * NCH * 32;   // 1536
+static_assert(SMEM <= 232448, "shared memory over the 227 KB a block may use");
+static_assert(XBOX % 1024 == 0 && YBOX % 1024 == 0 && OFF_Y % 1024 == 0 && OFF_CHI % 1024 == 0,
+              "1 KB aligned boxes");
+
+// hi and lo planes of a fp32 array of n4 float4s: x = hi + lo + O(2^-22 |x|)
+__global__ void __launch_bounds__(256)
+infonce_tf32_split_kernel(const float4* __restrict__ src, uint4* __restrict__ hi,
+                          uint4* __restrict__ lo, size_t n4) {
+  for (size_t i = size_t(blockIdx.x) * 256 + threadIdx.x; i < n4; i += size_t(gridDim.x) * 256) {
+    const float4 x = src[i];
+    uint4 h, l;
+    tf32_split(x.x, h.x, l.x);
+    tf32_split(x.y, h.y, l.y);
+    tf32_split(x.z, h.z, l.z);
+    tf32_split(x.w, h.w, l.w);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// byte offset of element (row, col) of a box of 32 fp32 columns in TMA's
+// 128-byte swizzle (16-byte unit u of row r at u ^ (r % 8)), which wgmma's
+// 128-byte swizzled K-major descriptor reads
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
+}
+template <int N>
+__device__ __forceinline__ void add_to(float (&a)[N], const float (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] += b[i];
+}
+// hi + lo += b, hi the rounded sum and lo the rounding errors so far
+// (Knuth's TwoSum: exact whatever the magnitudes)
+__device__ __forceinline__ void two_sum(float& hi, float& lo, float b) {
+  const float s = hi + b, bp = s - hi;
+  lo += (hi - (s - bp)) + (b - bp);
+  hi = s;
+}
+
+// Half a 32-column chunk of the scores (k-steps 2 kh, 2 kh + 1) into acc,
+// afresh: X hi Y lo and X lo Y hi first, then X hi Y hi. The tensor cores
+// round each wgmma's sum into the accumulator toward zero at the
+// accumulator's size, so the small terms go in while it is small, and a
+// fresh accumulator takes only 2 of the large hi hi sums: for two nearly
+// parallel rows (the logits that dominate a softmax) the truncations all
+// shrink |s|, ~n/4 ulp of s for n hi hi sums an accumulator (at the xdev
+// phase's logits of hundreds, n = 4, a whole chunk, is an error that adds
+// up over the rows a passage dominates in dP). xh, xl: the
+// chunk's X boxes; yh, yl: its Y boxes.
+__device__ __forceinline__ void score_half(float (&acc)[16], uint32_t xh, uint32_t xl, uint32_t yh,
+                                           uint32_t yl, int kh) {
+#pragma unroll
+  for (int k = 2 * kh; k < 2 * kh + 2; ++k) {
+    const uint64_t ah = desc_sw128(xh + 32 * k, 16, 1024), al = desc_sw128(xl + 32 * k, 16, 1024);
+    const uint64_t bh = desc_sw128(yh + 32 * k, 16, 1024), bl = desc_sw128(yl + 32 * k, 16, 1024);
+    wgmma_tf32_ss_n32(acc, ah, bl, k - 2 * kh);
+    wgmma_tf32_ss_n32(acc, al, bh, 1);
+  }
+#pragma unroll
+  for (int k = 2 * kh; k < 2 * kh + 2; ++k)
+    wgmma_tf32_ss_n32(acc, desc_sw128(xh + 32 * k, 16, 1024), desc_sw128(yh + 32 * k, 16, 1024), 1);
+}
+
+// A fragments of two k-steps (16 Y rows from ks0 on) of out^T = Y^T C from
+// the step's hi and lo boxes of this warp's 32 columns of the M-tile (yh,
+// yl): k-step k's hi at f[8k..8k+3], lo at f[8k+4..]; d rows 16 (v % 2) + g
+// (+8) of the box, Y rows 8 (ks0 + k) + t4 (+4)
+__device__ __forceinline__ void grad_frags(uint32_t (&f)[16], const uint8_t* yh, const uint8_t* yl,
+                                           int ks0, int v, int g, int t4) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int at = swz(8 * (ks0 + k) + t4 + 4 * (q >> 1), 16 * (v & 1) + g + 8 * (q & 1));
+      f[8 * k + q] = *reinterpret_cast<const uint32_t*>(yh + at);
+      f[8 * k + 4 + q] = *reinterpret_cast<const uint32_t*>(yl + at);
+    }
+}
+
+// Two k-steps (from ks0 on) of out^T = Y^T C into acc, afresh: Y hi C lo
+// and Y lo C hi first, then Y hi C hi (the small terms while acc is small,
+// as in score_half)
+__device__ __forceinline__ void grad_mma(float (&acc)[32], const uint32_t (&f)[16], uint32_t chi,
+                                         uint32_t clo, int ks0) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint64_t h = desc_sw128(chi + 32 * (ks0 + k), 16, 1024);
+    const uint64_t l = desc_sw128(clo + 32 * (ks0 + k), 16, 1024);
+    wgmma_tf32_n64(acc, &f[8 * k], l, k);
+    wgmma_tf32_n64(acc, &f[8 * k + 4], h, 1);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    wgmma_tf32_n64(acc, &f[8 * k], desc_sw128(chi + 32 * (ks0 + k), 16, 1024), 1);
+}
+
+// ---------------------------------------------------------------------------
+// Grid: (X tiles x splits) clusters of `ranks` blocks along x; cluster cid on
+// X tile cid / splits and Y steps [s per, min(y_steps, (s + 1) per)), s = cid
+// % splits. out: (X rows, d) fp32, or with splits > 1 the partials (splits,
+// X rows, d). The tensor maps read the hi and lo planes of X (boxes of 64
+// rows) and of Y (32 rows), each 32 columns wide.
+// ---------------------------------------------------------------------------
+template <bool DQ>
+__global__ void __launch_bounds__(BLOCK, 1)
+infonce_tf32x3_kernel(const __grid_constant__ CUtensorMap xhi, const __grid_constant__ CUtensorMap xlo,
+                      const __grid_constant__ CUtensorMap yhi, const __grid_constant__ CUtensorMap ylo,
+                      const int* __restrict__ labels, const uint8_t* __restrict__ col_valid,
+                      const float* __restrict__ lse, const float* __restrict__ g_lse,
+                      const float* __restrict__ g_pos, float* __restrict__ out, int M, int N, int d,
+                      int splits, int per, float inv_tau) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = hp::aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int ranks = int(cluster_nctarank()), rank = int(cluster_ctarank());
+  const int cid = int(blockIdx.x) / ranks, split = cid % splits;
+  const int x_rows = DQ ? M : N, y_rows = DQ ? N : M;
+  const int x0 = (cid / splits) * XT;
+  const int t0 = split * per, t1 = min((y_rows + YT - 1) / YT, t0 + per);
+  const int c_lo = rank * NCH;   // this rank's first 32-column chunk of d
+  // warpgroup w of the block, thread lt in it; warp v of the warpgroup
+  const int tid = threadIdx.x, w = tid / 128, lt = tid % 128;
+  const int v = lt / 32, g = (lt % 32) / 4, t4 = lt % 4;
+  float* dst = out + size_t(split) * x_rows * d;
+
+  // the block's passages: dP its X tile, dQ its Y range; all masked: its
+  // columns of the output are 0 (every rank sees the same and leaves here,
+  // before any cluster barrier)
+  int any = 0;
+  if constexpr (DQ) {
+    for (int n = t0 * YT + tid; n < min(N, t1 * YT) && !any; n += BLOCK)
+      any = col_valid == nullptr || col_valid[n] != 0;
+  } else {
+    any = tid < XT && hp::passage_valid(col_valid, x0 + tid, N);
+  }
+  if (!__syncthreads_or(any)) {
+    const int col0 = 32 * c_lo, width = (min(d, 32 * (c_lo + NCH)) - col0) / 4;   // d % 4 == 0
+    for (int x = tid; x < XT * max(width, 0); x += BLOCK)
+      if (x0 + x / width < x_rows)
+        *reinterpret_cast<float4*>(dst + size_t(x0 + x / width) * d + col0 + 4 * (x % width)) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+
+  const uint32_t full0 = base + OFF_BAR, xbar = full0 + 8u * NSTAGE;
+  // step t's Y (hi and lo boxes of this rank's chunks) into stage (t - t0) % 2
+  auto load_step = [&](int t) {
+    const uint32_t s = (t - t0) % NSTAGE, st = base + OFF_Y + s * STAGE;
+    mbar_expect_tx(full0 + 8u * s, STAGE);
+    for (int c = 0; c < NCH; ++c) {
+      tma_load_2d(&yhi, st + c * YBOX, full0 + 8u * s, 32 * (c_lo + c), YT * t);
+      tma_load_2d(&ylo, st + (NCH + c) * YBOX, full0 + 8u * s, 32 * (c_lo + c), YT * t);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < N_BARS; ++s) mbar_init(full0 + 8u * s, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    prefetch_tensormap(&xhi);
+    prefetch_tensormap(&xlo);
+    prefetch_tensormap(&yhi);
+    prefetch_tensormap(&ylo);
+    mbar_expect_tx(xbar, 2 * NCH * XBOX);
+    for (int c = 0; c < NCH; ++c) {   // columns past d are TMA's zeros
+      tma_load_2d(&xhi, base + OFF_XHI + c * XBOX, xbar, 32 * (c_lo + c), x0);
+      tma_load_2d(&xlo, base + OFF_XLO + c * XBOX, xbar, 32 * (c_lo + c), x0);
+    }
+    for (int t = t0; t < min(t1, t0 + NSTAGE); ++t) load_step(t);
+  }
+  // this thread's X rows x0 + 16 v + g + 8 h (the score registers' rows):
+  // dP whether the passage is valid; dQ whether the query is below M, and
+  // its lse, g_lse inv_tau, g_pos inv_tau and label
+  bool xok[2];
+  float xl[2], xg[2], xh[2];
+  int xlab[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int x = x0 + 16 * v + g + 8 * h;
+    if constexpr (DQ) {
+      xok[h] = x < M;
+      xl[h] = xok[h] ? lse[x] : 0.f;
+      xg[h] = xok[h] ? g_lse[x] * inv_tau : 0.f;
+      xh[h] = xok[h] ? g_pos[x] * inv_tau : 0.f;
+      xlab[h] = xok[h] ? labels[x] : -1;
+    } else {
+      xok[h] = hp::passage_valid(col_valid, x, N);
+    }
+  }
+
+  float acc[PAIRS][32];   // this warpgroup's half of the contraction, over every step
+#pragma unroll
+  for (int mt = 0; mt < PAIRS; ++mt) zero(acc[mt]);
+  uint32_t fa[16], fb[16];   // A fragments, two sets: one loads while the other's products run
+  float c0[16], c1[16];      // chunk accumulators of the scores, alternating
+  float f0[32];              // an M-tile's step of out^T, added to acc[mt]
+  mbar_wait(xbar, 0);
+  static_assert(NCH == 6 && PAIRS == 3, "three chunks and three M-tiles a warpgroup below");
+  auto wg_sync = [w]() {   // this warpgroup alone (barrier 0 is the block's)
+    if (w == 0)
+      named_bar_sync<1, 128>();
+    else
+      named_bar_sync<2, 128>();
+  };
+
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) % NSTAGE;
+    const uint32_t st = base + OFF_Y + s * STAGE;
+    const uint8_t* ys = smem + OFF_Y + s * STAGE;
+    // dP: the step's queries' values (Y rows are queries), loaded now and
+    // stored once the scores are issued, read after the barriers below
+    float* yv = reinterpret_cast<float*>(smem + OFF_YV + s * 4 * YT * 4);
+    float vl = 0.f, vg = 0.f, vh = 0.f;
+    int vlab = -1;
+    if (!DQ && tid < YT && YT * t + tid < M) {
+      const int y = YT * t + tid;
+      vl = lse[y];
+      vg = g_lse[y] * inv_tau;
+      vh = g_pos[y] * inv_tau;
+      vlab = labels[y];
+    }
+    mbar_wait(full0 + 8u * s, ((t - t0) / NSTAGE) & 1);
+
+    // ---- this warpgroup's partial S^T (X x Y) over its 3 of the rank's 6
+    // chunks, half a chunk at a time into c0, c1 alternately (one half's
+    // products run while the last is added)
+    // half-chunk hc (0..5) of this warpgroup: chunk 3 w + hc / 2, half hc % 2
+    auto half = [&](float (&cacc)[16], int hc) {
+      const int c = 3 * w + hc / 2;
+      fence_regs<16>(cacc);
+      wgmma_fence();
+      score_half(cacc, base + OFF_XHI + c * XBOX, base + OFF_XLO + c * XBOX, st + c * YBOX,
+                 st + (NCH + c) * YBOX, hc % 2);
+      wgmma_commit();
+    };
+    // The half-chunks' sums add at an eighth of the score's size or less;
+    // the sums of the two warpgroups' and of the ranks' partials keep their
+    // rounding errors (two_sum): at logits of hundreds an fp32 add rounds at
+    // ~6e-5 (half an ulp of 512), and those 4 sums put a coefficient ~1 ulp
+    // of its score off.
+    float sc[16];
+    half(c0, 0);
+    half(c1, 1);
+    wgmma_wait<1>();
+    fence_regs<16>(c0);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = c0[i];
+#pragma unroll
+    for (int hc = 2; hc < 6; hc += 2) {
+      half(c0, hc);
+      wgmma_wait<1>();
+      fence_regs<16>(c1);
+      add_to(sc, c1);
+      half(c1, hc + 1);
+      wgmma_wait<1>();
+      fence_regs<16>(c0);
+      add_to(sc, c0);
+    }
+    if (!DQ && tid < YT) {
+      yv[tid] = vl;
+      yv[YT + tid] = vg;
+      yv[2 * YT + tid] = vh;
+      reinterpret_cast<int*>(yv)[3 * YT + tid] = vlab;
+    }
+    wgmma_wait<0>();
+    fence_regs<16>(c1);
+    add_to(sc, c1);
+
+    // ---- the rank's partial (warpgroup 0's + 1's, through the C boxes,
+    // which no product reads now), then every rank's, summed in rank order:
+    // warpgroup w only its half of the step's Y rows (registers 4 i + e, i
+    // = 2 w, 2 w + 1: value q = i of a thread at + 2 KB q)
+    uint8_t* scratch = smem + OFF_CHI;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<float4*>(scratch + w * XBOX + 2048 * q + lt * 16) =
+          make_float4(sc[4 * q], sc[4 * q + 1], sc[4 * q + 2], sc[4 * q + 3]);
+    __syncthreads();
+    float s2[8], s2e[8];   // this warpgroup's half of the scores, and its rounding errors
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int q = 2 * w + j;
+      const float4 a = *reinterpret_cast<const float4*>(scratch + 2048 * q + lt * 16);
+      const float4 b = *reinterpret_cast<const float4*>(scratch + XBOX + 2048 * q + lt * 16);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s2[4 * j + k] = av[k];
+        s2e[4 * j + k] = 0.f;
+        two_sum(s2[4 * j + k], s2e[4 * j + k], bv[k]);
+      }
+    }
+    if (ranks > 1) {
+      const uint32_t ex = OFF_EX + ((t - t0) & 1) * EXCH + lt * 16;
+      add_to(s2, s2e);   // the rank's partial, rounded once at a quarter of the score's size
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<float4*>(smem + ex + 2048 * (2 * w + j)) =
+            make_float4(s2[4 * j], s2[4 * j + 1], s2[4 * j + 2], s2[4 * j + 3]);
+      cluster_arrive();   // this rank's partial (and the step's query values) are written
+      cluster_wait();     // and every rank's (a buffer is written again two steps on,
+                          // after the next barrier: every rank has read it by then)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s2[i] = s2e[i] = 0.f;
+      for (int r0 = 0; r0 < ranks; r0 += 2) {   // two ranks' loads in flight at once
+        uint4 u[2][2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            u[r][j] = r0 + r < ranks ? ld_cluster_v4(base + ex + 2048 * (2 * w + j), r0 + r)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            two_sum(s2[4 * j], s2e[4 * j], __uint_as_float(u[r][j].x));
+            two_sum(s2[4 * j + 1], s2e[4 * j + 1], __uint_as_float(u[r][j].y));
+            two_sum(s2[4 * j + 2], s2e[4 * j + 2], __uint_as_float(u[r][j].z));
+            two_sum(s2[4 * j + 3], s2e[4 * j + 3], __uint_as_float(u[r][j].w));
+          }
+      }
+    } else {
+      __syncthreads();   // the scratch is read (C's boxes are written next)
+    }
+
+    // ---- coefficients from the score registers (value 4 j + e: X row 16 v
+    // + g + 8 (e / 2), Y row 8 (2 w + j) + 2 t4 + e % 2 of the step), as hi
+    // and lo into C's boxes: row x, column y (K-major for out^T = Y^T C);
+    // each warpgroup writes the Y rows its own products read.
+    // exp(s inv_tau - lse) as ex2 of the difference times log2(e): the
+    // difference is taken from the score's two parts, s2 + s2e, in full
+    // fp32 first (a coefficient that counts has it near 0).
+    const int* ylab = reinterpret_cast<const int*>(yv + 3 * YT);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, x = 16 * v + g + 8 * h, y = 8 * (2 * w + j) + 2 * t4 + (e & 1);
+        const int yg = YT * t + y;
+        const float s_lo = s2e[4 * j + e] * inv_tau;
+        float c;
+        bool ok;
+        if constexpr (DQ) {
+          ok = xok[h] && hp::passage_valid(col_valid, yg, N);
+          c = fmaf(ex2((fmaf(s2[4 * j + e], inv_tau, -xl[h]) + s_lo) * hp::LOG2E), xg[h],
+                   xlab[h] == yg ? xh[h] : 0.f);
+        } else {
+          ok = xok[h] && yg < M;
+          c = fmaf(ex2((fmaf(s2[4 * j + e], inv_tau, -yv[y]) + s_lo) * hp::LOG2E), yv[YT + y],
+                   ylab[y] == x0 + x ? yv[2 * YT + y] : 0.f);
+        }
+        uint32_t hi, lo;
+        tf32_split(ok ? c : 0.f, hi, lo);
+        *reinterpret_cast<uint32_t*>(smem + OFF_CHI + swz(x, y)) = hi;
+        *reinterpret_cast<uint32_t*>(smem + OFF_CLO + swz(x, y)) = lo;
+      }
+    fence_proxy_async();
+    wg_sync();
+
+    // ---- out^T (this rank's 192 columns of d x 64 X rows) += Y^T C over
+    // this warpgroup's 16 Y rows (k-steps 2 w, 2 w + 1): each M-tile into a
+    // fresh accumulator f0, added to acc[mt] once its products have landed;
+    // the next M-tile's fragments load while they run. (Two accumulators
+    // alternating, one M-tile's products running while the last is added,
+    // make ptxas serialize every wgmma of the kernel, C7515: their live
+    // ranges cross the next products'.)
+    auto frags = [&](uint32_t (&f)[16], int mt) {
+      const int box = 2 * mt + v / 2;   // this warp's 32 columns of the M-tile
+      grad_frags(f, ys + box * YBOX, ys + (NCH + box) * YBOX, 2 * w, v, g, t4);
+    };
+    auto issue = [&](const uint32_t (&f)[16]) {
+      fence_regs<32>(f0);
+      wgmma_fence();
+      grad_mma(f0, f, base + OFF_CHI, base + OFF_CLO, 2 * w);
+      wgmma_commit();
+    };
+    auto land = [&](float (&a)[32]) {
+      wgmma_wait<0>();
+      fence_regs<16>(fa);
+      fence_regs<16>(fb);
+      fence_regs<32>(f0);
+      add_to(a, f0);
+    };
+    frags(fa, 0);
+    issue(fa);
+    frags(fb, 1);
+    land(acc[0]);
+    issue(fb);
+    frags(fa, 2);
+    land(acc[1]);
+    issue(fa);
+    land(acc[2]);
+    __syncthreads();   // every warp has read the stage: it takes step t + 2
+    if (tid == 0 && t + NSTAGE < t1) load_step(t + NSTAGE);
+  }
+
+  // warpgroup 1's accumulators into warpgroup 0's (through the Y stages,
+  // which nothing reads now), in that order
+  float* other = reinterpret_cast<float*>(smem + OFF_Y);
+  if (w == 1)
+#pragma unroll
+    for (int mt = 0; mt < PAIRS; ++mt) {
+      fence_regs<32>(acc[mt]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) other[(mt * 32 + i) * 128 + lt] = acc[mt][i];
+    }
+  __syncthreads();
+  // register 4 i + e of acc[mt]: column 32 c_lo + 64 mt + 16 v + g + 8 (e /
+  // 2) of d, X row x0 + 8 i + 2 t4 + e % 2
+  if (w == 0)
+#pragma unroll
+    for (int mt = 0; mt < PAIRS; ++mt) {
+      fence_regs<32>(acc[mt]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 32 * c_lo + 64 * mt + 16 * v + g + 8 * (e >> 1);
+          const int x = x0 + 8 * i + 2 * t4 + (e & 1);
+          if (col < d && x < x_rows)
+            dst[size_t(x) * d + col] = acc[mt][4 * i + e] + other[(mt * 32 + 4 * i + e) * 128 + lt];
+        }
+    }
+  cluster_arrive();   // no rank leaves while another may read its partial scores
+  cluster_wait();
+}
+
+// Rank-2 fp32 tensor map over a row-major (rows, cols) plane, boxes of 32
+// columns x box_rows (128-byte swizzled, zero past each edge)
+cudaError_t map2d_f32(CUtensorMap* map, const void* ptr, int cols, int rows, int box_rows) {
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * 4};
+  const cuuint32_t box[2] = {32, cuuint32_t(box_rows)};
+  return tensor_map<2>(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, dims, strides, box);
+}
+
+cudaError_t split(const void* src, float* planes, size_t n, cudaStream_t st) {
+  const size_t n4 = n / 4, blocks = (n4 + 255) / 256;
+  infonce_tf32_split_kernel<<<unsigned(blocks < 1056 ? blocks : 1056), 256, 0, st>>>(
+      static_cast<const float4*>(src), reinterpret_cast<uint4*>(planes),
+      reinterpret_cast<uint4*>(planes + n), n4);
+  return cudaGetLastError();
+}
+
+template <bool DQ> struct Tag {};
+
+// dQ (DQ) or dP of fp32 operands (q (M, d), p (N, d) row-major, 16-byte
+// aligned bases, d a multiple of 4 up to D_MAX): q and p split into their hi
+// and lo planes (qs (2, M, d), ps (2, N, d) scratch), then clusters of
+// `ranks` blocks (ranks x NCH x 32 >= d) on (X tiles x splits); splits > 1
+// writes the partials (splits, X rows, d) and sums them into out (X rows, d)
+// fp32.
+template <bool DQ>
+cudaError_t grad(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
+                 const float* lse, const float* g_lse, const float* g_pos, float* out,
+                 float* partial, float* qs, float* ps, int M, int N, int d, int ranks, int splits,
+                 int per, float inv_tau, cudaStream_t st) {
+  const int x_rows = DQ ? M : N, y_rows = DQ ? N : M;
+  const int y_steps = (y_rows + YT - 1) / YT;
+  if (d % 4 || d > D_MAX || ranks < 1 || ranks > hp::RANKS_MAX || ranks * NCH * 32 < d ||
+      (ranks - 1) * NCH * 32 >= d || splits < 1 || per < 1 || splits * per < y_steps ||
+      (splits - 1) * per >= y_steps)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = split(q, qs, size_t(M) * d, st)) != cudaSuccess ||
+      (err = split(p, ps, size_t(N) * d, st)) != cudaSuccess)
+    return err;
+  const float* xs = DQ ? qs : ps;
+  const float* ys = DQ ? ps : qs;
+  CUtensorMap mxh, mxl, myh, myl;
+  if ((err = map2d_f32(&mxh, xs, d, x_rows, XT)) != cudaSuccess ||
+      (err = map2d_f32(&mxl, xs + size_t(x_rows) * d, d, x_rows, XT)) != cudaSuccess ||
+      (err = map2d_f32(&myh, ys, d, y_rows, YT)) != cudaSuccess ||
+      (err = map2d_f32(&myl, ys + size_t(y_rows) * d, d, y_rows, YT)) != cudaSuccess)
+    return err;
+  const auto kernel = infonce_tf32x3_kernel<DQ>;
+  if ((err = allow_smem_once<Tag<DQ>>(reinterpret_cast<const void*>(kernel), SMEM)) != cudaSuccess)
+    return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = hp::cluster_config((x_rows + XT - 1) / XT * splits, ranks, BLOCK,
+                                                    SMEM, st, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, mxh, mxl, myh, myl, labels, col_valid, lse, g_lse, g_pos,
+                           splits > 1 ? partial : out, M, N, d, splits, per, inv_tau);
+  if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+  const size_t total = size_t(x_rows) * d;
+  infonce_grad_reduce_kernel<float><<<reduce_blocks(total), THREADS, 0, st>>>(partial, out, total,
+                                                                             splits);
+  return cudaGetLastError();
+}
+
+// The most clusters of `ranks` blocks of the dQ (DQ) or dP kernel the current
+// device runs at once (negative: a CUDA error code).
+template <bool DQ>
+int max_clusters(int ranks) {
+  const auto kernel = infonce_tf32x3_kernel<DQ>;
+  cudaError_t err = allow_smem_once<Tag<DQ>>(reinterpret_cast<const void*>(kernel), SMEM);
+  if (err != cudaSuccess) return -int(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = hp::cluster_config(1, ranks, BLOCK, SMEM, nullptr, attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
+  return err == cudaSuccess ? n : -int(err);
+}
+
+}  // namespace tx
+
 }  // namespace
 
 extern "C" {
@@ -2137,6 +2787,45 @@ int fused_infonce_dq_hopper_launch(const void* q, const void* p, const void* lab
   return int(cudaGetLastError());
 }
 
+// fp32 dQ (dq 1) or dP (dq 0) on the 3xTF32 kernels (q and p row-major fp32,
+// 16-byte aligned bases, d a multiple of 4 up to 1536): q and p split into
+// hi and lo planes (q_planes (2, M, d), p_planes (2, N, d) fp32 scratch),
+// then clusters of `ranks` blocks (ops.tf32x3_ranks) on each tile of 64
+// output rows x `splits` ranges of `per` steps of 32 contraction rows
+// (ops.tf32x3_split_plan). out: fp32 (M, d) for dQ, (N, d) for dP; partial:
+// fp32 (splits, rows, d) scratch, unused when splits == 1.
+int fused_infonce_tf32x3_launch(int dq, const void* q, const void* p, const void* labels,
+                                const void* col_valid, const void* lse, const void* g_lse,
+                                const void* g_pos, void* out, void* partial, void* q_planes,
+                                void* p_planes, int M, int N, int d, int ranks, int splits,
+                                int per, float inv_tau, void* stream) {
+  const auto lab = static_cast<const int*>(labels);
+  const auto valid = static_cast<const uint8_t*>(col_valid);
+  const auto l = static_cast<const float*>(lse), gl = static_cast<const float*>(g_lse),
+             gp = static_cast<const float*>(g_pos);
+  const auto o = static_cast<float*>(out), part = static_cast<float*>(partial);
+  const auto qs = static_cast<float*>(q_planes), ps = static_cast<float*>(p_planes);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return int(dq ? tx::grad<true>(q, p, lab, valid, l, gl, gp, o, part, qs, ps, M, N, d, ranks,
+                                 splits, per, inv_tau, st)
+                : tx::grad<false>(q, p, lab, valid, l, gl, gp, o, part, qs, ps, M, N, d, ranks,
+                                  splits, per, inv_tau, st));
+}
+
+// The most clusters of `ranks` blocks of the 3xTF32 dQ (dq 1) or dP kernel
+// the current device runs at once (negative: a CUDA error code).
+int fused_infonce_tf32x3_max_clusters(int dq, int ranks) {
+  return dq ? tx::max_clusters<true>(ranks) : tx::max_clusters<false>(ranks);
+}
+
+// Rows of the 3xTF32 kernels' output tile and of their contraction step,
+// and the columns of d one rank holds.
+int fused_infonce_tf32x3_tile() { return tx::XT; }
+int fused_infonce_tf32x3_step() { return tx::YT; }
+int fused_infonce_tf32x3_rank_cols() { return tx::NCH * 32; }
+// The dynamic shared memory a 3xTF32 block asks for (ops.tf32x3_smem mirrors it).
+int fused_infonce_tf32x3_smem() { return tx::SMEM; }
+
 // The most clusters of `ranks` infonce_dp_cluster_kernel blocks the current
 // device runs at once (negative: a CUDA error code).
 int fused_infonce_dp_max_clusters(int ranks) {
@@ -2171,6 +2860,9 @@ int fused_infonce_kernel_attributes(int which, int* regs, int* local) {
       reinterpret_cast<const void*>(hp::infonce_small_kernel<false>),
       reinterpret_cast<const void*>(hp::infonce_fwd_small_kernel),
       reinterpret_cast<const void*>(hp::infonce_fwd_rows_kernel),
+      reinterpret_cast<const void*>(tx::infonce_tf32x3_kernel<true>),
+      reinterpret_cast<const void*>(tx::infonce_tf32x3_kernel<false>),
+      reinterpret_cast<const void*>(tx::infonce_tf32_split_kernel),
       reinterpret_cast<const void*>(hp::infonce_dp_split_kernel),
       reinterpret_cast<const void*>(hp::infonce_fwd_split_kernel),
       reinterpret_cast<const void*>(hp::infonce_dq_split_kernel),

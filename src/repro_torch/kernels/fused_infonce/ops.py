@@ -57,7 +57,22 @@ The three count the path of each call in ``fused_infonce_fwd.paths``,
   fp32 partials and a merge or reduce kernel when the long axis is split).
   ``stats_on_path`` runs the forward and ``grad_on_path`` a gradient on a
   path named by the caller, to time one route beside another.
-- ``"fp32"``: fp32 operands (or bf16 with fp32): CUDA-core FMAs, no TF32.
+- ``"tf32x3"``: dQ and dP of fp32 operands (or bf16 with fp32) with d a
+  multiple of 4 (TMA's 16-byte rows) up to ``TF32X3_D_MAX``: both products
+  on ``wgmma`` in 3xTF32 (q and p split once a call into tf32 hi and lo
+  planes, each product hi hi + hi lo + lo hi summed in fp32: fp32-grade
+  products on the tensor cores). A cluster of ``tf32x3_ranks(d)`` blocks (4
+  at d = 768) owns a tile of ``TF32X3_TILE`` output rows, rank r on 192
+  columns of d, its accumulators in registers over every contraction row;
+  the ranks sum their partial scores through distributed shared memory a
+  step of ``TF32X3_STEP`` contraction rows; coefficients from the score
+  registers. The
+  contraction axis is split (``tf32x3_split_plan``: fp32 partials summed in
+  split order by the reduce kernel) only where the output tiles cannot fill
+  the card.
+- ``"fp32"``: the fp32 forward, and fp32 dQ and dP at other d: CUDA-core
+  FMAs, no TF32 (the first kernels; ``grad_on_path(..., "fp32", ...)`` runs
+  dQ or dP on them at any d, to time them beside ``"tf32x3"``).
 
 A block whose 64 passages are all masked computes nothing: dQ and dP write
 zeros (what the coefficient gives there); the forward writes the partial
@@ -106,15 +121,29 @@ SMALL_D_MAX = 1024
 #: rows a cluster of at most MAX_RANKS blocks, each on at most 16 d-chunks
 #: (the many-row forward and the cluster dP take any d)
 HOPPER_D_MAX = MAX_RANKS * SMALL_D_MAX
-PATHS = ("hopper", "wmma", "fp32")
+PATHS = ("hopper", "wmma", "fp32", "tf32x3")
+# The 3xTF32 kernels' plan (csrc/fused_infonce.cu, namespace tx):
+#: output rows a cluster takes (the scores' wgmma M), and contraction rows a
+#: step (the scores' N)
+TF32X3_TILE, TF32X3_STEP = 64, 32
+#: columns of d one rank of a cluster holds: 3 M-tiles of 64
+TF32X3_RANK_COLS = 192
+#: the widest fp32 row the 3xTF32 kernels take: a cluster of MAX_RANKS
+TF32X3_D_MAX = MAX_RANKS * TF32X3_RANK_COLS
 #: every kernel of the library, in fused_infonce_kernel_attributes' order
 KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stats_merge_kernel",
            "infonce_dq_kernel<bf16>", "infonce_dq_kernel<fp32>", "infonce_dp_kernel<bf16>",
            "infonce_dp_kernel<fp32>", "infonce_grad_reduce_kernel<bf16>",
            "infonce_grad_reduce_kernel<fp32>", "infonce_dp_cluster_kernel",
            "infonce_small_kernel<dq>", "infonce_small_kernel<dp>", "infonce_fwd_small_kernel",
-           "infonce_fwd_rows_kernel", "infonce_dp_split_kernel", "infonce_fwd_split_kernel",
+           "infonce_fwd_rows_kernel", "infonce_tf32x3_kernel<dq>", "infonce_tf32x3_kernel<dp>",
+           "infonce_tf32_split_kernel", "infonce_dp_split_kernel", "infonce_fwd_split_kernel",
            "infonce_dq_split_kernel")
+#: the kernels of the "tf32x3" path's fp32 dQ and dP (the xdev path's): the
+#: hi/lo split of q and p, the products, the reduce where the contraction
+#: axis is split
+TF32X3_KERNELS = ("infonce_tf32_split_kernel", "infonce_tf32x3_kernel<dq>",
+                  "infonce_tf32x3_kernel<dp>", "infonce_grad_reduce_kernel<fp32>")
 #: the kernels the train paths' forward, dQ and dP run (bf16, Hopper path;
 #: the split kernels at the LM retriever's local rows)
 HOPPER_KERNELS = ("infonce_fwd_small_kernel", "infonce_fwd_rows_kernel",
@@ -144,6 +173,17 @@ def _library() -> ctypes.CDLL:
                lib.fused_infonce_dp_launch, lib.fused_infonce_dp_hopper_launch,
                lib.fused_infonce_dq_hopper_launch, lib.fused_infonce_fwd_hopper_launch):
         fn.restype = ctypes.c_int
+    lib.fused_infonce_tf32x3_launch.argtypes = [i32] + [ptr] * 11 + [i32] * 6 + [ctypes.c_float, ptr]
+    lib.fused_infonce_tf32x3_launch.restype = ctypes.c_int
+    lib.fused_infonce_tf32x3_max_clusters.argtypes = [i32, i32]
+    lib.fused_infonce_tf32x3_max_clusters.restype = ctypes.c_int
+    for fn in ("fused_infonce_tf32x3_tile", "fused_infonce_tf32x3_step",
+               "fused_infonce_tf32x3_rank_cols", "fused_infonce_tf32x3_smem"):
+        getattr(lib, fn).restype = ctypes.c_int
+    if (lib.fused_infonce_tf32x3_tile(), lib.fused_infonce_tf32x3_step(),
+            lib.fused_infonce_tf32x3_rank_cols(), lib.fused_infonce_tf32x3_smem()) != (
+            TF32X3_TILE, TF32X3_STEP, TF32X3_RANK_COLS, tf32x3_smem()):
+        raise RuntimeError("fused_infonce.cu and ops.py disagree on the 3xTF32 plan")
     lib.fused_infonce_dp_max_clusters.argtypes = [i32]
     lib.fused_infonce_kernel_attributes.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     for fn in (lib.fused_infonce_dp_max_clusters, lib.fused_infonce_kernel_attributes):
@@ -221,12 +261,60 @@ def hopper_blocks(kind: str, m: int, n: int, sm_count: int = H100_SMS, d: int = 
     return tiles * dp_plan(m)[0]
 
 
+def tf32x3_ranks(d: int) -> int:
+    """Blocks of a 3xTF32 cluster at rows of d: as many as give each rank
+    at most TF32X3_RANK_COLS columns (4 at d = 768, 1 up to 192)."""
+    if d % 4 or not 0 < d <= TF32X3_D_MAX:
+        raise ValueError(f"the 3xTF32 kernels take d a multiple of 4 up to {TF32X3_D_MAX}")
+    return -(-d // TF32X3_RANK_COLS)
+
+
+def tf32x3_split_plan(x_tiles: int, y_steps: int, max_clusters: int) -> Tuple[int, int]:
+    """(splits, steps_per_split) of the contraction axis (y_steps steps of
+    TF32X3_STEP rows) for x_tiles output tiles, on a card that runs
+    max_clusters clusters at once: 1 split unless the output tiles leave
+    half the clusters idle, else as many as fill them (the 32 local queries'
+    dQ: 1 output tile, 258 passage steps on 30 clusters of 4: 29 splits of
+    9 steps, the last of 6)."""
+    want = max(1, min(y_steps, max_clusters // x_tiles))
+    per = -(-y_steps // want)
+    return -(-y_steps // per), per
+
+
+def tf32x3_smem() -> int:
+    """Dynamic shared memory of a 3xTF32 block (csrc tx::SMEM): X's hi and
+    lo boxes (2 x 6 of 64 rows x 32 fp32, 8 KB each), two stages of a step's
+    Y (2 x 6 boxes of 32 rows, 4 KB each), C as hi and lo (2 boxes of 64
+    rows), two exchange buffers of 64 x 32 partial scores (8 KB), two
+    stages of the step's 32 queries' values, 3 mbarriers and 1 KB of slack
+    to align the base."""
+    x_boxes, y_boxes = 2 * 6, 2 * 2 * 6
+    return (x_boxes * TF32X3_TILE * 128 + y_boxes * TF32X3_STEP * 128 + 2 * TF32X3_TILE * 128
+            + 2 * TF32X3_TILE * TF32X3_STEP * 4 + 2 * 4 * TF32X3_STEP * 4 + 8 * 3 + 1024)
+
+
+@functools.cache
+def _tf32x3_max_clusters(device_index: int, which: str, ranks: int) -> int:
+    lib = _library()
+    with torch.cuda.device(device_index):
+        n = lib.fused_infonce_tf32x3_max_clusters(int(which == "dq"), ranks)
+    if n <= 0:
+        _raise_on(-n if n < 0 else 1, "cudaOccupancyMaxActiveClusters (3xTF32)", lib)
+    return n
+
+
+def tf32x3_max_clusters(which: str, ranks: int, device=None) -> int:
+    """The most clusters of ``ranks`` blocks of the 3xTF32 dQ (``which``
+    "dq") or dP kernel the device runs at once."""
+    return _tf32x3_max_clusters(torch.device(device or "cuda").index or 0, which, ranks)
+
+
 def path_of(kind: str, dtype: torch.dtype, m: int, d: int) -> str:
     """The path (``PATHS``) a CUDA forward (kind "fwd"), dQ ("dq") or dP
     ("dp") call takes with operands of this common dtype, m query rows and
     rows of d."""
     if dtype != torch.bfloat16:
-        return "fp32"
+        return "tf32x3" if kind != "fwd" and d % 4 == 0 and d <= TF32X3_D_MAX else "fp32"
     if d % 8 or d > HOPPER_D_MAX:
         return "wmma"
     if kind == "fwd":
@@ -384,8 +472,8 @@ def stats_on_path(path, q, p, labels, col_valid=None, inv_tau=1.0):
     not counted in the launch counts. Raises where that path's kernel does
     not take the shape."""
     _check(q, p, labels, col_valid)
-    if q.device.type != "cuda" or path not in PATHS:
-        raise ValueError(f"stats_on_path runs CUDA operands on one of {PATHS}")
+    if q.device.type != "cuda" or path not in PATHS or path == "tf32x3":
+        raise ValueError(f"stats_on_path runs CUDA operands on one of {PATHS[:3]}")
     return _fwd(q, p, labels, col_valid, inv_tau, path)[0]
 
 
@@ -420,6 +508,25 @@ def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau, path=None)
                 )
         _raise_on(err, f"fused_infonce {which} (Hopper)", lib)
         return out, path
+    if path == "tf32x3":
+        q, p = _tma_ready(q), _tma_ready(p)
+        ranks = tf32x3_ranks(d)
+        x_rows, y_rows = (m, n) if which == "dq" else (n, m)
+        splits, per = tf32x3_split_plan(-(-x_rows // TF32X3_TILE), -(-y_rows // TF32X3_STEP),
+                                        tf32x3_max_clusters(which, ranks, dev))
+        partial = torch.empty((splits, x_rows, d) if splits > 1 else (1,), dtype=STATS_DTYPE,
+                              device=dev)
+        # q and p as their tf32 hi and lo planes, written by the launch
+        q_planes = torch.empty((2, m, d), dtype=STATS_DTYPE, device=dev)
+        p_planes = torch.empty((2, n, d), dtype=STATS_DTYPE, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.fused_infonce_tf32x3_launch(
+                int(which == "dq"), q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask, *stats,
+                out.data_ptr(), partial.data_ptr(), q_planes.data_ptr(), p_planes.data_ptr(),
+                m, n, d, ranks, splits, per, float(inv_tau), _stream(dev),
+            )
+        _raise_on(err, f"fused_infonce {which} (3xTF32)", lib)
+        return out, path
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     m_tiles, n_tiles = -(-m // BLOCK_M), -(-n // BLOCK_N)
     if which == "dq":
@@ -443,7 +550,8 @@ def _grad(which, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau, path=None)
 
 def grad_on_path(which, path, q, p, labels, col_valid, lse, g_lse, g_pos, inv_tau=1.0):
     """dQ (``which`` "dq") or dP ("dp") of CUDA operands through the kernels
-    of ``path`` ("hopper" or "wmma" for bf16), whatever ``path_of`` picks,
+    of ``path`` ("hopper" or "wmma" for bf16, "tf32x3" or "fp32" for fp32),
+    whatever ``path_of`` picks,
     in the operand type: a route timed beside another in one run
     (``bench.py``, ``chip_smoke.py``); not counted in the launch counts.
     Raises where that path's kernel does not take the shape."""

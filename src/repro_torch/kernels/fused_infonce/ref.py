@@ -22,8 +22,8 @@ import torch
 from repro_torch.core.precision import NEG_INF, STATS_DTYPE
 
 
-def _logits(q, p, col_valid, inv_tau):
-    logits = (q.to(STATS_DTYPE) @ p.to(STATS_DTYPE).T) * inv_tau
+def _logits(q, p, col_valid, inv_tau, dtype=STATS_DTYPE):
+    logits = (q.to(dtype) @ p.to(dtype).T) * inv_tau
     if col_valid is not None:
         logits = torch.where(col_valid[None, :], logits, NEG_INF)
     return logits
@@ -36,16 +36,19 @@ def infonce_stats_ref(
     col_valid: Optional[torch.Tensor] = None,    # (N,) bool
     *,
     inv_tau: float = 1.0,
+    dtype: torch.dtype = STATS_DTYPE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(lse, pos, amax) per row, fp32; pos = 0 where the label is outside
-    [0, N). Differentiable w.r.t. q and p (zero gradient through masked
-    columns and through out-of-range labels)."""
-    logits = _logits(q, p, col_valid, inv_tau)
+    """(lse, pos, amax) per row, fp32 (or ``dtype``, the type the logits
+    are computed in: a wider one measures the fp32 kernels' own error); pos
+    = 0 where the label is outside [0, N). Differentiable w.r.t. q and p
+    (zero gradient through masked columns and through out-of-range
+    labels)."""
+    logits = _logits(q, p, col_valid, inv_tau, dtype)
     n = p.shape[0]
     labels = labels.long()
     owns = (labels >= 0) & (labels < n)
     pos = logits.gather(1, labels.clamp(0, n - 1)[:, None])[:, 0]
-    pos = torch.where(owns, pos, torch.zeros((), dtype=STATS_DTYPE, device=pos.device))
+    pos = torch.where(owns, pos, torch.zeros((), dtype=dtype, device=pos.device))
     return torch.logsumexp(logits, dim=-1), pos, logits.max(dim=-1).values
 
 
@@ -58,16 +61,38 @@ def infonce_stats_vjp_ref(
     g_pos: torch.Tensor,                         # (M,) cotangent of pos
     *,
     inv_tau: float = 1.0,
+    dtype: Optional[torch.dtype] = None,
+    lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq, dp) of ``infonce_stats_ref`` for the given row cotangents, from
-    autograd through the dense fp32 math, cast to q's and p's types."""
+    autograd through the dense fp32 math, cast to q's and p's types; with
+    ``dtype``, the math and the result in that type (float64: the reference
+    that the fp32 kernels' and this function's own error are measured
+    against). With ``lse`` (M,), the coefficients are taken against it, as
+    the kernels' backward takes the forward's: exp(s - lse) g_lse +
+    onehot(label) g_pos, zero on masked columns, times inv_tau."""
+    ct = STATS_DTYPE if dtype is None else dtype
+    if lse is not None:
+        qc, pc = q.to(ct), p.to(ct)
+        logits = _logits(qc, pc, col_valid, inv_tau, ct)
+        coef = torch.exp(logits - lse.to(ct)[:, None]) * g_lse.to(ct)[:, None]
+        n = p.shape[0]
+        rows = torch.arange(q.shape[0], device=q.device)
+        lab = labels.long()
+        owns = (lab >= 0) & (lab < n)
+        if col_valid is not None:
+            owns &= col_valid[lab.clamp(0, n - 1)]
+        coef[rows[owns], lab[owns]] += g_pos.to(ct)[owns]
+        coef = coef * inv_tau
+        dq, dp = coef @ pc, coef.T @ qc
+        return (dq, dp) if dtype is not None else (dq.to(q.dtype), dp.to(p.dtype))
     with torch.enable_grad():
-        qf = q.detach().to(STATS_DTYPE).requires_grad_(True)
-        pf = p.detach().to(STATS_DTYPE).requires_grad_(True)
-        lse, pos, _ = infonce_stats_ref(qf, pf, labels, col_valid, inv_tau=inv_tau)
-        dq, dp = torch.autograd.grad(
-            (lse, pos), (qf, pf), (g_lse.to(STATS_DTYPE), g_pos.to(STATS_DTYPE))
-        )
+        qf = q.detach().to(ct).requires_grad_(True)
+        pf = p.detach().to(ct).requires_grad_(True)
+        lse, pos, _ = infonce_stats_ref(qf, pf, labels, col_valid, inv_tau=inv_tau, dtype=ct)
+        dq, dp = torch.autograd.grad((lse, pos), (qf, pf), (g_lse.to(ct), g_pos.to(ct)))
+    if dtype is not None:
+        return dq, dp
     return dq.to(q.dtype), dp.to(p.dtype)
 
 

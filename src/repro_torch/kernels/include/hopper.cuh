@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's kernels (flash_attention,
 // fused_topk, fused_infonce), one copy for all: on the device, as inline
 // PTX, mbarriers, TMA tile loads, wgmma shared-memory descriptors and
-// products, named barriers, cluster barriers and distributed shared-memory
-// loads, and ex2; on the host, bf16 tensor maps for TMA (libcuda's
+// products (bf16, and tf32 with A from registers), named barriers, cluster
+// barriers and distributed shared-memory loads, ex2 and the round to tf32;
+// on the host, bf16 and fp32 tensor maps for TMA (libcuda's
 // cuTensorMapEncodeTiled through the runtime's entry-point query, so nothing
 // links against libcuda) and a kernel's dynamic shared-memory limit raised
 // once a device. _build.py passes this directory to nvcc with -I and hashes
@@ -417,6 +418,50 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x 64, fp32) {+}= A (64 x 8, tf32 registers) * B (8 x 64, smem,
+// K-major). tf32 products take both operands K-major (PTX has no transpose
+// for 4-byte types). The A fragment of warp w (rows 16 w ..): a[0] row lane
+// / 4, column lane % 4; a[1] row + 8; a[2] column + 4; a[3] both. The
+// hardware reads 19 bits of each 32-bit operand: round it first (tf32_rna)
+// to keep the nearest. accumulate 0 starts D afresh: zeroing D by other
+// instructions while products are in flight makes ptxas serialize them all.
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 32, fp32) {+}= A (64 x 8, tf32 smem, K-major) * B (8 x 32, tf32
+// smem, K-major); accumulate as above
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float* d, uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int accumulate) {
@@ -453,6 +498,19 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+// x rounded to tf32 (10 mantissa bits), to nearest, ties away from zero: an
+// fp32 bit pattern whose low 13 bits are 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo + O(2^-22 |x|), hi and lo tf32: the operands of 3xTF32
+// (hi hi + hi lo + lo hi, the lo lo term dropped)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
 
 // ---- host: tensor maps and launch attributes ----------------------------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -480,14 +538,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Rank-R bf16 tensor map: dims[0] is the contiguous one (elements), strides
-// are the byte strides of dims 1..R-1 (multiples of 16, as the base's
-// alignment must be), boxes of `box` elements, 128-byte swizzled (box[0] is
-// 64: one 128-byte row), zero past each edge.
+// Rank-R tensor map of `type`: dims[0] is the contiguous one (elements),
+// strides are the byte strides of dims 1..R-1 (multiples of 16, as the
+// base's alignment must be), boxes of `box` elements, 128-byte swizzled
+// (box[0] is one 128-byte row: 64 bf16 or 32 fp32), zero past each edge.
 template <int R>
-inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[R],
-                                   const cuuint64_t (&strides)[R - 1],
-                                   const cuuint32_t (&box)[R]) {
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                              const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
+                              const cuuint32_t (&box)[R]) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   // a libcuda call: the device's primary context must be current on this
@@ -499,11 +557,16 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* ptr, const cuui
   if (err != cudaSuccess) return err;
   cuuint32_t unit[R];
   for (int i = 0; i < R; ++i) unit[i] = 1;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, R, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+template <int R>
+inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[R],
+                                   const cuuint64_t (&strides)[R - 1],
+                                   const cuuint32_t (&box)[R]) {
+  return tensor_map<R>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, strides, box);
 }
 
 // Raises a kernel's dynamic shared-memory limit to `bytes` on the current

@@ -30,6 +30,7 @@ from repro.kernels.fused_infonce.ref import infonce_stats_ref as jax_stats_ref
 from repro_torch.core.precision import NEG_INF
 from repro_torch.kernels.fused_infonce import ops
 from repro_torch.kernels.fused_infonce.ref import infonce_stats_ref
+from repro_torch.kernels.fused_infonce.ref import infonce_stats_vjp_ref as ref_vjp
 
 hypothesis = pytest.importorskip("hypothesis")
 from hypothesis import given, settings, strategies as st  # noqa: E402
@@ -428,8 +429,20 @@ def test_fwd_plan_refuses_the_small_kernels_rows():
     ("dq", torch.bfloat16, 8, ops.HOPPER_D_MAX + 8, "wmma"),
     ("dq", torch.bfloat16, 8, 20, "wmma"),          # rows of 40 bytes: no TMA
     ("dp", torch.bfloat16, 2048, 36, "wmma"),
-    ("dq", torch.float32, 8, 768, "fp32"),
-    ("dp", torch.float32, 2048, 768, "fp32"),
+    ("dq", torch.float32, 8, 768, "tf32x3"),        # fp32 dQ and dP: 3xTF32 on wgmma
+    ("dp", torch.float32, 2048, 768, "tf32x3"),
+    ("dq", torch.float32, 32, 768, "tf32x3"),       # the xdev path's local rows
+    ("dp", torch.float32, 32, 768, "tf32x3"),
+    ("dp", torch.float32, 8192, 768, "tf32x3"),     # its bank rows
+    ("dq", torch.float32, 8224, 768, "tf32x3"),     # the ring's rows
+    ("dp", torch.float32, 8224, 768, "tf32x3"),
+    ("dq", torch.float32, 8, 4, "tf32x3"),
+    ("dp", torch.float32, 8, ops.TF32X3_D_MAX, "tf32x3"),
+    ("dq", torch.float32, 8, 42, "fp32"),           # rows of 168 bytes: no TMA
+    ("dp", torch.float32, 2048, 42, "fp32"),
+    ("dq", torch.float32, 8, ops.TF32X3_D_MAX + 4, "fp32"),   # wider than 8 ranks hold
+    ("dp", torch.float32, 2048, 2048, "fp32"),
+    ("fwd", torch.float32, 8192, 768, "fp32"),      # the fp32 forward keeps its CUDA-core kernel
     ("fwd", torch.bfloat16, 8, 768, "hopper"),      # the train path's two forward shapes
     ("fwd", torch.bfloat16, 2048, 768, "hopper"),
     ("fwd", torch.bfloat16, 17, 96, "hopper"),
@@ -583,3 +596,173 @@ def test_stats_and_vjp_at_the_lm_width_match_jax_bf16():
     for g, w, what in zip(got[3:], want[3:], ("dq", "dp")):
         assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), what
     assert not got[4][~valid].any()
+
+
+# ---- the fp32 dQ and dP on 3xTF32 ("tf32x3") ---------------------------------
+
+#: (X rows, Y rows) of a dQ or dP call: dQ's output rows are the queries and
+#: its contraction rows the passages, dP the other way round
+XDEV_SHAPES = {
+    "bank_rows_dp": (8256, 8192), "local_rows_dp": (8256, 32), "local_rows_dq": (32, 8256),
+    "ring_bank_chunk_dq": (8224, 8192), "ring_inbatch_chunk_dq": (8224, 64),
+    "ring_inbatch_chunk_dp": (64, 8224), "bench_dq": (2048, 2064), "bench_dp": (2064, 2048),
+}
+
+
+def test_tf32x3_ranks_share_d_in_192_columns():
+    """A cluster's ranks split d in 192 columns (3 M-tiles of 64 of the
+    gradient's accumulators): 4 ranks at d = 768, 1 up to 192, 8 at the
+    widest row; no other d is taken."""
+    assert ops.TF32X3_RANK_COLS == 192 and ops.TF32X3_D_MAX == 8 * 192
+    for d, ranks in ((4, 1), (40, 1), (192, 1), (196, 2), (384, 2), (768, 4),
+                     (ops.TF32X3_D_MAX, 8)):
+        assert ops.tf32x3_ranks(d) == ranks
+    for d in (42, 0, ops.TF32X3_D_MAX + 4):
+        with pytest.raises(ValueError):
+            ops.tf32x3_ranks(d)
+
+
+def _tf32x3_blocks(x_rows, y_rows, d, max_clusters):
+    """The (output tile, contraction step) pairs and the columns of d each
+    block of a 3xTF32 launch takes, by the kernel's index arithmetic
+    (csrc: infonce_tf32x3_kernel): cluster cid on X tile cid / splits and
+    steps [s per, min(steps, (s + 1) per)), s = cid % splits; rank r on
+    columns [192 r, 192 r + 192)."""
+    ranks = ops.tf32x3_ranks(d)
+    x_tiles = -(-x_rows // ops.TF32X3_TILE)
+    steps = -(-y_rows // ops.TF32X3_STEP)
+    splits, per = ops.tf32x3_split_plan(x_tiles, steps, max_clusters)
+    pairs, cols = [], []
+    for cid in range(x_tiles * splits):
+        tile, split = divmod(cid, splits)
+        t0, t1 = split * per, min(steps, split * per + per)
+        assert t0 < t1, "a split with no step"
+        pairs += [(tile, t) for t in range(t0, t1)]
+    for r in range(ranks):
+        cols.append(range(r * ops.TF32X3_RANK_COLS, min(d, (r + 1) * ops.TF32X3_RANK_COLS)))
+    return x_tiles, steps, splits, ranks, pairs, cols
+
+
+@pytest.mark.parametrize("shape", sorted(XDEV_SHAPES))
+@pytest.mark.parametrize("d", [768, 40, 200])
+def test_tf32x3_plan_covers_every_tile_step_and_column_once(shape, d):
+    """At the xdev path's shapes and bench.py's (30 clusters of 4 at once on
+    an H100, as cudaOccupancyMaxActiveClusters reports; 132 blocks of one):
+    every (output tile, step) pair once, every column of d in one rank, no
+    rank without a column; the contraction axis split only where the output
+    tiles leave half the clusters idle (the 32 local queries' dQ and the
+    in-batch dP: one tile each)."""
+    x_rows, y_rows = XDEV_SHAPES[shape]
+    max_clusters = 30 if d > ops.TF32X3_RANK_COLS else 132
+    x_tiles, steps, splits, ranks, pairs, cols = _tf32x3_blocks(x_rows, y_rows, d, max_clusters)
+    assert sorted(pairs) == [(x, t) for x in range(x_tiles) for t in range(steps)]
+    assert [c for r in cols for c in r] == list(range(d)) and all(len(r) for r in cols)
+    assert (splits > 1) == (2 * x_tiles <= max_clusters)
+    assert x_tiles * splits <= max(max_clusters, x_tiles)
+    if d == 768 and shape == "local_rows_dq":
+        assert (ranks, x_tiles, steps, splits) == (4, 1, 258, 29)
+
+
+@pytest.mark.parametrize("x_rows,y_rows,d,max_clusters", [
+    (37, 301, 96, 132), (301, 37, 96, 132), (5, 37, 40, 132), (1, 1, 4, 132),
+    (65, 4100, 40, 132), (130, 70, 768, 30), (2048, 300, 200, 66), (8, 2064, ops.TF32X3_D_MAX, 16),
+])
+def test_tf32x3_plan_covers_ragged_shapes(x_rows, y_rows, d, max_clusters):
+    x_tiles, steps, splits, ranks, pairs, cols = _tf32x3_blocks(x_rows, y_rows, d, max_clusters)
+    assert sorted(pairs) == [(x, t) for x in range(x_tiles) for t in range(steps)]
+    assert [c for r in cols for c in r] == list(range(d))
+    assert 1 <= ranks <= ops.MAX_RANKS and splits <= steps
+
+
+def test_tf32x3_shared_memory_fits_a_block():
+    """The 3xTF32 block's plan (csrc: tx::SMEM, mirrored by
+    ops.tf32x3_smem): X's hi and lo boxes resident, two stages of a step's Y
+    boxes, C's hi and lo box, two 8 KB exchange buffers of partial scores,
+    the step's query values, the barriers and the alignment slack, under
+    the 227 KB a block may use; the source states the same constants."""
+    src = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
+           / "fused_infonce" / "csrc" / "fused_infonce.cu").read_text()
+    assert ops.tf32x3_smem() <= 232_448
+    for line in ("constexpr int XT = 64;", "constexpr int YT = 32;", "constexpr int PAIRS = 3;",
+                 "constexpr int NSTAGE = 2;", "constexpr int SMEM = OFF_BAR + 8 * N_BARS + 1024;"):
+        assert line in src, line
+    assert (ops.TF32X3_TILE, ops.TF32X3_STEP, ops.TF32X3_RANK_COLS) == (64, 32, 3 * 64)
+    assert all(name in ops.KERNELS for name in ops.TF32X3_KERNELS)
+
+
+def _tf32(x):
+    """x rounded to tf32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, 10 mantissa bits kept (the low 13 bits of the fp32 pattern 0)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32x3_vjp(q, p, labels, valid, g_lse, g_pos, passes):
+    """dQ and dP as the 3xTF32 kernels compute them, in torch on the CPU:
+    q and p split into tf32 hi and lo (passes 3: hi hi + hi lo + lo hi;
+    passes 1: hi hi alone, one-pass TF32); each 16-column half-chunk of the
+    scores in a fresh fp32 accumulator (the kernel's promotion), the
+    half-chunks' sums added in float64 and rounded once (the kernel adds
+    them in fp32 at a fraction of the score's size and keeps the rounding
+    errors of the larger sums); the forward's lse from fp32 sums of 8 columns added
+    in fp32 (the fp32 forward kernel's); the coefficients in fp32, split as well;
+    each gradient summed over steps of 32 contraction rows, each step's
+    products in a fresh accumulator."""
+    def parts(x):
+        hi = _tf32(x)
+        return hi, _tf32(x - hi)
+
+    def mm(a, b):   # a @ b.T in tf32 passes
+        (ah, al), (bh, bl) = parts(a), parts(b)
+        out = ah @ bh.T
+        return out + (ah @ bl.T + al @ bh.T) if passes == 3 else out
+
+    def chunked(a, b, step, prod, dtype=torch.float32):   # fresh accumulators summed in order
+        total = torch.zeros(a.shape[0], b.shape[0], dtype=dtype)
+        for k in range(0, a.shape[1], step):
+            total += prod(a[:, k:k + step].contiguous(), b[:, k:k + step].contiguous()).to(dtype)
+        return total.float()
+
+    scores = chunked(q, p, 16, mm, torch.float64)
+    fwd = chunked(q, p, 8, lambda a, b: a @ b.T)
+    fwd[:, ~valid] = NEG_INF
+    lse = torch.logsumexp(fwd, dim=1)
+    c = torch.exp(scores - lse[:, None]) * g_lse[:, None]
+    rows = torch.arange(len(labels))
+    c[rows, labels.long()] += g_pos
+    c[:, ~valid] = 0.0
+    dq = chunked(c, p.T.contiguous(), ops.TF32X3_STEP, mm)
+    dp = chunked(c.T.contiguous(), q.T.contiguous(), ops.TF32X3_STEP, mm)
+    return dq, dp
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test (the suite runs 6 workers at once)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_tf32x3_products_hold_to_fp32_on_the_cpu(one_thread):
+    """The design's numerics at the xdev phase's magnitudes (d = 768, rows
+    of norm ~27.7: logits up to ~100, a peaked softmax; M = 64, N = 256, 10%
+    of the columns masked), emulated in torch with the kernel's rounding
+    (_tf32x3_vjp): 3-pass products give dQ and dP within GRAD_RTOL_FP32
+    (1e-4, chip_smoke.py's) of the largest |g| of the fp32 plain version
+    and an error against ref.py in float64 at most 10x the plain version's
+    own; 1-pass products (one TF32 product) break both by far."""
+    q, p, labels, valid, g_lse, g_pos = (_t(a) for a in _problem(32, 64, 256, 768, 0.1))
+    plain = ref_vjp(q, p, labels, valid, g_lse, g_pos)
+    exact = ref_vjp(q, p, labels, valid, g_lse, g_pos, dtype=torch.float64)
+    for passes in (3, 1):
+        got = _tf32x3_vjp(q, p, labels, valid, g_lse, g_pos, passes)
+        for g, want, want64, what in zip(got, plain, exact, ("dq", "dp")):
+            rel = (g - want).abs().max().item() / want.abs().max().item()
+            x64 = ((g.double() - want64).abs().max()
+                   / (want.double() - want64).abs().max()).item()
+            if passes == 3:
+                assert rel <= 1e-4 and x64 <= 10, (what, rel, x64)
+            else:
+                assert rel > 1e-3 and x64 > 100, (what, rel, x64)

@@ -135,10 +135,10 @@ def test_path_shapes_bf16(dev, m):
     lse, pos, _ = _check(q, p, labels, valid)
     if m == 8:
         assert pos[5].item() == 0.0 and pos[6].item() == 0.0
-    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
-    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
+    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
     assert ops.fused_infonce_dq.paths == (
-        {"hopper": 1, "wmma": 0, "fp32": 0} if m == 8 else {"hopper": 0, "wmma": 1, "fp32": 0})
+        {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0} if m == 8 else {"hopper": 0, "wmma": 1, "fp32": 0, "tf32x3": 0})
 
 
 @pytest.mark.cuda
@@ -174,7 +174,7 @@ def test_forward_two_calls_are_bit_identical(dev, m, n_masked):
     for _ in range(2):
         again = ops.fused_infonce_fwd(q, p, labels, valid)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
-    assert ops.fused_infonce_fwd.paths == {"hopper": 3, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_fwd.paths == {"hopper": 3, "wmma": 0, "fp32": 0, "tf32x3": 0}
 
 
 @pytest.mark.cuda
@@ -192,7 +192,7 @@ def test_forward_path_counts(dev, m, n, d):
     labels = torch.randint(-2, n + 2, (m,), generator=g, device=dev).to(torch.int32)
     ops.reset_launches()
     _check(q, p, labels, valid, inv_tau=1.5, grads=False)
-    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
 
 
 @pytest.mark.cuda
@@ -218,7 +218,7 @@ def test_forward_wholly_masked_tiles_and_rows(dev, m):
     assert torch.isfinite(lse).all() and torch.equal(lse, rl)
     assert torch.equal(amax, ra) and (amax == NEG_INF).all()
     assert torch.equal(pos, rp)
-    assert ops.fused_infonce_fwd.paths == {"hopper": 2, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_fwd.paths == {"hopper": 2, "wmma": 0, "fp32": 0, "tf32x3": 0}
 
 
 @pytest.mark.cuda
@@ -408,11 +408,11 @@ def test_wide_rows_dp_takes_the_hopper_path(dev, m, d):
     ops.reset_launches()
     dq, dp = _check_grads(q, p, labels, valid, g_lse, g_pos)
     assert not dp[~valid].float().abs().max().item()
-    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
     assert ops.fused_infonce_dq.paths == (
-        {"hopper": 1, "wmma": 0, "fp32": 0} if m <= ops.SMALL_M else
-        {"hopper": 0, "wmma": 1, "fp32": 0})
-    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+        {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0} if m <= ops.SMALL_M else
+        {"hopper": 0, "wmma": 1, "fp32": 0, "tf32x3": 0})
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
     lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
     args = (q, p, labels, valid, lse, g_lse, g_pos)
     assert torch.equal(ops.fused_infonce_dp(*args), ops.fused_infonce_dp(*args))
@@ -435,7 +435,7 @@ def test_wide_rows_dp_every_column_valid_and_its_parent_route(dev, m):
     dp = ops.fused_infonce_dp(q, p, labels, None, lse, g_lse, g_pos)
     parent = ops.grad_on_path("dp", "wmma", q, p, labels, None, lse, g_lse, g_pos)
     torch.cuda.synchronize()
-    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_dp.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
     _close(dp, rdp, 1e-2, "dp")
     _close(parent, rdp, 1e-2, "dp on the wmma path")
 
@@ -482,9 +482,9 @@ def test_wide_rows_forward_and_dq_take_the_hopper_path(dev, m, d):
     _, pos, _ = _check(q, p, labels, valid)
     assert (pos[0] == NEG_INF).item()
     small = m <= ops.SMALL_M
-    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
     assert ops.fused_infonce_dq.paths == (
-        {"hopper": 1, "wmma": 0, "fp32": 0} if small else {"hopper": 0, "wmma": 1, "fp32": 0})
+        {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0} if small else {"hopper": 0, "wmma": 1, "fp32": 0, "tf32x3": 0})
     first = ops.fused_infonce_fwd(q, p, labels, valid)
     assert all(torch.equal(a, b) for a, b in zip(first, ops.fused_infonce_fwd(q, p, labels, valid)))
     if small:
@@ -535,14 +535,14 @@ def test_wide_rows_forward_and_dq_every_column_valid_and_their_parent_route(dev,
                          ("wmma", ops.stats_on_path("wmma", q, p, labels, None))):
         for x, r, name in zip(stats, (rl, rp, ra), ("lse", "pos", "amax")):
             assert (x - r).abs().max().item() <= tol, (route, name)
-    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+    assert ops.fused_infonce_fwd.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
     if m == 8:
         lse = ops.fused_infonce_fwd(q, p, labels, None)[0]
         rdq = infonce_stats_vjp_ref(q, p, labels, None, g_lse, g_pos)[0]
         _close(ops.fused_infonce_dq(q, p, labels, None, lse, g_lse, g_pos), rdq, 1e-2, "dq")
         _close(ops.grad_on_path("dq", "wmma", q, p, labels, None, lse, g_lse, g_pos), rdq, 1e-2,
                "dq on the wmma path")
-        assert ops.fused_infonce_dq.paths == {"hopper": 1, "wmma": 0, "fp32": 0}
+        assert ops.fused_infonce_dq.paths == {"hopper": 1, "wmma": 0, "fp32": 0, "tf32x3": 0}
 
 
 @pytest.mark.cuda
@@ -572,3 +572,164 @@ def test_split_fwd_and_dq_need_their_ranks(dev):
         assert err != 0, ("dq", ranks)
     with pytest.raises(RuntimeError, match="launch failed"):
         ops._raise_on(err, "fused_infonce dq (Hopper)", lib)
+
+
+# ---- fp32 dQ and dP on 3xTF32 ("tf32x3") -------------------------------------
+
+def _fp32_case(m, n, d, dev, seed, scale=0.2, n_masked=0):
+    q = _rand((m, d), torch.float32, dev, seed, scale)
+    p = _rand((n, d), torch.float32, dev, seed + 1, scale)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    if n_masked:
+        valid[-n_masked:] = False
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    labels = torch.randint(0, n, (m,), generator=g, device=dev).to(torch.int32)
+    return q, p, labels, valid
+
+
+def _fp32_grads(q, p, labels, valid, g_lse, g_pos, inv_tau=1.0):
+    """dQ and dP of the fp32 kernels, each held to the plain version at 1e-4
+    of its largest |g| and to ref.py in float64 at most 10x the plain
+    version's own error against it (chip_smoke.py's FP64_ERR_RATIO); both
+    on the "tf32x3" path, the forward on "fp32"."""
+    ops.reset_launches()
+    lse = ops.fused_infonce_fwd(q, p, labels, valid, inv_tau)[0]
+    args = (q, p, labels, valid, lse, g_lse, g_pos, inv_tau)
+    dq, dp = ops.fused_infonce_dq(*args), ops.fused_infonce_dp(*args)
+    torch.cuda.synchronize()
+    assert ops.fused_infonce_fwd.paths == {"hopper": 0, "wmma": 0, "fp32": 1, "tf32x3": 0}
+    for fn in (ops.fused_infonce_dq, ops.fused_infonce_dp):
+        assert fn.paths == {"hopper": 0, "wmma": 0, "fp32": 0, "tf32x3": 1}
+    plain = infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, inv_tau=inv_tau)
+    exact = infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, inv_tau=inv_tau,
+                                  dtype=torch.float64)
+    for got, want, want64, what in zip((dq, dp), plain, exact, ("dq", "dp")):
+        assert got.dtype == torch.float32
+        _close(got, want, 1e-4, what)
+        err = (got.double() - want64).abs().max().item()
+        plain_err = (want.double() - want64).abs().max().item()
+        assert err <= 10 * plain_err, f"{what}: fp64 error {err} > 10 x {plain_err}"
+    return dq, dp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(37, 301, 96), (130, 70, 768), (1, 1, 4), (65, 4100, 40),
+                                   (5, 37, 200), (1000, 500, 196), (2048, 2064, 768),
+                                   (32, 8256, 768), (8224, 64, 768)])
+def test_tf32x3_ragged_shapes(dev, m, n, d):
+    """M and N not multiples of the 64-row tile or the 32-row step, d from 4
+    (one rank, most of its columns TMA's zeros) to 768 (4 ranks) and 196 (2
+    ranks, the second on 4 columns); the local rows' dQ and the in-batch
+    chunk's dP split their contraction axis (29 and 30 splits on an H100)."""
+    q, p, labels, valid = _fp32_case(m, n, d, dev, 60, n_masked=n // 7)
+    _fp32_grads(q, p, labels, valid, *_cotangents(m, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+def test_tf32x3_all_masked_tiles(dev, m):
+    """Passages 64..127 (one whole dP tile) and the last 400 masked (whole
+    steps of dQ's split ranges at M = 8): the masked passages' dP rows are
+    exactly 0 and the rest match; every passage masked gives zeros."""
+    q, p, labels, valid = _fp32_case(m, 1000, 256, dev, 70)
+    valid[64:128] = False
+    valid[600:] = False
+    labels %= 64
+    dq, dp = _fp32_grads(q, p, labels, valid, *_cotangents(m, dev))
+    assert not dp[~valid].abs().max().item()
+    valid[:] = False
+    dq, dp = _grads(q, p, labels, valid, *_cotangents(m, dev))
+    assert torch.equal(dq, torch.zeros_like(dq)) and torch.equal(dp, torch.zeros_like(dp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+def test_tf32x3_label_on_a_masked_passage(dev, m):
+    q, p, labels, valid = _fp32_case(m, 200, 128, dev, 80)
+    valid[150:] = False
+    labels %= 150
+    labels[0] = 170
+    labels[1] = -4                      # outside [0, N): no one-hot term either
+    _fp32_grads(q, p, labels, valid, *_cotangents(m, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["g_lse", "g_pos"])
+def test_tf32x3_one_cotangent_alone(dev, which):
+    q, p, labels, valid = _fp32_case(300, 2064, 768, dev, 90)
+    g_lse, g_pos = _cotangents(300, dev)
+    if which == "g_lse":
+        g_pos = torch.zeros_like(g_pos)
+    else:
+        g_lse = torch.zeros_like(g_lse)
+    dq, dp = _fp32_grads(q, p, labels, valid, g_lse, g_pos)
+    if which == "g_pos":   # only the labelled passages get a gradient
+        hit = torch.zeros(2064, dtype=torch.bool, device=dev)
+        hit[labels.long()] = True
+        assert not dp[~hit].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(32, 8256), (2048, 2064), (8224, 64)])
+def test_tf32x3_two_calls_are_bit_identical(dev, m, n):
+    """Fixed orders everywhere (rank order, chunk order, split order): the
+    same inputs give the same bits."""
+    q, p, labels, valid = _fp32_case(m, n, 768, dev, 100, scale=1.0)
+    g_lse, g_pos = _cotangents(m, dev)
+    first = _grads(q, p, labels, valid, g_lse, g_pos)
+    second = _grads(q, p, labels, valid, g_lse, g_pos)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.2, 1.0])
+def test_tf32x3_against_float64(dev, scale):
+    """At the bank rows' width and the xdev phase's magnitudes (scale 1:
+    rows of norm ~27.7, logits up to ~100), both gradients within 10x of
+    the fp32 plain version's own error against ref.py in float64."""
+    q, p, labels, valid = _fp32_case(2048, 2064, 768, dev, 110, scale=scale)
+    _fp32_grads(q, p, labels, valid, *_cotangents(2048, dev))
+
+
+@pytest.mark.cuda
+def test_fp32_route_at_other_widths(dev):
+    """d = 42 (rows of 168 bytes, no TMA) takes the CUDA-core "fp32" kernels; at d
+    = 40 grad_on_path runs them too, and both routes agree with the plain
+    version."""
+    q, p, labels, valid = _fp32_case(37, 301, 42, dev, 120)
+    g_lse, g_pos = _cotangents(37, dev)
+    ops.reset_launches()
+    dq, dp = _grads(q, p, labels, valid, g_lse, g_pos)
+    assert ops.fused_infonce_dq.paths["fp32"] == ops.fused_infonce_dp.paths["fp32"] == 1
+    rdq, rdp = infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos)
+    _close(dq, rdq, 1e-4, "dq")
+    _close(dp, rdp, 1e-4, "dp")
+    q, p, labels, valid = _fp32_case(37, 301, 40, dev, 121)
+    lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
+    rdq, rdp = infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos)
+    for route in ("fp32", "tf32x3"):
+        _close(ops.grad_on_path("dq", route, q, p, labels, valid, lse, g_lse, g_pos), rdq, 1e-4,
+               f"dq {route}")
+        _close(ops.grad_on_path("dp", route, q, p, labels, valid, lse, g_lse, g_pos), rdp, 1e-4,
+               f"dp {route}")
+    with pytest.raises(ValueError):   # the 3xTF32 kernels take no d off a multiple of 4
+        ops.grad_on_path("dq", "tf32x3", *_fp32_case(8, 64, 42, dev, 122), lse[:8],
+                         g_lse[:8], g_pos[:8])
+
+
+@pytest.mark.cuda
+def test_tf32x3_unaligned_base_is_copied_for_tma(dev):
+    q, p, labels, valid = _fp32_case(40, 300, 96, dev, 130)
+    big = _rand((300 * 96 + 1,), torch.float32, dev, 131)
+    p = big[1:].view(300, 96)                  # a base 4 bytes past alignment
+    assert p.data_ptr() % 16
+    _fp32_grads(q, p, labels, valid, *_cotangents(40, dev))
+
+
+@pytest.mark.cuda
+def test_tf32x3_kernels_keep_to_registers(dev):
+    """No spills or local memory in the 3xTF32 path's kernels."""
+    for name in ops.TF32X3_KERNELS:
+        attrs = ops.kernel_attributes(name)
+        assert attrs["local_bytes"] == 0, (name, attrs)
+        assert 0 < attrs["registers"] <= 255
