@@ -281,7 +281,11 @@ Phases, one JSON line each:
                32 local and 8192 bank rows against 8256 columns; the
                ring's 8224 rows against its 8192- and 64-column chunks)
                against the plain version, beside their bound and the
-               dense backend.
+               dense backend; each on the "tf32x3" route also against
+               ref.py in float64 (at most FP64_ERR_RATIO times the plain
+               version's own error: the forward's lse, and dQ and dP taken
+               against the forward's lse) and in turns with the "fp32"
+               route it took before (faster in every turn).
 Then the kernels line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.
 
@@ -300,6 +304,7 @@ repo's ``src/repro_torch`` beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -1052,19 +1057,40 @@ def fp64_err_ratio(torch, got, plain, exact, plain_given, given, what):
             "fp64_given_lse_err_ratio": err_given / plain_err_given if plain_err_given else None}
 
 
-def grad_turns(torch, fn, parent_fn, reps, what):
+def fp64_lse_ratio(torch, lse, plain, exact, what):
+    """A fp32 forward's max lse error against ``exact`` (ref.py in float64)
+    over the fp32 plain version's (``plain``) against it, over the rows
+    with a valid column; raises above FP64_ERR_RATIO: the backward's
+    coefficients exp(s - lse) take this lse against scores of their own."""
+    from repro_torch.core.precision import NEG_INF
+
+    live = exact > NEG_INF / 2
+    if not bool(live.any()):
+        return {}
+    err = (lse.double() - exact)[live].abs().max().item()
+    own = (plain.double() - exact)[live].abs().max().item()
+    ratio = err / own if own else (0.0 if err == 0 else math.inf)
+    require(ratio <= FP64_ERR_RATIO, f"{what}: lse error against float64 {err} is {ratio}x the "
+                                     f"fp32 plain version's {own} (> {FP64_ERR_RATIO}x)")
+    return {"lse_fp64_max_abs_err": err, "plain_lse_fp64_max_abs_err": own,
+            "lse_fp64_err_ratio": ratio}
+
+
+def grad_turns(torch, fn, parent_fn, reps, what, require_faster=True):
     """Device ms of ``fn`` and of its parent route in turns (parent, new,
-    new, parent); raises unless the new route is faster in every turn."""
+    new, parent); raises unless the new route is faster in every turn
+    (with ``require_faster``; else reports whether it is)."""
     from repro_torch.kernels._timing import device_ms
 
     turns = {"ms": [], "parent_ms": []}
     for key, call in (("parent_ms", parent_fn), ("ms", fn), ("ms", fn), ("parent_ms", parent_fn)):
         turns[key].append(device_ms(call, reps))
-    require(max(turns["ms"]) < min(turns["parent_ms"]),
+    faster = max(turns["ms"]) < min(turns["parent_ms"])
+    require(faster or not require_faster,
             f"{what}: the new route ({turns['ms']} ms) is not faster than its parent "
             f"({turns['parent_ms']} ms) in every turn")
     return {"ms_turns": turns["ms"], "parent_ms": statistics.mean(turns["parent_ms"]),
-            "parent_ms_turns": turns["parent_ms"]}
+            "parent_ms_turns": turns["parent_ms"], "faster_in_every_turn": faster}
 
 
 def phase_infonce_kernels(torch):
@@ -1131,9 +1157,11 @@ def phase_infonce_kernels(torch):
                "dq_max_abs_err": close_err(dq, rdq, grad_rtol, f"{name} dq"),
                "dp_max_abs_err": close_err(dp, rdp, grad_rtol, f"{name} dp"),
                "grad_rtol_of_max": grad_rtol, "paths": paths}
-        if q.dtype == torch.float32:   # dQ and dP on 3xTF32, the forward on the fp32 kernel
-            require(paths == {"fwd": "fp32", "dq": "tf32x3", "dp": "tf32x3"},
-                    f"{name}: paths {paths}, not the fp32 forward and the tf32x3 dQ and dP")
+        if q.dtype == torch.float32:   # the forward, dQ and dP on 3xTF32
+            require(paths == {kernel: ops.path_of(kernel, q.dtype, q.shape[0], q.shape[1])
+                              for kernel in ("fwd", "dq", "dp")}
+                    and set(paths.values()) == {"tf32x3"},
+                    f"{name}: paths {paths}, not the tf32x3 forward, dQ and dP")
             plain_given = ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, lse=lse)
             given, own = (ref.infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos,
                                                     dtype=torch.float64, lse=l)
@@ -3756,7 +3784,7 @@ def phase_recsys(torch):
     }
 
 
-def infonce_at(torch, kernel, q, p, labels, valid):
+def infonce_at(torch, kernel, q, p, labels, valid, require_faster=True):
     """One fused_infonce kernel ("fwd", "dq" or "dp") on CUDA operands: held
     to the plain version (statistics to STATS_RTOL of the largest |logit|,
     a gradient to GRAD_RTOL_FP32 or GRAD_RTOL_BF16 of its largest |g|),
@@ -3764,8 +3792,11 @@ def infonce_at(torch, kernel, q, p, labels, valid):
     and torch's logsumexp, or their autograd) and beside its bound. A fp32
     dQ or dP on the "tf32x3" route is also held to ref.py in float64 (at
     most FP64_ERR_RATIO times the plain version's own error) and timed in
-    turns with the "fp32" route it took before (faster in every turn).
-    These launches are counted: read the path's counts before."""
+    turns with the "fp32" route it took before (faster in every turn); so
+    is a fp32 forward on the "tf32x3" route (its lse against float64, the
+    "fp32" route through ``ops.stats_on_path``; faster in every turn only
+    with ``require_faster``). These launches are counted: read the path's
+    counts before."""
     from repro_torch.core.loss import DenseLossBackend
     from repro_torch.core.precision import NEG_INF
     from repro_torch.kernels._timing import device_ms
@@ -3789,6 +3820,20 @@ def infonce_at(torch, kernel, q, p, labels, valid):
         err = max((lse - rl).abs().max().item(), (amax - ra).abs().max().item(),
                   (pos[live] - rp[live]).abs().max().item() if live.any() else 0.0)
         require(err <= tol, f"fused_infonce forward at M={m}: err {err} > {tol}")
+        if route == "tf32x3":
+            what = f"fused_infonce forward at M={m}, N={p.shape[0]}"
+            exact = ref.infonce_stats_ref(q, p, labels, valid, dtype=torch.float64)[0]
+            extra.update(fp64_lse_ratio(torch, lse, rl, exact, what))
+            del exact
+            parent = lambda: ops.stats_on_path("fp32", q, p, labels, valid)   # noqa: E731
+            pl, pp, pa = parent()
+            extra["parent_max_abs_err"] = max(
+                (pl - rl).abs().max().item(), (pa - ra).abs().max().item(),
+                (pp[live] - rp[live]).abs().max().item() if live.any() else 0.0)
+            require(extra["parent_max_abs_err"] <= tol,
+                    f"{what}, fp32 route: err {extra['parent_max_abs_err']} > {tol}")
+            extra.update(parent_route="fp32",
+                         **grad_turns(torch, fn, parent, 3, what, require_faster))
     else:
         lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
         args = (q, p, labels, valid, lse, g_lse, g_pos)
@@ -3943,6 +3988,16 @@ def phase_xdev(torch):
                 return call
 
             ops.infonce_stats_ref, ops.infonce_stats_vjp_ref = (counted(f) for f in real_ref)
+            # each forward call's shape and the route it took
+            fwd_calls = collections.Counter()
+            real_fwd = ops._fwd
+
+            def recorded_fwd(q, p, *a, **kw):
+                out = real_fwd(q, p, *a, **kw)
+                fwd_calls[(q.shape[0], p.shape[0], q.shape[1], out[1])] += 1
+                return out
+
+            ops._fwd = recorded_fwd
             torch.cuda.reset_peak_memory_stats()
             grad_checks = []
             try:
@@ -3980,8 +4035,18 @@ def phase_xdev(torch):
                     del grads
             finally:
                 ops.infonce_stats_ref, ops.infonce_stats_vjp_ref = real_ref
+                ops._fwd = real_fwd
             peak_bytes = torch.cuda.max_memory_allocated()
             require(not plain_calls, f"the plain fused_infonce version ran: {plain_calls[:5]}")
+            # every forward on path_of's route at its shape, the bank rows' on 3xTF32
+            fwd_routes = {f"M={m}, N={n}, d={dd}: {path}": count
+                          for (m, n, dd, path), count in sorted(fwd_calls.items())}
+            require(all(path == ops.path_of("fwd", torch.float32, m, dd) == "tf32x3"
+                        for m, n, dd, path in fwd_calls),
+                    f"fused_infonce forwards off the tf32x3 route: {fwd_routes}")
+            require(sum(fwd_calls.values()) == sum(r.launches["fwd"] for r in runs.values()),
+                    f"forward calls {fwd_routes} against launches "
+                    f"{[r.launches['fwd'] for r in runs.values()]}")
 
             for name, r in runs.items():
                 losses = [mm["loss"] for mm in r.metrics]
@@ -3992,11 +4057,10 @@ def phase_xdev(torch):
                     n_neg = XDEV_RANK_BATCH // k * (1 + cell["n_hard"]) + bank - 1
                     require(mm["n_negatives"] == n_neg,
                             f"{name}: n_negatives {mm['n_negatives']} != {n_neg}")
-                for kn in ("fwd", "dq", "dp"):   # the fp32 forward; dQ and dP on 3xTF32
-                    route = "fp32" if kn == "fwd" else "tf32x3"
+                for kn in ("fwd", "dq", "dp"):   # the forward, dQ and dP on 3xTF32
                     require(r.launches[kn] > 0, f"{name}: no fused_infonce {kn} launch")
-                    require(r.paths[kn][route] == r.launches[kn],
-                            f"{name}: fused_infonce {kn} took {r.paths[kn]}, not all {route}")
+                    require(r.paths[kn]["tf32x3"] == r.launches[kn],
+                            f"{name}: fused_infonce {kn} took {r.paths[kn]}, not all tf32x3")
             want = {"all_gather": {"fwd": 2, "dq": 1, "dp": 2},
                     "ring": {"fwd": 3, "dq": 2, "dp": 1},
                     "one_device": {"fwd": 2, "dq": 1, "dp": 2}}
@@ -4053,7 +4117,13 @@ def phase_xdev(torch):
                 "ring_inbatch_chunk": (rows, p_all[:n_a].contiguous(), lab_rows, ones,
                                        ("fwd", "dq", "dp")),
             }
-            kernels = {name: {kn: infonce_at(torch, kn, qq.contiguous(), pq.contiguous(), ll, vv)
+            # the forward at one tile of rows or of columns against the
+            # other's 8192 is timed beside the "fp32" route but not held
+            # faster there: the CUDA-core kernel reads the long operand once,
+            # the 3xTF32 route first splits it into planes (PERF.md)
+            one_tile = ("local_rows", "ring_inbatch_chunk")
+            kernels = {name: {kn: infonce_at(torch, kn, qq.contiguous(), pq.contiguous(), ll, vv,
+                                             require_faster=kn != "fwd" or name not in one_tile)
                               for kn in kns}
                        for name, (qq, pq, ll, vv, kns) in shapes.items()}
         finally:
@@ -4078,6 +4148,7 @@ def phase_xdev(torch):
         "n_negatives": runs["ring"].metrics[-1]["n_negatives"],
         "launches": {name: r.launches for name, r in runs.items()},
         "infonce_paths": {name: r.paths for name, r in runs.items()},
+        "infonce_fwd_routes": fwd_routes,
         "collectives": {name: r.collectives for name, r in runs.items()},
         "plain_calls": len(plain_calls), "parity": parity,
         "max_memory_allocated": peak_bytes, "fused_infonce_fp32": kernels,
@@ -4238,6 +4309,8 @@ def main(argv=None) -> int:
     tpu = "src/repro/kernels/fused_infonce/fused_infonce.py"
     from repro_torch.kernels.fused_infonce import ops as infonce_ops
 
+    xdev_fwd_kernels = ("infonce_tf32x3_fwd_kernel", "infonce_stats_merge_kernel")
+
     for kernel, line, shape, err in (("fwd", 54, "bank_rows", "stats_max_abs_err"),
                                      ("dq", 205, "local_rows", "dq_max_abs_err"),
                                      ("dp", 229, "bank_rows", "dp_max_abs_err")):
@@ -4272,8 +4345,8 @@ def main(argv=None) -> int:
             "xdev_shape": xdev["fused_infonce_fp32"][shape][kernel],
             **{f"xdev_{name}_shape": sh[kernel] for name, sh in xdev["fused_infonce_fp32"].items()
                if kernel in sh and name != shape},
-            "xdev_cuda_kernels": (["infonce_fwd_kernel<fp32>", "infonce_stats_merge_kernel"]
-                                  if kernel == "fwd" else list(infonce_ops.TF32X3_KERNELS)),
+            "xdev_cuda_kernels": [k for k in infonce_ops.TF32X3_KERNELS if "split" in k
+                                  or (k in xdev_fwd_kernels) == (kernel == "fwd")],
         })
     # flash_attention at the BERT passage pass (the phase line has every shape)
     fa = flash_k["bert_passage"]

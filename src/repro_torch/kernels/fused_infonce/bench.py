@@ -22,11 +22,13 @@ has no caller and is on ``wmma`` either way). The xdev path's fp32 shapes
 (one rank of contaccum_xdev, d = 768, every column valid; ``--only xdev``
 times them alone): the bank rows (M = 8192 against N = 8256), the ring's
 8224 rows against its 8192-column bank chunk and its 64-column in-batch
-chunk, and the 32 local rows against 8256; dQ and dP there run on 3xTF32
+chunk, and the 32 local rows against 8256, with the fp32 M = 2048 chunk
+(``bank_rows_fp32``); the forward, dQ and dP there run on 3xTF32
 ("tf32x3"), each timed in turns with the "fp32" route it took before
-(``ops.grad_on_path``: parent, new, new, parent; ``ms_turns``,
-``parent_ms_turns``), its bound three times the products at the TF32 peak
-(495 TFLOP/s) beside the 67 TFLOP/s one of fp32 FMAs (``bound_ms_fp32``).
+(``ops.stats_on_path`` for the forward, ``ops.grad_on_path`` for dQ and
+dP: parent, new, new, parent; ``ms_turns``, ``parent_ms_turns``), its
+bound three times the products at the TF32 peak (495 TFLOP/s) beside the
+67 TFLOP/s one of fp32 FMAs (``bound_ms_fp32``).
 
     PYTHONPATH=src python -m repro_torch.kernels.fused_infonce.bench [--reps 20] [--only lm|mined|xdev]
 
@@ -168,7 +170,8 @@ def main(argv=None):
     on_path = {"fwd": getattr(ops, "stats_on_path", None), "dq": getattr(ops, "grad_on_path", None),
                "dp": getattr(ops, "grad_on_path", None)}
     for name, m, n, d, dtype, n_masked in SHAPES:
-        if args.only and not name.startswith(args.only):
+        if args.only and not name.startswith(args.only) and not (
+                args.only == "xdev" and name == "bank_rows_fp32"):
             continue
         q, p, labels, valid, g_lse, g_pos = _case(m, n, d, dtype, n_masked, dev, g)
         lse = ops.fused_infonce_fwd(q, p, labels, valid)[0]
@@ -205,7 +208,8 @@ def main(argv=None):
                 parent_ms = device_ms(call, args.reps)
             if route == "tf32x3" and parent is not None:
                 # the fp32 FMA kernels this call took before, in turns
-                call = functools.partial(parent, kernel, "fp32", *args_)
+                call = (functools.partial(parent, "fp32", q, p, labels, valid) if kernel == "fwd"
+                        else functools.partial(parent, kernel, "fp32", *args_))
                 turns = {"ms_turns": [], "parent_ms_turns": []}
                 for key, f in (("parent_ms_turns", call), ("ms_turns", fn), ("ms_turns", fn),
                                ("parent_ms_turns", call)):

@@ -6,7 +6,9 @@
 //   forward  _fwd_kernel (:54) -> bf16: hp::infonce_fwd_small_kernel at up to 16
 //                                 query rows (hp::infonce_fwd_split_kernel past d =
 //                                 1024), hp::infonce_fwd_rows_kernel above (+
-//                                 infonce_stats_merge_kernel); else infonce_fwd_kernel
+//                                 infonce_stats_merge_kernel); fp32 with d a
+//                                 multiple of 4: tx::infonce_tf32x3_fwd_kernel
+//                                 (3xTF32, + the merge); else infonce_fwd_kernel
 //   dQ       _dq_kernel (:205) -> bf16: hp::infonce_small_kernel<true> at up to 16
 //                                 query rows (hp::infonce_dq_split_kernel past d =
 //                                 1024) (+ infonce_grad_reduce_kernel); fp32 with d
@@ -102,10 +104,11 @@
 //  - A dQ or dP block whose passages are all masked writes zeros and
 //    computes nothing.
 //
-// fp32 dQ and dP with d a multiple of 4 (up to 1536) run 3xTF32 on wgmma
-// (namespace tx, below). The fp32 forward, fp32 dQ and dP at other d, and
-// the bf16 shapes the Hopper kernels do not take (d not a multiple of 8 or
-// above 8192; dQ above 16 rows, dP above 6144 rows) keep the first design: 64 x 64 score tiles on wmma bf16 16x16x16 (fp32
+// fp32 operands with d a multiple of 4 run 3xTF32 on wgmma (namespace tx,
+// below): the forward up to d = 8192, dQ and dP up to 1536. fp32 at other
+// d, and the bf16 shapes the Hopper kernels do not take (d not a multiple
+// of 8 or above 8192; dQ above 16 rows, dP above 6144 rows) keep the first
+// design: 64 x 64 score tiles on wmma bf16 16x16x16 (fp32
 // inputs: a CUDA-core FMA loop, no TF32), looping over d in chunks of 64
 // with synchronous loads; the backward kernels first compute the block's
 // coefficient strip (64 x up to 512) into shared memory, then take the
@@ -287,10 +290,10 @@ template <> struct ScoreAcc<__nv_bfloat16> {
 
 // fp32: each 8 columns of d summed by FMAs from 0, then added to the score.
 // A running sum over all of d = 768 puts the score of a logit of ~100
-// many ulp off (each FMA rounds at the running sum's size), and the fp32
-// backward's coefficients exp(s - lse) take this lse against scores of
-// their own (3xTF32 on the tensor cores), which share none of its
-// rounding: its error would reach the gradients whole. The partial sums
+// many ulp off (each FMA rounds at the running sum's size), and a backward
+// given this lse (the "fp32" route's, or the 3xTF32 kernels' where a caller
+// mixes routes) takes its coefficients exp(s - lse) against scores of its
+// own: the lse's error would reach the gradients whole. The partial sums
 // cost one add per 8 FMAs.
 template <> struct ScoreAcc<float> {
   static constexpr int BK = Tile<float>::BK, LD = Tile<float>::LD;
@@ -750,6 +753,25 @@ infonce_grad_reduce_kernel(const float* __restrict__ partial, T* __restrict__ ou
     for (int s = 0; s < splits; ++s) v += partial[size_t(s) * total + x];
     out[x] = to_t<T>(v);
   }
+}
+
+// infonce_stats_merge_kernel over part (3, M, tiles) as a programmatic
+// dependent of the tile kernel just launched on `st`: launched while the
+// tiles run, it waits in griddepcontrol.wait for their partials.
+cudaError_t launch_stats_merge(const float* part, float* lse, float* pos, float* amax, int M,
+                               int tiles, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned((M + WARPS - 1) / WARPS));
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, infonce_stats_merge_kernel, part, lse, pos, amax, M, tiles);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename K>
@@ -1718,12 +1740,13 @@ __device__ __forceinline__ void tile_partials(const float (&acc)[4 * NI], float*
   }
 }
 
-// The partials of a wholly masked passage tile for query rows [q0, q1).
+// The partials of a wholly masked passage tile (`width` passages from n0)
+// for query rows [q0, q1).
 __device__ __forceinline__ void masked_partials(float* __restrict__ part,
                                                 const int* __restrict__ labels, int tiles,
                                                 int tile, int n0, int N, int M, int q0, int q1,
-                                                int threads) {
-  const int n1 = min(n0 + PB, N);
+                                                int threads, int width = PB) {
+  const int n1 = min(n0 + width, N);
   const size_t plane = size_t(tiles) * M;
   for (int q = q0 + int(threadIdx.x); q < q1; q += threads) {
     const int l = labels[q];
@@ -2014,20 +2037,7 @@ cudaError_t fwd_tiles(const void* q, const void* p, const int* labels, const uin
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
-  // the merge as a programmatic dependent: launched while the tiles run,
-  // it waits in griddepcontrol.wait for their partials
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(unsigned((M + WARPS - 1) / WARPS));
-  cfg.blockDim = dim3(THREADS);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, infonce_stats_merge_kernel, static_cast<const float*>(part), lse,
-                           pos, amax, M, tiles);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_stats_merge(part, lse, pos, amax, M, tiles, st);
 }
 
 }  // namespace hp
@@ -2099,7 +2109,10 @@ cudaError_t fwd_tiles(const void* q, const void* p, const int* labels, const uin
 // instead makes ptxas serialize the products), the small hi lo and lo hi
 // terms first, promoted by fp32 adds; the warpgroups' and ranks' sums of
 // the partial scores keep their rounding errors (two_sum) up to the
-// coefficient's argument.
+// coefficient's argument. Each landed half-chunk of the scores is moved one
+// ulp away from zero first (away_ulp), as in the forward: the truncation
+// leaves a fresh half-chunk about an ulp short, and the scores 0.6-1.1 ulp
+// short, a bias that adds up over the rows a passage dominates in dP.
 // The answers this design gives: (1) tf32 wgmma takes both operands
 // K-major, so the gradient product's Y is not transposed in shared memory
 // but read transposed into registers (its A operand; 2-way bank conflicts)
@@ -2111,9 +2124,13 @@ cudaError_t fwd_tiles(const void* q, const void* p, const int* labels, const uin
 // the device's primary context made current (hopper.cuh), as an autograd
 // worker's first call needs; (4) ptxas gives the two kernels about 250
 // registers a thread, no spills (chip_smoke.py's build report has the
-// numbers); (5) the fp32 forward (the CUDA-core kernel above) sums each 8 columns
-// of d before adding them to the score (its ScoreAcc<float>), so that its
-// lse, which these coefficients are taken against, is within ~1 ulp.
+// numbers); (5) the fp32 forward runs on 3xTF32 too
+// (infonce_tf32x3_fwd_kernel, below): its scores are these kernels'
+// half-chunk sums, nudged alike, added in order in fp32, so the lse these
+// coefficients are taken against shares their arithmetic (the CUDA-core
+// forward's lse, of other scores, put the coefficients of the bank rows'
+// dP 5.8x the plain version's error against float64 where the 3xTF32
+// forward's gives 0.6-0.8x: PERF.md, PR 33).
 // Splits: the contraction axis is split only where the output tiles cannot
 // fill the card (ops.tf32x3_split_plan: the 32 local queries' dQ, one tile;
 // the ring's in-batch dP, one tile of 64 passages): split s writes its fp32
@@ -2182,6 +2199,31 @@ __device__ __forceinline__ void add_to(float (&a)[N], const float (&b)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) a[i] += b[i];
 }
+// A landed half-chunk of the scores moved one ulp away from zero, the next
+// float of its bit pattern. The tensor cores truncate each wgmma's sum
+// toward zero at the accumulator's size, so a fresh half-chunk comes out
+// short by about an ulp of its own size on average, and a score summed
+// from 48 of them by 0.6-1.1 ulp of the score: a bias that adds up in dP
+// over the many rows a passage takes part in (measured on an H100, the
+// forward, dQ and dP alike; with the nudge, +0.1-0.3 ulp). Every
+// half-chunk of the forward's and the gradients' scores takes it, so the
+// forward's lse and the gradients' scores keep one arithmetic. The
+// gradients' kernels keep +0 (u + min(u, 1): u + 1 made dQ spill 16 bytes);
+// the forward adds u + 1 as it sums (a zero half-chunk, d's padding, adds
+// 2^-149; 12% faster than u + min(u, 1) at the xdev bank rows).
+template <int N>
+__device__ __forceinline__ void away_ulp(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t u = __float_as_uint(a[i]);
+    a[i] = __uint_as_float(u + min(u, 1u));
+  }
+}
+template <int N>
+__device__ __forceinline__ void add_away(float (&s)[N], const float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] += __uint_as_float(__float_as_uint(a[i]) + 1u);
+}
 // hi + lo += b, hi the rounded sum and lo the rounding errors so far
 // (Knuth's TwoSum: exact whatever the magnitudes)
 __device__ __forceinline__ void two_sum(float& hi, float& lo, float b) {
@@ -2199,19 +2241,21 @@ __device__ __forceinline__ void two_sum(float& hi, float& lo, float b) {
 // shrink |s|, ~n/4 ulp of s for n hi hi sums an accumulator (at the xdev
 // phase's logits of hundreds, n = 4, a whole chunk, is an error that adds
 // up over the rows a passage dominates in dP). xh, xl: the
-// chunk's X boxes; yh, yl: its Y boxes.
-__device__ __forceinline__ void score_half(float (&acc)[16], uint32_t xh, uint32_t xl, uint32_t yh,
-                                           uint32_t yl, int kh) {
+// chunk's X boxes (64 rows, the product's M); yh, yl: its Y boxes (N rows:
+// 32 here, 128 in the forward).
+template <int N>
+__device__ __forceinline__ void score_half(float (&acc)[N / 2], uint32_t xh, uint32_t xl,
+                                           uint32_t yh, uint32_t yl, int kh) {
 #pragma unroll
   for (int k = 2 * kh; k < 2 * kh + 2; ++k) {
     const uint64_t ah = desc_sw128(xh + 32 * k, 16, 1024), al = desc_sw128(xl + 32 * k, 16, 1024);
     const uint64_t bh = desc_sw128(yh + 32 * k, 16, 1024), bl = desc_sw128(yl + 32 * k, 16, 1024);
-    wgmma_tf32_ss_n32(acc, ah, bl, k - 2 * kh);
-    wgmma_tf32_ss_n32(acc, al, bh, 1);
+    wgmma_tf32_ss<N>(acc, ah, bl, k - 2 * kh);
+    wgmma_tf32_ss<N>(acc, al, bh, 1);
   }
 #pragma unroll
   for (int k = 2 * kh; k < 2 * kh + 2; ++k)
-    wgmma_tf32_ss_n32(acc, desc_sw128(xh + 32 * k, 16, 1024), desc_sw128(yh + 32 * k, 16, 1024), 1);
+    wgmma_tf32_ss<N>(acc, desc_sw128(xh + 32 * k, 16, 1024), desc_sw128(yh + 32 * k, 16, 1024), 1);
 }
 
 // A fragments of two k-steps (16 Y rows from ks0 on) of out^T = Y^T C from
@@ -2383,7 +2427,7 @@ infonce_tf32x3_kernel(const __grid_constant__ CUtensorMap xhi, const __grid_cons
       const int c = 3 * w + hc / 2;
       fence_regs<16>(cacc);
       wgmma_fence();
-      score_half(cacc, base + OFF_XHI + c * XBOX, base + OFF_XLO + c * XBOX, st + c * YBOX,
+      score_half<YT>(cacc, base + OFF_XHI + c * XBOX, base + OFF_XLO + c * XBOX, st + c * YBOX,
                  st + (NCH + c) * YBOX, hc % 2);
       wgmma_commit();
     };
@@ -2397,6 +2441,7 @@ infonce_tf32x3_kernel(const __grid_constant__ CUtensorMap xhi, const __grid_cons
     half(c1, 1);
     wgmma_wait<1>();
     fence_regs<16>(c0);
+    away_ulp(c0);
 #pragma unroll
     for (int i = 0; i < 16; ++i) sc[i] = c0[i];
 #pragma unroll
@@ -2404,10 +2449,12 @@ infonce_tf32x3_kernel(const __grid_constant__ CUtensorMap xhi, const __grid_cons
       half(c0, hc);
       wgmma_wait<1>();
       fence_regs<16>(c1);
+      away_ulp(c1);
       add_to(sc, c1);
       half(c1, hc + 1);
       wgmma_wait<1>();
       fence_regs<16>(c0);
+      away_ulp(c0);
       add_to(sc, c0);
     }
     if (!DQ && tid < YT) {
@@ -2418,6 +2465,7 @@ infonce_tf32x3_kernel(const __grid_constant__ CUtensorMap xhi, const __grid_cons
     }
     wgmma_wait<0>();
     fence_regs<16>(c1);
+    away_ulp(c1);
     add_to(sc, c1);
 
     // ---- the rank's partial (warpgroup 0's + 1's, through the C boxes,
@@ -2580,6 +2628,190 @@ infonce_tf32x3_kernel(const __grid_constant__ CUtensorMap xhi, const __grid_cons
   cluster_wait();
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 forward on 3xTF32 (ops.path_of's "tf32x3" for the forward). It
+// has no d-wide output (three floats a query row), so one block owns a
+// tile of FQ query rows x FP passages and streams d, with no cluster:
+// warpgroup w takes query rows 64 w .. 64 w + 63 of the tile against all
+// FP passages (wgmma m64n128k8: the queries as M from q's boxes, the
+// passages as N from p's; both K-major as they lie). A ring of FS stages
+// holds 32-column chunks of d (q's hi and lo boxes of 128 rows, then p's:
+// 64 KB a stage); each half-chunk of 16 columns goes into a fresh
+// accumulator (c0, c1: score_half, the small hi lo and lo hi terms first),
+// moved an ulp away from zero and added in fp32 to the running score S
+// once it has landed (add_away; the gradients' scores take the same
+// nudge). Both halves of
+// a chunk are in flight at once, and both have landed before the loop
+// goes on: nothing is in flight at a branch. Thread 0 issues every load:
+// at the end of chunk c it refills the stage of chunk c - 1 once both
+// warpgroups have released it (an empty barrier of 8 arrivals, one a
+// warp), so one warpgroup may run up to a chunk behind the other and their
+// waits need not coincide. The tile's partials come from the score
+// registers: a thread holds two query rows x 32 passages, the 4 threads of
+// a row combine their max, sum-exp and pos by two shuffles, and write the
+// tile's (max, sum-exp, pos) to part (3, M, tiles) for
+// infonce_stats_merge_kernel (the bf16 forward's contract). A tile whose
+// passages are all masked computes nothing and writes what computing it
+// gives (masked_partials); a warpgroup whose 64 rows all lie past M only
+// waits on each stage and releases it.
+// ---------------------------------------------------------------------------
+constexpr int FQ = 128;            // query rows a block: two warpgroups x wgmma's 64
+constexpr int FP = 128;            // passages a block: wgmma's N
+constexpr int FBOX = 128 * 128;    // 128 rows x 32 fp32 columns, 128-byte swizzled (16 KB)
+constexpr int FSTAGE = 4 * FBOX;   // q hi, q lo, p hi, p lo of a 32-column chunk (64 KB)
+constexpr int FS = 3;              // ring stages
+constexpr int OFF_FBAR = FS * FSTAGE;
+constexpr int FSMEM = OFF_FBAR + 8 * 2 * FS + 1024;   // + slack to align the base
+constexpr int FGROUP = 8;          // query tiles a group of blocks takes (L2 reuse)
+constexpr int FWD_D_MAX = hp::RANKS_MAX * hp::NC_MAX * 64;   // 8192, as the bf16 forward
+static_assert(FSMEM <= 232448, "shared memory over the 227 KB a block may use");
+static_assert(FBOX % 1024 == 0 && FSTAGE % 1024 == 0, "1 KB aligned boxes");
+
+// Block b's (query tile, passage tile): groups of FGROUP query tiles, each
+// group walking every passage tile with its query tiles innermost, so the
+// blocks that run at once share a few tiles of each operand in L2
+// (tests/test_torch_fused_infonce.py mirrors it).
+__device__ __forceinline__ void fwd_tile(int b, int q_tiles, int p_tiles, int& qt, int& pt) {
+  const int per_group = FGROUP * p_tiles, first = b / per_group * FGROUP;
+  const int size = min(q_tiles - first, FGROUP), r = b % per_group;
+  qt = first + r % size;
+  pt = r / size;
+}
+
+__global__ void __launch_bounds__(BLOCK, 1)
+infonce_tf32x3_fwd_kernel(const __grid_constant__ CUtensorMap qhi,
+                          const __grid_constant__ CUtensorMap qlo,
+                          const __grid_constant__ CUtensorMap phi,
+                          const __grid_constant__ CUtensorMap plo, const int* __restrict__ labels,
+                          const uint8_t* __restrict__ col_valid, float* __restrict__ part, int M,
+                          int N, int d, float inv_tau) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = hp::aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int q_tiles = (M + FQ - 1) / FQ, tiles = (N + FP - 1) / FP;
+  int qt, tile;
+  fwd_tile(int(blockIdx.x), q_tiles, tiles, qt, tile);
+  const int q0 = qt * FQ, n0 = tile * FP;
+  // warpgroup w, warp v in it; g = lane / 4, t4 = lane % 4
+  const int tid = threadIdx.x, w = tid / 128, v = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+
+  const int any = tid < FP && hp::passage_valid(col_valid, n0 + tid, N);
+  if (!__syncthreads_or(any)) {
+    hp::masked_partials(part, labels, tiles, tile, n0, N, M, q0, min(M, q0 + FQ), BLOCK, FP);
+    return;
+  }
+
+  const uint32_t full0 = base + OFF_FBAR, empty0 = full0 + 8u * FS;
+  const int nc = (d + 31) / 32;
+  auto load = [&](int c) {   // chunk c into its stage; columns past d and rows past M or N are TMA's zeros
+    const uint32_t st = base + (c % FS) * FSTAGE, bar = full0 + 8u * (c % FS);
+    mbar_expect_tx(bar, FSTAGE);
+    tma_load_2d(&qhi, st, bar, 32 * c, q0);
+    tma_load_2d(&qlo, st + FBOX, bar, 32 * c, q0);
+    tma_load_2d(&phi, st + 2 * FBOX, bar, 32 * c, n0);
+    tma_load_2d(&plo, st + 3 * FBOX, bar, 32 * c, n0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < FS; ++s) {
+      mbar_init(full0 + 8u * s, 1);
+      mbar_init(empty0 + 8u * s, 8);   // one arrival a warp of both warpgroups
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    prefetch_tensormap(&qhi);
+    prefetch_tensormap(&qlo);
+    prefetch_tensormap(&phi);
+    prefetch_tensormap(&plo);
+    for (int c = 0; c < min(nc, FS); ++c) load(c);
+  }
+  // this warp is done with chunk c's stage
+  auto release = [&](int c) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8u * (c % FS));
+  };
+
+  if (q0 + 64 * w >= M) {   // no row of this warpgroup: release each stage once it is full
+    for (int c = 0; c < nc; ++c) {
+      mbar_wait(full0 + 8u * (c % FS), (c / FS) & 1);
+      release(c);
+    }
+    return;
+  }
+
+  // register 4 i + 2 h + e of S: query row q0 + 64 w + 16 v + g + 8 h,
+  // passage n0 + 8 i + 2 t4 + e (raw: not yet times inv_tau)
+  float S[64], c0[64], c1[64];
+  zero(S);
+  const uint32_t qoff = w * 64 * 128;   // this warpgroup's 64 rows of a q box
+  for (int c = 0; c < nc; ++c) {
+    const uint32_t st = base + (c % FS) * FSTAGE;
+    mbar_wait(full0 + 8u * (c % FS), (c / FS) & 1);
+    fence_regs<64>(c0);
+    wgmma_fence();
+    score_half<FP>(c0, st + qoff, st + FBOX + qoff, st + 2 * FBOX, st + 3 * FBOX, 0);
+    wgmma_commit();
+    fence_regs<64>(c1);
+    wgmma_fence();
+    score_half<FP>(c1, st + qoff, st + FBOX + qoff, st + 2 * FBOX, st + 3 * FBOX, 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<64>(c0);
+    add_away(S, c0);
+    wgmma_wait<0>();
+    fence_regs<64>(c1);
+    add_away(S, c1);
+    release(c);
+    if (tid == 0 && c >= 1 && c - 1 + FS < nc) {   // chunk c - 1's stage takes chunk c - 1 + FS
+      mbar_wait(empty0 + 8u * ((c - 1) % FS), ((c - 1) / FS) & 1);
+      load(c - 1 + FS);
+    }
+  }
+  grid_dependents_launch();   // the merge may start: it waits for this grid's end
+
+  // the statistics of this thread's two rows over the valid passages, each
+  // over the row's 4 threads (lanes 4 g .. 4 g + 3): the max of s = raw
+  // inv_tau, the sum of exp(s - max), and s at the label (-1e30 on a
+  // masked passage)
+  uint32_t ok = 0;   // bit 2 i + e: passage n0 + 8 i + 2 t4 + e valid
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    ok |= uint32_t(hp::passage_valid(col_valid, n0 + 8 * (j / 2) + 2 * t4 + j % 2, N)) << j;
+  const size_t plane = size_t(tiles) * M;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 64 * w + 16 * v + g + 8 * h;
+    const int l = r < M ? labels[r] : -1;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      mx = fmaxf(mx, (ok >> j) & 1 ? S[4 * (j / 2) + 2 * h + j % 2] * inv_tau : NEG_INF);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float se = 0.f, ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const bool valid = (ok >> j) & 1;
+      const float s = S[4 * (j / 2) + 2 * h + j % 2] * inv_tau;
+      se += valid ? expf(s - mx) : 0.f;
+      if (n0 + 8 * (j / 2) + 2 * t4 + j % 2 == l) ps = valid ? s : NEG_INF;
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      se += __shfl_xor_sync(0xffffffffu, se, o);
+      ps += __shfl_xor_sync(0xffffffffu, ps, o);
+    }
+    if (t4 == 0 && r < M) {
+      const size_t at = size_t(r) * tiles + tile;
+      part[at] = mx;
+      part[plane + at] = se;
+      part[2 * plane + at] = l >= n0 && l < min(n0 + FP, N) ? ps : 0.f;
+    }
+  }
+}
+
 // Rank-2 fp32 tensor map over a row-major (rows, cols) plane, boxes of 32
 // columns x box_rows (128-byte swizzled, zero past each edge)
 cudaError_t map2d_f32(CUtensorMap* map, const void* ptr, int cols, int rows, int box_rows) {
@@ -2655,6 +2887,37 @@ int max_clusters(int ranks) {
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
   return err == cudaSuccess ? n : -int(err);
+}
+
+struct FwdTag {};
+
+// The fp32 forward (q (M, d), p (N, d) row-major, 16-byte aligned bases, d
+// a multiple of 4 up to FWD_D_MAX): q and p split into their hi and lo
+// planes (qs (2, M, d), ps (2, N, d) scratch), the tiles' partials into
+// part (3, M, tiles of FP passages), merged into lse, pos and amax by
+// infonce_stats_merge_kernel.
+cudaError_t fwd(const void* q, const void* p, const int* labels, const uint8_t* col_valid,
+                float* lse, float* pos, float* amax, float* part, float* qs, float* ps, int M,
+                int N, int d, float inv_tau, cudaStream_t st) {
+  if (d % 4 || d < 4 || d > FWD_D_MAX || M < 1 || N < 1) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = split(q, qs, size_t(M) * d, st)) != cudaSuccess ||
+      (err = split(p, ps, size_t(N) * d, st)) != cudaSuccess)
+    return err;
+  CUtensorMap mqh, mql, mph, mpl;
+  if ((err = map2d_f32(&mqh, qs, d, M, FQ)) != cudaSuccess ||
+      (err = map2d_f32(&mql, qs + size_t(M) * d, d, M, FQ)) != cudaSuccess ||
+      (err = map2d_f32(&mph, ps, d, N, FP)) != cudaSuccess ||
+      (err = map2d_f32(&mpl, ps + size_t(N) * d, d, N, FP)) != cudaSuccess)
+    return err;
+  if ((err = allow_smem_once<FwdTag>(reinterpret_cast<const void*>(infonce_tf32x3_fwd_kernel),
+                                     FSMEM)) != cudaSuccess)
+    return err;
+  const int tiles = (N + FP - 1) / FP;
+  infonce_tf32x3_fwd_kernel<<<(M + FQ - 1) / FQ * tiles, BLOCK, FSMEM, st>>>(
+      mqh, mql, mph, mpl, labels, col_valid, part, M, N, d, inv_tau);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_stats_merge(part, lse, pos, amax, M, tiles, st);
 }
 
 }  // namespace tx
@@ -2812,6 +3075,31 @@ int fused_infonce_tf32x3_launch(int dq, const void* q, const void* p, const void
                                   splits, per, inv_tau, st));
 }
 
+// The fp32 forward on 3xTF32 (q and p row-major fp32, 16-byte aligned
+// bases, d a multiple of 4 up to 8192): q and p split into hi and lo planes
+// (q_planes (2, M, d), p_planes (2, N, d) fp32 scratch), then a block per
+// tile of 128 query rows x 128 passages writes its rows' partials into
+// part (3, M, (N + 127) / 128) fp32 scratch, merged into lse, pos and amax
+// (M,) fp32.
+int fused_infonce_fwd_tf32x3_launch(const void* q, const void* p, const void* labels,
+                                    const void* col_valid, void* lse, void* pos, void* amax,
+                                    void* part, void* q_planes, void* p_planes, int M, int N,
+                                    int d, float inv_tau, void* stream) {
+  return int(tx::fwd(q, p, static_cast<const int*>(labels), static_cast<const uint8_t*>(col_valid),
+                     static_cast<float*>(lse), static_cast<float*>(pos), static_cast<float*>(amax),
+                     static_cast<float*>(part), static_cast<float*>(q_planes),
+                     static_cast<float*>(p_planes), M, N, d, inv_tau,
+                     static_cast<cudaStream_t>(stream)));
+}
+
+// The 3xTF32 forward's plan: query rows and passages a block, query tiles a
+// group of blocks, its dynamic shared memory, the widest row it takes.
+int fused_infonce_tf32x3_fwd_rows() { return tx::FQ; }
+int fused_infonce_tf32x3_fwd_passages() { return tx::FP; }
+int fused_infonce_tf32x3_fwd_group() { return tx::FGROUP; }
+int fused_infonce_tf32x3_fwd_smem() { return tx::FSMEM; }
+int fused_infonce_tf32x3_fwd_d_max() { return tx::FWD_D_MAX; }
+
 // The most clusters of `ranks` blocks of the 3xTF32 dQ (dq 1) or dP kernel
 // the current device runs at once (negative: a CUDA error code).
 int fused_infonce_tf32x3_max_clusters(int dq, int ranks) {
@@ -2863,6 +3151,7 @@ int fused_infonce_kernel_attributes(int which, int* regs, int* local) {
       reinterpret_cast<const void*>(tx::infonce_tf32x3_kernel<true>),
       reinterpret_cast<const void*>(tx::infonce_tf32x3_kernel<false>),
       reinterpret_cast<const void*>(tx::infonce_tf32_split_kernel),
+      reinterpret_cast<const void*>(tx::infonce_tf32x3_fwd_kernel),
       reinterpret_cast<const void*>(hp::infonce_dp_split_kernel),
       reinterpret_cast<const void*>(hp::infonce_fwd_split_kernel),
       reinterpret_cast<const void*>(hp::infonce_dq_split_kernel),

@@ -57,22 +57,30 @@ The three count the path of each call in ``fused_infonce_fwd.paths``,
   fp32 partials and a merge or reduce kernel when the long axis is split).
   ``stats_on_path`` runs the forward and ``grad_on_path`` a gradient on a
   path named by the caller, to time one route beside another.
-- ``"tf32x3"``: dQ and dP of fp32 operands (or bf16 with fp32) with d a
-  multiple of 4 (TMA's 16-byte rows) up to ``TF32X3_D_MAX``: both products
-  on ``wgmma`` in 3xTF32 (q and p split once a call into tf32 hi and lo
-  planes, each product hi hi + hi lo + lo hi summed in fp32: fp32-grade
-  products on the tensor cores). A cluster of ``tf32x3_ranks(d)`` blocks (4
-  at d = 768) owns a tile of ``TF32X3_TILE`` output rows, rank r on 192
+- ``"tf32x3"``: fp32 operands (or bf16 with fp32) with d a multiple of 4
+  (TMA's 16-byte rows), the forward up to ``TF32X3_FWD_D_MAX``, dQ and dP
+  up to ``TF32X3_D_MAX``: every product on ``wgmma`` in 3xTF32 (q and p
+  split once a call into tf32 hi and lo planes, each product hi hi + hi lo
+  + lo hi summed in fp32: fp32-grade products on the tensor cores). The
+  forward: a block per tile of ``TF32X3_FWD_ROWS`` query rows x
+  ``TF32X3_FWD_PASSAGES`` passages (no cluster: its output is three floats
+  a row) streams d through a ring of 32-column chunks, each 16 columns into
+  a fresh accumulator added to the score in fp32, and writes its rows'
+  partial (max, sum-exp, pos) from the score registers, merged as the bf16
+  forward's (blocks in groups of ``TF32X3_FWD_GROUP`` query tiles, each
+  walking every passage tile, for L2 reuse). dQ and dP: a cluster of
+  ``tf32x3_ranks(d)`` blocks
+  (4 at d = 768) owns a tile of ``TF32X3_TILE`` output rows, rank r on 192
   columns of d, its accumulators in registers over every contraction row;
   the ranks sum their partial scores through distributed shared memory a
   step of ``TF32X3_STEP`` contraction rows; coefficients from the score
-  registers. The
-  contraction axis is split (``tf32x3_split_plan``: fp32 partials summed in
-  split order by the reduce kernel) only where the output tiles cannot fill
-  the card.
-- ``"fp32"``: the fp32 forward, and fp32 dQ and dP at other d: CUDA-core
-  FMAs, no TF32 (the first kernels; ``grad_on_path(..., "fp32", ...)`` runs
-  dQ or dP on them at any d, to time them beside ``"tf32x3"``).
+  registers. The contraction axis is split (``tf32x3_split_plan``: fp32
+  partials summed in split order by the reduce kernel) only where the
+  output tiles cannot fill the card.
+- ``"fp32"``: the fp32 forward, dQ and dP at other d: CUDA-core FMAs, no
+  TF32 (the first kernels; ``stats_on_path("fp32", ...)`` and
+  ``grad_on_path(..., "fp32", ...)`` run them at any d, to time them beside
+  ``"tf32x3"``).
 
 A block whose 64 passages are all masked computes nothing: dQ and dP write
 zeros (what the coefficient gives there); the forward writes the partial
@@ -128,8 +136,16 @@ PATHS = ("hopper", "wmma", "fp32", "tf32x3")
 TF32X3_TILE, TF32X3_STEP = 64, 32
 #: columns of d one rank of a cluster holds: 3 M-tiles of 64
 TF32X3_RANK_COLS = 192
-#: the widest fp32 row the 3xTF32 kernels take: a cluster of MAX_RANKS
+#: the widest fp32 row the 3xTF32 dQ and dP take: a cluster of MAX_RANKS
 TF32X3_D_MAX = MAX_RANKS * TF32X3_RANK_COLS
+# The 3xTF32 forward's plan (csrc tx::infonce_tf32x3_fwd_kernel):
+#: query rows and passages a block takes (two warpgroups of wgmma's 64 rows;
+#: wgmma's N)
+TF32X3_FWD_ROWS, TF32X3_FWD_PASSAGES = 128, 128
+#: query tiles a group of blocks takes, each group walking every passage tile
+TF32X3_FWD_GROUP = 8
+#: the widest fp32 row the 3xTF32 forward takes (it streams d; as the bf16 forward)
+TF32X3_FWD_D_MAX = HOPPER_D_MAX
 #: every kernel of the library, in fused_infonce_kernel_attributes' order
 KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stats_merge_kernel",
            "infonce_dq_kernel<bf16>", "infonce_dq_kernel<fp32>", "infonce_dp_kernel<bf16>",
@@ -137,12 +153,13 @@ KERNELS = ("infonce_fwd_kernel<bf16>", "infonce_fwd_kernel<fp32>", "infonce_stat
            "infonce_grad_reduce_kernel<fp32>", "infonce_dp_cluster_kernel",
            "infonce_small_kernel<dq>", "infonce_small_kernel<dp>", "infonce_fwd_small_kernel",
            "infonce_fwd_rows_kernel", "infonce_tf32x3_kernel<dq>", "infonce_tf32x3_kernel<dp>",
-           "infonce_tf32_split_kernel", "infonce_dp_split_kernel", "infonce_fwd_split_kernel",
-           "infonce_dq_split_kernel")
-#: the kernels of the "tf32x3" path's fp32 dQ and dP (the xdev path's): the
-#: hi/lo split of q and p, the products, the reduce where the contraction
-#: axis is split
-TF32X3_KERNELS = ("infonce_tf32_split_kernel", "infonce_tf32x3_kernel<dq>",
+           "infonce_tf32_split_kernel", "infonce_tf32x3_fwd_kernel", "infonce_dp_split_kernel",
+           "infonce_fwd_split_kernel", "infonce_dq_split_kernel")
+#: the kernels of the "tf32x3" path (the xdev path's fp32 forward, dQ and
+#: dP): the hi/lo split of q and p, the forward's tiles and their merge, the
+#: products, the reduce where the contraction axis is split
+TF32X3_KERNELS = ("infonce_tf32_split_kernel", "infonce_tf32x3_fwd_kernel",
+                  "infonce_stats_merge_kernel", "infonce_tf32x3_kernel<dq>",
                   "infonce_tf32x3_kernel<dp>", "infonce_grad_reduce_kernel<fp32>")
 #: the kernels the train paths' forward, dQ and dP run (bf16, Hopper path;
 #: the split kernels at the LM retriever's local rows)
@@ -174,7 +191,9 @@ def _library() -> ctypes.CDLL:
                lib.fused_infonce_dq_hopper_launch, lib.fused_infonce_fwd_hopper_launch):
         fn.restype = ctypes.c_int
     lib.fused_infonce_tf32x3_launch.argtypes = [i32] + [ptr] * 11 + [i32] * 6 + [ctypes.c_float, ptr]
-    lib.fused_infonce_tf32x3_launch.restype = ctypes.c_int
+    lib.fused_infonce_fwd_tf32x3_launch.argtypes = [ptr] * 10 + [i32] * 3 + [ctypes.c_float, ptr]
+    for fn in (lib.fused_infonce_tf32x3_launch, lib.fused_infonce_fwd_tf32x3_launch):
+        fn.restype = ctypes.c_int
     lib.fused_infonce_tf32x3_max_clusters.argtypes = [i32, i32]
     lib.fused_infonce_tf32x3_max_clusters.restype = ctypes.c_int
     for fn in ("fused_infonce_tf32x3_tile", "fused_infonce_tf32x3_step",
@@ -184,6 +203,13 @@ def _library() -> ctypes.CDLL:
             lib.fused_infonce_tf32x3_rank_cols(), lib.fused_infonce_tf32x3_smem()) != (
             TF32X3_TILE, TF32X3_STEP, TF32X3_RANK_COLS, tf32x3_smem()):
         raise RuntimeError("fused_infonce.cu and ops.py disagree on the 3xTF32 plan")
+    plan = ("rows", "passages", "group", "smem", "d_max")
+    for fn in plan:
+        getattr(lib, f"fused_infonce_tf32x3_fwd_{fn}").restype = ctypes.c_int
+    if tuple(getattr(lib, f"fused_infonce_tf32x3_fwd_{fn}")() for fn in plan) != (
+            TF32X3_FWD_ROWS, TF32X3_FWD_PASSAGES, TF32X3_FWD_GROUP, tf32x3_fwd_smem(),
+            TF32X3_FWD_D_MAX):
+        raise RuntimeError("fused_infonce.cu and ops.py disagree on the 3xTF32 forward's plan")
     lib.fused_infonce_dp_max_clusters.argtypes = [i32]
     lib.fused_infonce_kernel_attributes.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     for fn in (lib.fused_infonce_dp_max_clusters, lib.fused_infonce_kernel_attributes):
@@ -293,6 +319,24 @@ def tf32x3_smem() -> int:
             + 2 * TF32X3_TILE * TF32X3_STEP * 4 + 2 * 4 * TF32X3_STEP * 4 + 8 * 3 + 1024)
 
 
+def tf32x3_fwd_smem() -> int:
+    """Dynamic shared memory of a 3xTF32 forward block (csrc tx::FSMEM):
+    3 stages of a 32-column chunk's q hi, q lo, p hi and p lo boxes (128
+    rows x 128 bytes, 16 KB each), a full and an empty barrier a stage, and
+    1 KB of slack to align the base."""
+    stages, boxes = 3, 4
+    return stages * boxes * TF32X3_FWD_ROWS * 128 + 8 * 2 * stages + 1024
+
+
+def tf32x3_fwd_tiles(m: int, n: int, d: int) -> Tuple[int, int]:
+    """(query tiles, passage tiles) of the 3xTF32 forward at m query rows,
+    n passages and rows of d: a block each pair; raises where it does not
+    take d (a multiple of 4 up to TF32X3_FWD_D_MAX)."""
+    if d % 4 or not 0 < d <= TF32X3_FWD_D_MAX:
+        raise ValueError(f"the 3xTF32 forward takes d a multiple of 4 up to {TF32X3_FWD_D_MAX}")
+    return -(-m // TF32X3_FWD_ROWS), -(-n // TF32X3_FWD_PASSAGES)
+
+
 @functools.cache
 def _tf32x3_max_clusters(device_index: int, which: str, ranks: int) -> int:
     lib = _library()
@@ -312,9 +356,14 @@ def tf32x3_max_clusters(which: str, ranks: int, device=None) -> int:
 def path_of(kind: str, dtype: torch.dtype, m: int, d: int) -> str:
     """The path (``PATHS``) a CUDA forward (kind "fwd"), dQ ("dq") or dP
     ("dp") call takes with operands of this common dtype, m query rows and
-    rows of d."""
+    rows of d. The fp32 forward takes "tf32x3" at every such shape, also
+    where one side fits a tile and the CUDA-core kernel is a little faster
+    (PERF.md): the scores of a (row, passage) pair then come from one
+    arithmetic whatever the call's other rows and columns, so the ring's
+    column chunks give the all-gather program's scores."""
     if dtype != torch.bfloat16:
-        return "tf32x3" if kind != "fwd" and d % 4 == 0 and d <= TF32X3_D_MAX else "fp32"
+        d_max = TF32X3_FWD_D_MAX if kind == "fwd" else TF32X3_D_MAX
+        return "tf32x3" if d % 4 == 0 and d <= d_max else "fp32"
     if d % 8 or d > HOPPER_D_MAX:
         return "wmma"
     if kind == "fwd":
@@ -442,7 +491,19 @@ def _fwd(q, p, labels, col_valid, inv_tau, path=None):
     path = path or path_of("fwd", ct, m, d)
     mask = None if col_valid is None else col_valid.data_ptr()
     lse, pos, amax = (torch.empty((m,), dtype=STATS_DTYPE, device=dev) for _ in range(3))
-    if path == "hopper":
+    if path == "tf32x3":
+        q, p = _tma_ready(q), _tma_ready(p)
+        part = torch.empty((3, m, tf32x3_fwd_tiles(m, n, d)[1]), dtype=STATS_DTYPE, device=dev)
+        # q and p as their tf32 hi and lo planes, written by the launch
+        q_planes = torch.empty((2, m, d), dtype=STATS_DTYPE, device=dev)
+        p_planes = torch.empty((2, n, d), dtype=STATS_DTYPE, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.fused_infonce_fwd_tf32x3_launch(
+                q.data_ptr(), p.data_ptr(), labels.data_ptr(), mask,
+                lse.data_ptr(), pos.data_ptr(), amax.data_ptr(), part.data_ptr(),
+                q_planes.data_ptr(), p_planes.data_ptr(), m, n, d, float(inv_tau), _stream(dev),
+            )
+    elif path == "hopper":
         q, p = _tma_ready(q), _tma_ready(p)
         part = torch.empty((3, m, -(-n // PASSAGE_TILE)), dtype=STATS_DTYPE, device=dev)
         rq, ranks = (fwd_plan(m, n, sms), 0) if m > SMALL_M else (0, small_ranks(d))
@@ -467,13 +528,17 @@ def _fwd(q, p, labels, col_valid, inv_tau, path=None):
 
 def stats_on_path(path, q, p, labels, col_valid=None, inv_tau=1.0):
     """The forward's (lse, pos, amax) of CUDA operands through the kernels
-    of ``path`` ("hopper" or "wmma" for bf16), whatever ``path_of`` picks: a
-    route timed beside another in one run (``bench.py``, ``chip_smoke.py``);
-    not counted in the launch counts. Raises where that path's kernel does
-    not take the shape."""
+    of ``path`` ("hopper" or "wmma" for bf16, "tf32x3" or "fp32" for fp32),
+    whatever ``path_of`` picks: a route timed beside another in one run
+    (``bench.py``, ``chip_smoke.py``); not counted in the launch counts.
+    Raises where that path's kernel does not take the shape."""
     _check(q, p, labels, col_valid)
-    if q.device.type != "cuda" or path not in PATHS or path == "tf32x3":
-        raise ValueError(f"stats_on_path runs CUDA operands on one of {PATHS[:3]}")
+    bf16 = torch.promote_types(q.dtype, p.dtype) == torch.bfloat16
+    routes = ("hopper", "wmma") if bf16 else ("tf32x3", "fp32")
+    if q.device.type != "cuda" or path not in routes:
+        raise ValueError(f"stats_on_path runs CUDA operands of this type on one of {routes}")
+    if path == "tf32x3":
+        tf32x3_fwd_tiles(q.shape[0], p.shape[0], q.shape[1])
     return _fwd(q, p, labels, col_valid, inv_tau, path)[0]
 
 

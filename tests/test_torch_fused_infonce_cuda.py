@@ -590,15 +590,15 @@ def _fp32_case(m, n, d, dev, seed, scale=0.2, n_masked=0):
 def _fp32_grads(q, p, labels, valid, g_lse, g_pos, inv_tau=1.0):
     """dQ and dP of the fp32 kernels, each held to the plain version at 1e-4
     of its largest |g| and to ref.py in float64 at most 10x the plain
-    version's own error against it (chip_smoke.py's FP64_ERR_RATIO); both
-    on the "tf32x3" path, the forward on "fp32"."""
+    version's own error against it (chip_smoke.py's FP64_ERR_RATIO), taken
+    against the forward's lse; the forward, dQ and dP all on the "tf32x3"
+    path."""
     ops.reset_launches()
     lse = ops.fused_infonce_fwd(q, p, labels, valid, inv_tau)[0]
     args = (q, p, labels, valid, lse, g_lse, g_pos, inv_tau)
     dq, dp = ops.fused_infonce_dq(*args), ops.fused_infonce_dp(*args)
     torch.cuda.synchronize()
-    assert ops.fused_infonce_fwd.paths == {"hopper": 0, "wmma": 0, "fp32": 1, "tf32x3": 0}
-    for fn in (ops.fused_infonce_dq, ops.fused_infonce_dp):
+    for fn in (ops.fused_infonce_fwd, ops.fused_infonce_dq, ops.fused_infonce_dp):
         assert fn.paths == {"hopper": 0, "wmma": 0, "fp32": 0, "tf32x3": 1}
     plain = infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, inv_tau=inv_tau)
     exact = infonce_stats_vjp_ref(q, p, labels, valid, g_lse, g_pos, inv_tau=inv_tau,
@@ -733,3 +733,148 @@ def test_tf32x3_kernels_keep_to_registers(dev):
         attrs = ops.kernel_attributes(name)
         assert attrs["local_bytes"] == 0, (name, attrs)
         assert 0 < attrs["registers"] <= 255
+
+
+# ---- the fp32 forward on 3xTF32 ------------------------------------------------
+
+def _fwd64(q, p, labels, valid, inv_tau=1.0, path="tf32x3"):
+    """The forward on ``path`` (``ops.path_of``'s route for these operands),
+    held to the plain version (1e-5 of the largest |logit|) and to ref.py in
+    float64: lse within 10x (FP64_ERR_RATIO) of the fp32 plain version's own
+    error there, or of one fp32 ulp of the largest |lse| where that is
+    larger (a tiny problem's plain lse can be exact). Returns (lse, pos,
+    amax)."""
+    ops.reset_launches()
+    got = _check(q, p, labels, valid, inv_tau, grads=False)
+    assert ops.fused_infonce_fwd.paths[path] == 1, ops.fused_infonce_fwd.paths
+    plain = infonce_stats_ref(q, p, labels, valid, inv_tau=inv_tau)[0]
+    exact = infonce_stats_ref(q, p, labels, valid, inv_tau=inv_tau, dtype=torch.float64)[0]
+    live = exact > NEG_INF / 2
+    if live.any():
+        err = (got[0].double() - exact)[live].abs().max().item()
+        own = (plain.double() - exact)[live].abs().max().item()
+        ulp = 2.0 ** -23 * exact[live].abs().max().item()
+        assert err <= 10 * max(own, ulp), f"lse: fp64 error {err} > 10 x {max(own, ulp)}"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(37, 301, 96), (1, 1, 4), (130, 70, 768), (65, 4100, 40),
+                                   (129, 129, 8), (1000, 500, 196), (300, 500, 8192),
+                                   (2179, 384, 768), (32, 8256, 768), (8224, 64, 768)])
+def test_tf32x3_forward_ragged_shapes(dev, m, n, d):
+    """M and N off the 128-row tile (M = 2179: a last group of one query
+    tile), d from 4 (one chunk of 32 columns, most of it TMA's zeros) to
+    8192, a seventh of the passages masked, inv_tau 1.5; the 32 local rows
+    (the second warpgroup idle) and the 64-column in-batch chunk."""
+    q, p, labels, valid = _fp32_case(m, n, d, dev, 140, n_masked=n // 7)
+    _fwd64(q, p, labels, valid, inv_tau=1.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+def test_tf32x3_forward_wholly_masked_tiles_and_rows(dev, m):
+    """Passages 128..255 (one whole tile) masked, labels in it and on a
+    masked passage of a computed tile, labels outside [0, N) and past N
+    inside the last tile's range: pos -1e30 or 0 as ref.py gives them; then
+    every passage masked: lse about -1e30 and finite, pos and amax -1e30."""
+    q, p, labels, valid = _fp32_case(m, 300, 256, dev, 150)
+    valid[128:256] = False
+    valid[5] = False
+    labels[0], labels[1], labels[2], labels[3] = 200, 5, -3, 310
+    lse, pos, amax = _fwd64(q, p, labels, valid)
+    assert (pos[:2] == NEG_INF).all() and (pos[2:4] == 0.0).all()
+    valid[:] = False
+    ops.reset_launches()
+    lse, pos, amax = ops.fused_infonce_fwd(q, p, labels, valid)
+    assert ops.fused_infonce_fwd.paths["tf32x3"] == 1
+    assert torch.isfinite(lse).all() and (lse < NEG_INF / 2).all()
+    assert torch.equal(lse, infonce_stats_ref(q, p, labels, valid)[0])
+    assert (amax == NEG_INF).all() and (pos[4:] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(8192, 8256), (32, 8256), (8224, 64)])
+def test_tf32x3_forward_two_calls_are_bit_identical(dev, m, n):
+    """No atomics, fixed orders (the shuffles of a row's 4 threads, the
+    merge's): the same inputs give the same bits."""
+    q, p, labels, valid = _fp32_case(m, n, 768, dev, 160, scale=1.0)
+    first = ops.fused_infonce_fwd(q, p, labels, valid)
+    second = ops.fused_infonce_fwd(q, p, labels, valid)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.2, 1.0])
+def test_tf32x3_forward_against_float64(dev, scale):
+    """The xdev bank rows (M = 8192 against N = 8256, d = 768) at small
+    logits and at the xdev phase's magnitudes (scale 1: logits up to ~150):
+    lse within 10x of the plain version's own float64 error (dQ and dP
+    taken against it: test_tf32x3_against_float64)."""
+    _fwd64(*_fp32_case(8192, 8256, 768, dev, 170, scale=scale))
+
+
+@pytest.mark.cuda
+def test_tf32x3_forward_unaligned_base_is_copied_for_tma(dev):
+    q, p, labels, valid = _fp32_case(40, 300, 96, dev, 180)
+    big = _rand((40 * 96 + 1,), torch.float32, dev, 181)
+    q = big[1:].view(40, 96)                   # a base 4 bytes past alignment
+    assert q.data_ptr() % 16
+    _fwd64(q, p, labels, valid)
+
+
+@pytest.mark.cuda
+def test_fp32_forward_route_at_other_widths(dev):
+    """d = 42 (rows of 168 bytes, no TMA) keeps the CUDA-core "fp32" forward;
+    stats_on_path runs either fp32 route where its kernel takes the shape,
+    both held to the plain version, and refuses the others."""
+    q, p, labels, valid = _fp32_case(37, 301, 42, dev, 190)
+    _fwd64(q, p, labels, valid, path="fp32")
+    q, p, labels, valid = _fp32_case(37, 301, 40, dev, 191)
+    want = infonce_stats_ref(q, p, labels, valid)
+    for route in ("fp32", "tf32x3"):
+        got = ops.stats_on_path(route, q, p, labels, valid)
+        for x, r, what in zip(got, want, ("lse", "pos", "amax")):
+            _close(x, r, 1e-5, f"{what} {route}")
+    with pytest.raises(ValueError):   # no d off a multiple of 4
+        ops.stats_on_path("tf32x3", *_fp32_case(8, 64, 42, dev, 192))
+    with pytest.raises(ValueError):   # the bf16 routes take no fp32 operands
+        ops.stats_on_path("hopper", q, p, labels, valid)
+
+
+def _ulps(x, exact):
+    """x - exact in fp32 ulps of exact (float64 in, float64 out)."""
+    e = exact.float()
+    return (x.double() - exact) / (torch.nextafter(e.abs(), torch.full_like(e, float("inf")))
+                                   - e.abs()).double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.1, 0.3, 0.8, 1.5])
+def test_tf32x3_scores_carry_no_truncation_bias(dev, scale):
+    """The 3xTF32 scores of the forward, dQ and dP (each 16 columns of d in
+    a fresh accumulator, moved an ulp away from zero) sit within half an ulp
+    of float64 on average, and within 0.2 ulp of each other: 4096 rows near
+    one vector (scores from ~7 to ~1800 by scale), one row's score each,
+    read from the forward's pos and from the coefficients exp(s - lse) of dQ
+    and dP given lse = the exact score rounded (g_lse 1, no label). The
+    tensor cores' truncation alone leaves them 0.6-1.1 ulp short."""
+    g = torch.Generator(device=dev).manual_seed(200)
+    base = torch.randn((1, 768), generator=g, device=dev) * scale
+    rows = base + torch.randn((4096, 768), generator=g, device=dev) * scale * 0.05
+    exact = (rows.double() @ base.double().T)[:, 0]
+    lse = exact.float().contiguous()
+    one, zero = torch.ones_like(lse), torch.zeros_like(lse)
+    none = torch.full((4096,), -1, dtype=torch.int32, device=dev)
+    k = int(base[0].abs().argmax())
+    fwd = ops.fused_infonce_fwd(rows, base, torch.zeros(4096, dtype=torch.int32, device=dev))[1]
+    dq = ops.grad_on_path("dq", "tf32x3", rows, base, none, None, lse, one, zero)
+    dp = ops.grad_on_path("dp", "tf32x3", base, rows, none[:1], None, lse[:1].contiguous(),
+                          one[:1], zero[:1])
+    biases = {"fwd": _ulps(fwd, exact).mean().item(),
+              "dq": _ulps(lse.double() + torch.log(dq[:, k].double() / base[0, k].double()),
+                          exact).mean().item(),
+              "dp": _ulps(lse[0].double() + torch.log(dp[:, k].double() / base[0, k].double()),
+                          exact).mean().item()}
+    assert all(abs(b) <= 0.5 for b in biases.values()), biases
+    assert max(biases.values()) - min(biases.values()) <= 0.2, biases
