@@ -286,6 +286,25 @@ Phases, one JSON line each:
                version's own error: the forward's lse, and dQ and dP taken
                against the forward's lse) and in turns with the "fp32"
                route it took before (faster in every turn).
+ 15. shard_serve - multi-device serving: the serve_topk cell (dpr-bert-base
+               at full width, bf16_banks, the fused search, k = 100)
+               through the sharded index of a one-rank NCCL group: the
+               sharded Retriever builds rank 0's block (N_ENCODED encoded
+               rows, then seeded rows up to 2^20), and N_REQUESTS requests
+               from CLIENTS clients go through rank 0's server, which
+               broadcasts each padded batch before the collective search.
+               Checks: no collective in the build; one broadcast and two
+               all-gathers (scores, ids) a coalesced batch and none other,
+               one more broadcast (the stop word) at the server's stop;
+               fused_topk launched once a batch, all on the Hopper path;
+               every answer; one batch against the plain search on the same
+               reps. Then the D = 4 layout of eval_topk's 2^20 - 37 rows
+               (1,048,540 padded rows, 262,135 a block, one padding row in
+               the last) replayed as 4 blocks on the one card through
+               Retriever._local_topk and merge_shard_candidates: ids and
+               scores equal to the replicated search's bit for bit. qps,
+               p50, p99, batches, collectives by kind, each block's search
+               ms beside the replicated one's and the merge's.
 Then the kernels line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.
 
@@ -297,6 +316,11 @@ flash, plain, ...), one line a run, and the nvidia-smi line; no final line.
     python3 chip_smoke.py --xdev            # builds, then only the xdev phase
 
 runs the xdev phase alone, its line and the nvidia-smi line; no final line.
+
+    python3 chip_smoke.py --shard-serve     # builds, then only shard_serve
+
+runs the shard_serve phase alone, its line and the nvidia-smi line; no
+final line.
 Any failed check raises and the script
 exits non-zero before the final line. Without a CUDA device, or without the
 repo's ``src/repro_torch`` beside it, it exits non-zero at once.
@@ -677,6 +701,12 @@ XDEV_CORPUS = 16384
 XDEV_LOSS_RTOL = 1e-5
 XDEV_GRAD_NORM_RTOL = 1e-5
 
+# shard_serve: the serve_topk cell through the sharded index of a one-rank
+# NCCL group (NCCL takes no two ranks on one card), then the D = 4 layout of
+# eval_topk's 2^20 - 37 rows replayed as 4 blocks on the one card: 1,048,540
+# padded rows, 262,135 a block, the last block holding one padding row
+SHARD_REPLAY_SHARDS = 4
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -936,6 +966,7 @@ def phase_serve(torch, topk_ref, bert_cfg, counters):
     store = retriever.index = IndexStore(
         reps=torch.cat([encoded, fill.to(encoded.dtype)]),
         row_valid=torch.ones((n_index,), dtype=torch.bool, device=DEVICE),
+        n_total=n_index,
     )
     del stats, fill
 
@@ -4155,6 +4186,199 @@ def phase_xdev(torch):
     }
 
 
+def phase_shard_serve(torch, topk_ops, topk_ref):
+    """(a) The serve_topk cell through the port's sharded index in a
+    one-rank NCCL group: the index built by the sharded Retriever, requests
+    served through rank 0's server and its broadcast of each batch, one
+    batch held against the plain search; (b) the D = 4 layout of eval_topk's
+    rows replayed as 4 blocks on the one card through the same _local_topk
+    and merge_shard_candidates, held bit for bit to the replicated search."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs.dpr_bert_base import BERT_BASE, EVAL_TOPK, SERVE_TOPK
+    from repro_torch.core import dist as port_dist
+    from repro_torch.data.retrieval import SyntheticRetrievalCorpus
+    from repro_torch.kernels._timing import cuda_ms
+    from repro_torch.models.towers import make_bert_dual_encoder
+    from repro_torch.retrieval import (
+        IndexStore,
+        Retriever,
+        RetrieverConfig,
+        make_dp_mesh,
+        make_server,
+        merge_shard_candidates,
+    )
+
+    k, precision = SERVE_TOPK["top_k"], SERVE_TOPK["precision"]
+    n_index, d, q_len = SERVE_TOPK["n_passages"], BERT_BASE.d_model, SERVE_TOPK["q_len"]
+    max_batch, encode_batch = SERVE_TOPK["n_queries"], 256
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    enc = make_bert_dual_encoder(BERT_BASE, precision=precision)
+    params = enc.init(torch.Generator().manual_seed(SEED), dev)
+    corpus = SyntheticRetrievalCorpus(
+        n_passages=N_ENCODED, vocab_size=BERT_BASE.vocab_size, q_len=q_len, p_len=P_LEN,
+        seed=SEED,
+    )
+    setup_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1,
+                                timeout=port_dist.GROUP_TIMEOUT)
+        try:
+            backend, world = dist.get_backend(), dist.get_world_size()
+            retriever = Retriever(
+                enc, params,
+                RetrieverConfig(top_k=k, search_impl=SEARCH_IMPL, precision=precision,
+                                index_layout="sharded", encode_batch=encode_batch),
+                device=dev, mesh=make_dp_mesh(world),
+            )
+            port_dist.reset_collectives()
+            t0 = time.perf_counter()
+            built = retriever.build_index(corpus.passages)
+            built.reps.sum().item()                          # waits for the encode
+            index_s = time.perf_counter() - t0
+            build_collectives = dict(port_dist.collectives)
+            require((built.shard, built.shards, built.rows, built.n_total) ==
+                    (0, world, N_ENCODED, N_ENCODED),
+                    f"sharded build: shard {built.shard} of {built.shards}, {built.rows} rows")
+            require(built.reps.dtype == torch.bfloat16 and bool(torch.isfinite(built.reps).all()),
+                    "sharded build: rows not finite bf16")
+            # the rest of the cell's rows: seeded rows with the encoded rows'
+            # per-dimension mean and spread (the serve phase's), kept as the
+            # rank's block
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            stats = built.reps.float()
+            fill = torch.randn((n_index - N_ENCODED, d), generator=g, device=dev)
+            fill = fill * stats.std(0) + stats.mean(0)
+            store = retriever.index = IndexStore(
+                reps=torch.cat([built.reps, fill.to(built.reps.dtype)]),
+                row_valid=torch.ones((n_index,), dtype=torch.bool, device=dev),
+                n_total=n_index, shards=world, shard=0,
+            )
+            del stats, fill, built
+
+            server = make_server(retriever, max_batch=max_batch, q_len=q_len).start()
+            try:
+                server.query(corpus.queries[0])             # warm-up, not counted
+                server.batch_sizes.clear()
+                topk_ops.reset_launches()                   # the main path's run starts here
+                port_dist.reset_collectives()
+                lat = [0.0] * N_REQUESTS
+                answers = [None] * N_REQUESTS
+
+                def one(j):
+                    t = time.perf_counter()
+                    answers[j] = server.query(corpus.queries[j % N_ENCODED], timeout=120)
+                    lat[j] = time.perf_counter() - t
+
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(max_workers=CLIENTS) as pool:
+                    list(pool.map(one, range(N_REQUESTS)))
+                wall = time.perf_counter() - t0
+                launches = topk_ops.fused_topk.launches     # read just after the run
+                paths = dict(topk_ops.fused_topk.paths)
+                served = dict(port_dist.collectives)
+                batches = list(server.batch_sizes)
+            finally:
+                server.stop()
+            stopped = dict(port_dist.collectives)
+            require(not server._thread.is_alive(), "server thread did not stop")
+            nb = len(batches)
+            require(nb > 0, "no coalesced batch was served")
+            require(launches == nb and paths["hopper"] == nb,
+                    f"fused_topk launched {launches} times ({paths}) for {nb} batches, not "
+                    f"once each on the Hopper path")
+            require(build_collectives == dict.fromkeys(port_dist.KINDS, 0),
+                    f"the sharded build ran collectives: {build_collectives}")
+            require(served == {**dict.fromkeys(port_dist.KINDS, 0), "broadcast": nb,
+                               "all_gather": 2 * nb},
+                    f"collectives {served} for {nb} batches: not one broadcast and two "
+                    f"all-gathers (scores, ids) each")
+            require(stopped["broadcast"] == nb + 1, f"the stop word: {stopped}")
+            for ids, scores in answers:
+                require(ids.shape == (k,) and scores.shape == (k,), "answer shape")
+                require(bool((ids >= 0).all() and (ids < n_index).all()), "answer id out of range")
+                require(bool((scores[:-1] >= scores[1:]).all()), "answer scores not sorted")
+
+            # one coalesced batch of answers against the plain search on the same reps
+            tokens = corpus.queries[:max_batch]
+            q_reps = retriever.encode_queries(tokens)
+            rs, ri = topk_ref.topk_scores_ref(q_reps, store.reps, k + 1,
+                                              col_valid=store.row_valid)
+            s = torch.as_tensor(np.stack([answers[j][1] for j in range(max_batch)]), device=dev)
+            i = torch.as_tensor(np.stack([answers[j][0] for j in range(max_batch)]), device=dev)
+            tol = SCORE_RTOL * max(1.0, rs[:, 0].abs().max().item())
+            err, clear = check_topk(topk_ref, s, i, rs, ri, tol, "sharded served batch vs plain")
+            del rs, ri
+            search_ms = cuda_ms(lambda: retriever.search_reps_tensors(q_reps), 10)
+
+            # (b) the D = 4 layout of eval_topk's rows, one block at a time
+            n_eval, shards = EVAL_TOPK["n_passages"] - 37, SHARD_REPLAY_SHARDS
+            rows = -(-n_eval // shards) * shards
+            padded = store.reps[:rows].clone()
+            padded[n_eval:] = 0
+            whole = IndexStore(reps=padded,
+                               row_valid=torch.arange(rows, device=dev) < n_eval,
+                               n_total=n_eval, shards=shards)
+            blocks = [whole.block(r) for r in range(shards)]
+            replicated = IndexStore(reps=padded[:n_eval],
+                                    row_valid=torch.ones((n_eval,), dtype=torch.bool, device=dev),
+                                    n_total=n_eval)
+            topk_ops.reset_launches()
+            cands = [retriever._local_topk(q_reps, b) for b in blocks]
+            m_s, m_i = merge_shard_candidates(torch.stack([c[0] for c in cands]),
+                                              torch.stack([c[1] for c in cands]), k)
+            r_s, r_i = retriever._local_topk(q_reps, replicated)
+            require(topk_ops.fused_topk.paths["hopper"] == shards + 1,
+                    f"replay: fused_topk took {topk_ops.fused_topk.paths}")
+            id_diff = int((m_i != r_i).sum().item())
+            score_diff = int((m_s != r_s).sum().item())
+            require(id_diff == 0 and score_diff == 0,
+                    f"the 4-block replay differs from the replicated search: {id_diff} ids, "
+                    f"{score_diff} scores (max {(m_s - r_s).abs().max().item()})")
+            require(bool((r_i >= 0).all()) and bool((r_i < n_eval).all()), "replay ids")
+            replay = {
+                "N": n_eval, "shards": shards, "rows": whole.rows,
+                "rows_per_shard": whole.rows_per_shard,
+                "padding_rows": int((~whole.row_valid).sum().item()),
+                "ids_differing": id_diff, "scores_differing": score_diff,
+                "ids_from_each_block": [int(((m_i >= b.row_offset)
+                                             & (m_i < b.row_offset + whole.rows_per_shard))
+                                            .sum().item()) for b in blocks],
+                "block_ms": [cuda_ms(lambda b=b: retriever._local_topk(q_reps, b), 10)
+                             for b in blocks],
+                "merge_ms": cuda_ms(lambda: merge_shard_candidates(
+                    torch.stack([c[0] for c in cands]), torch.stack([c[1] for c in cands]), k),
+                    10),
+                "replicated_ms": cuda_ms(lambda: retriever._local_topk(q_reps, replicated), 10),
+            }
+            del padded, whole, blocks, replicated
+        finally:
+            dist.destroy_process_group()
+    ms = sorted(x * 1e3 for x in lat)
+    return {
+        "model": "dpr-bert-base (2 x bert-base-uncased, 12 layers, d 768, seeded init)",
+        "cell": "serve_topk", "backend": backend, "world_size": world,
+        "precision": precision, "search_impl": SEARCH_IMPL, "top_k": k,
+        "index_rows": store.rows, "encoded_rows": N_ENCODED,
+        "rows_per_shard": store.rows_per_shard, "bytes_per_device": store.bytes_per_device(),
+        "setup_s": setup_s, "index_build_s": index_s, "build_collectives": build_collectives,
+        "requests": N_REQUESTS, "clients": CLIENTS, "qps": N_REQUESTS / wall,
+        "p50_ms": statistics.median(ms), "p99_ms": ms[int(0.99 * (len(ms) - 1))],
+        "batches": nb, "mean_batch": sum(batches) / nb, "collectives": served,
+        "collectives_after_stop": stopped, "fused_topk_launches": launches,
+        "fused_topk_paths": paths, "batch_max_abs_err": err, "batch_tolerance": tol,
+        "batch_clear_slots": clear, "batch_slots": i.numel(),
+        "sharded_search_ms_one_batch": search_ms, "replay": replay,
+    }
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4165,6 +4389,9 @@ def main(argv=None) -> int:
     ap.add_argument("--xdev", action="store_true",
                     help="only build, then run the xdev phase (cross-device ContAccum in a "
                          "one-rank NCCL group)")
+    ap.add_argument("--shard-serve", action="store_true",
+                    help="only build, then run the shard_serve phase (the sharded index "
+                         "in a one-rank NCCL group and a 4-block replay)")
     args = ap.parse_args(argv)
     if not (REPO / "src" / "repro_torch").is_dir():
         print("chip_smoke.py runs from a checkout of the repo: src/repro_torch is missing",
@@ -4209,6 +4436,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         xdev = phase_xdev(torch)
         emit({"phase": "xdev", **xdev, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+        print(card(), flush=True)
+        return 0
+    if args.shard_serve:
+        t0 = time.perf_counter()
+        shard_serve = phase_shard_serve(torch, ops, ref)
+        emit({"phase": "shard_serve", **shard_serve, "seconds": time.perf_counter() - t0,
+              "nvidia_smi": smi})
         print(card(), flush=True)
         return 0
 
@@ -4284,10 +4518,16 @@ def main(argv=None) -> int:
     xdev = phase_xdev(torch)
     emit({"phase": "xdev", **xdev, "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
 
+    t0 = time.perf_counter()
+    shard_serve = phase_shard_serve(torch, ops, ref)
+    emit({"phase": "shard_serve", **shard_serve, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+
     ev = kernels["eval_topk"]
     topk_by_path = {"serve": serve["launches"]["fused_topk"],
                     "eval": train["eval_fused_topk_launches"], "mine": mine["fused_topk_launches"],
-                    "lm_eval": lm["eval_fused_topk_launches"]}
+                    "lm_eval": lm["eval_fused_topk_launches"],
+                    "shard_serve": shard_serve["fused_topk_launches"]}
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     ms = mine["search"]
     lines = [{

@@ -14,27 +14,43 @@ gradient of the global-batch loss.
 Without an axis every collective is the identity. With one, every
 collective goes through the group, at world size 1 too, except
 ``ring_rotate``: torch refuses a send to oneself, and a rotation of a
-one-rank ring is the identity. Building a context with an axis and no
+one-rank ring is the identity. ``broadcast`` has no JAX twin: JAX serves
+from one controller, the port from one process a rank, so rank 0's
+coalesced serving batch has to reach the other ranks
+(``retrieval/serving.py``). Building a context with an axis and no
 initialized process group raises; there is no fallback.
 
 Each collective adds one to its kind's count in ``collectives`` (per call,
 not per tensor), so a run can show which collectives carried it;
 ``reset_collectives()`` zeroes them.
+
+``spawn_ranks`` starts the ranks of the launch drivers' ``--dp N``
+(``launch/train.py``, ``launch/serve.py``): N processes on one group over a
+``FileStore`` in a temporary directory (no network), one a GPU under NCCL or
+gloo ranks of one torch thread on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import contextlib
+import datetime
+import os
+import tempfile
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.common.treemath import tree_leaves, tree_map
 
-KINDS = ("all_gather", "all_reduce", "ring")
+KINDS = ("all_gather", "all_reduce", "ring", "broadcast")
 
 #: collective calls by kind since the last ``reset_collectives()``
 collectives = dict.fromkeys(KINDS, 0)
+
+#: the longest a serving rank waits in one collective (a follower waits for
+#: the next batch in one)
+GROUP_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def reset_collectives() -> None:
@@ -176,6 +192,18 @@ class DistCtx:
         leaves = tree_leaves(x)
         return _replace_leaves(x, leaves, _RingRotate.apply(shift, *leaves))
 
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank, as a new tensor (every rank
+        passes a tensor of the same shape and dtype; bool travels as uint8;
+        not differentiated). The identity without an axis."""
+        if not self.axis:
+            return x
+        wire = torch.uint8 if x.dtype == torch.bool else x.dtype
+        buf = x.to(wire, memory_format=torch.contiguous_format, copy=True)
+        dist.broadcast(buf, src=src)
+        collectives["broadcast"] += 1
+        return buf.to(torch.bool) if x.dtype == torch.bool else buf
+
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks (out of place; not differentiated: every
         caller reduces a detached statistic)."""
@@ -198,3 +226,45 @@ class DistCtx:
             for i, part in zip(idx, flat.split([leaves[i].numel() for i in idx])):
                 summed[i] = part.view_as(leaves[i])
         return _replace_leaves(tree, leaves, summed)
+
+
+def check_rank_devices(ranks: int, device: str) -> None:
+    """Raise SystemExit unless ``ranks`` ranks fit ``device``: one a GPU, or
+    any number of CPU processes."""
+    have = torch.cuda.device_count() if torch.device(device).type == "cuda" else ranks
+    if have < ranks:
+        raise SystemExit(f"--dp {ranks} needs >= {ranks} devices (have {have}; one rank "
+                         f"runs on each GPU, or on the CPU with --device cpu)")
+
+
+def spawn_ranks(fn: Callable[[Any, int], Any], args: Any, ranks: int, device: str,
+                timeout: Optional[datetime.timedelta] = None) -> Any:
+    """Run ``fn(args, rank)`` on ``ranks`` processes of one default process
+    group and return rank 0's result. NCCL with rank r on ``cuda:r``, or,
+    for a CPU ``device``, gloo ranks of one torch thread; ``timeout`` bounds
+    each collective's wait (None: torch's default). Only rank 0 prints."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(_rank_main, args=(fn, args, ranks, device, timeout, tmp),
+                                    nprocs=ranks, join=True)
+        return torch.load(os.path.join(tmp, "result.pt"), weights_only=False)
+
+
+def _rank_main(rank, fn, args, ranks, device, timeout, tmp):
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"), ranks),
+                            rank=rank, world_size=ranks, timeout=timeout)
+    try:
+        with contextlib.ExitStack() as stack:
+            if rank:        # rank 0 prints for the group
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            result = fn(args, rank)
+        if rank == 0:
+            torch.save(result, os.path.join(tmp, "result.pt"))
+    finally:
+        dist.destroy_process_group()

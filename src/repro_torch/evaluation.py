@@ -46,7 +46,9 @@ def evaluate_topk(
     corpus exposes ``eval_split() -> (queries, passages, gold_idx)``. Every
     cutoff comes from one search at k = max(ks). Pass ``retriever`` to reuse
     one (its params are refreshed to ``params`` and the corpus re-encoded),
-    or ``cfg`` to configure a new one on ``device``."""
+    or ``cfg`` to configure a new one on ``device``. A sharded Retriever's
+    eval is collective: every rank calls it with the same arguments, and
+    each gets the replicated layout's numbers."""
     queries, passages, gold = corpus.eval_split(n=min(256, corpus.n_passages // 4))
     k_max = max(ks)
     if retriever is None:

@@ -13,6 +13,16 @@ tower config):
 bf16 index through the fused CUDA search kernel:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --precision bf16_banks --search-impl fused
+
+Sharded index: ``--dp N`` starts N ranks (``torch.multiprocessing``, a
+``FileStore`` in a temporary directory, no network), one a GPU under NCCL
+(rank r on ``cuda:r``), or on the CPU under gloo with ``--device cpu`` (one
+torch thread a rank). Each rank holds and searches a 1/N block of the
+index; rank 0 runs the server and the load test, the other ranks follow
+its batches, and rank 0 prints and returns the stats:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --dp 2 --device cpu \
+      --precision bf16_banks --search-impl fused
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.dist import GROUP_TIMEOUT, check_rank_devices, spawn_ranks
 from repro_torch.core.precision import PRECISION_PRESETS
 from repro_torch.data.retrieval import SyntheticRetrievalCorpus
 from repro_torch.models.bert import BertConfig
@@ -32,8 +43,12 @@ from repro_torch.retrieval import (
     Retriever,
     RetrieverConfig,
     load_trained_params,
+    make_dp_mesh,
     make_server,
+    serve_followers,
 )
+
+Q_LEN = 16
 
 
 def tiny_bert(vocab: int = 1000) -> BertConfig:
@@ -55,7 +70,8 @@ def main(argv=None):
                     help="trainer checkpoint dir: serve the trained params "
                          "instead of a fresh init")
     ap.add_argument("--dp", type=int, default=0,
-                    help="shard the index over N devices (not yet ported)")
+                    help="shard the index over N ranks, one a GPU (or gloo ranks "
+                         "with --device cpu); 0 = replicated")
     ap.add_argument("--precision", default="fp32",
                     choices=sorted(PRECISION_PRESETS),
                     help="PrecisionPolicy preset: queries encoded/scored in "
@@ -72,8 +88,15 @@ def main(argv=None):
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     args = ap.parse_args(argv)
     if args.dp:
-        raise NotImplementedError("--dp (a sharded index) is not yet ported to repro_torch")
+        check_rank_devices(args.dp, args.device)
+        return spawn_ranks(_serve, args, args.dp, args.device, timeout=GROUP_TIMEOUT)
+    return _serve(args)
+
+
+def _serve(args, rank: int = 0):
     device = resolve_device(args.device)
+    if args.dp and device.type == "cuda":
+        device = torch.device("cuda", rank)
 
     enc = make_bert_dual_encoder(tiny_bert(), precision=args.precision)
     if args.ckpt:
@@ -82,25 +105,30 @@ def main(argv=None):
     else:
         params = enc.init(torch.Generator().manual_seed(args.seed), device)
     corpus = SyntheticRetrievalCorpus(
-        n_passages=args.n_passages, q_len=16, p_len=32, seed=args.seed
+        n_passages=args.n_passages, q_len=Q_LEN, p_len=32, seed=args.seed
     )
     rcfg = RetrieverConfig(
         top_k=args.top_k,
         search_impl=args.search_impl,
+        index_layout="sharded" if args.dp else "replicated",
         precision=args.precision,
         encode_batch=128,
     )
-    retriever = Retriever(enc, params, rcfg, device=device)
+    mesh = make_dp_mesh(args.dp) if args.dp else None
+    retriever = Retriever(enc, params, rcfg, device=device, mesh=mesh)
 
     t0 = time.time()
     store = retriever.build_index(corpus.passages)
     print(
-        f"index: {tuple(store.reps.shape)} ({store.reps.dtype}, "
-        f"{store.bytes_per_device()/1024:.0f} KiB on {device}) "
-        f"built in {time.time()-t0:.2f}s"
+        f"index: {store.rows} x {store.reps.shape[1]} ({store.reps.dtype}, "
+        f"{store.bytes_per_device()/1024:.0f} KiB a device over {store.shards} "
+        f"shard(s), on {device}) built in {time.time()-t0:.2f}s"
     )
+    if rank:
+        serve_followers(retriever, args.max_batch, Q_LEN)
+        return None
 
-    server = make_server(retriever, max_batch=args.max_batch).start()
+    server = make_server(retriever, max_batch=args.max_batch, q_len=Q_LEN).start()
     try:
         t0 = time.time()
         futures = [server.submit(corpus.queries[i]) for i in range(args.n_queries)]

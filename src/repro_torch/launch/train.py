@@ -39,16 +39,14 @@ with ``--negatives mined`` each rank runs its own miner over the corpus.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import os
-import tempfile
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.dist import check_rank_devices, spawn_ranks
 from repro_torch.core.methods import (
     available_methods,
     build_step_program,
@@ -138,47 +136,19 @@ def main(argv=None):
         raise SystemExit("--loss-comm ring needs --shard-banks (it streams "
                          "the per-device bank shards around the DP ring)")
     if dp:
-        # ranks on the CPU are processes; on the GPU, one a card
-        have = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else dp
-        if have < dp:
-            raise SystemExit(f"--dp {dp} needs >= {dp} devices (have {have}; one rank "
-                             f"runs on each GPU, or on the CPU with --device cpu)")
+        check_rank_devices(dp, args.device)
         if args.total_batch % dp:
             raise SystemExit(f"--total-batch {args.total_batch} not divisible by --dp {dp}")
         if args.shard_banks and args.bank % dp:
             raise SystemExit(f"--bank {args.bank} not divisible by --dp {dp}")
-        return _spawn(args)
+        # each rank's state is its own and stays in its process
+        return None, TrainerReport(**spawn_ranks(_train_report, args, dp, args.device))
     return _train(args)
 
 
-def _spawn(args):
-    """Run ``_train`` on ``args.dp`` ranks; returns (None, rank 0's report):
-    each rank's state is its own and stays in its process."""
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.multiprocessing.spawn(_rank_main, args=(args, tmp), nprocs=args.dp, join=True)
-        report = torch.load(os.path.join(tmp, "report.pt"), weights_only=False)
-    return None, TrainerReport(**report)
-
-
-def _rank_main(rank, args, tmp):
-    cuda = torch.device(args.device).type == "cuda"
-    if cuda:
-        torch.cuda.set_device(rank)
-    else:
-        torch.set_num_threads(1)
-    dist.init_process_group("nccl" if cuda else "gloo",
-                            store=dist.FileStore(os.path.join(tmp, "store"), args.dp),
-                            rank=rank, world_size=args.dp)
-    try:
-        with contextlib.ExitStack() as stack:
-            if rank:        # rank 0 prints for the group
-                stack.enter_context(contextlib.redirect_stdout(
-                    stack.enter_context(open(os.devnull, "w"))))
-            _, report = _train(args, rank)
-        if rank == 0:
-            torch.save(dataclasses.asdict(report), os.path.join(tmp, "report.pt"))
-    finally:
-        dist.destroy_process_group()
+def _train_report(args, rank: int):
+    """A rank's ``_train``, its report as a dict."""
+    return dataclasses.asdict(_train(args, rank)[1])
 
 
 def _train(args, rank: int = 0):

@@ -5,7 +5,11 @@
 coalescing window is measured from collect time, so a backed-up queue fills
 whole batches. ``retrieval.serving.make_server`` wires a Retriever to it.
 The server is stateless between batches; a worker exception is handed to
-every caller of that batch, and ``query`` re-raises it.
+every caller of that batch, and ``query`` re-raises it. ``on_idle`` and
+``on_exit``, if given, run on the server thread: ``on_idle`` each time a
+collect window passes with no request, ``on_exit`` after the last batch
+(the sharded Retriever's keep-alive and stop broadcasts: only that thread
+issues collectives).
 """
 
 from __future__ import annotations
@@ -36,8 +40,12 @@ class BatchingServer:
         *,
         max_batch: int = 32,
         max_wait_s: float = 0.01,
+        on_idle: Optional[Callable[[], None]] = None,
+        on_exit: Optional[Callable[[], None]] = None,
     ):
         self.serve_fn = serve_fn
+        self.on_idle = on_idle
+        self.on_exit = on_exit
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self._q: "queue.Queue[Request]" = queue.Queue()
@@ -95,9 +103,18 @@ class BatchingServer:
         return batch
 
     def _loop(self):
+        try:
+            self._serve()
+        finally:
+            if self.on_exit is not None:
+                self.on_exit()
+
+    def _serve(self):
         while not self._stop.is_set():
             batch = self._collect()
             if not batch:
+                if self.on_idle is not None:
+                    self.on_idle()
                 continue
             self.batch_sizes.append(len(batch))
             payloads = np.stack([r.payload for r in batch])

@@ -1,5 +1,6 @@
 """The port's multi-rank training (core/dist.py, the sharded banks and the
-ring-streamed loss) against the JAX package, on a 4-rank gloo group.
+ring-streamed loss) and its sharded serving index (retrieval/) against the
+JAX package, on a 4-rank gloo group.
 
 One group runs for the whole module (``torch.multiprocessing.spawn`` on a
 FileStore under the test's temporary directory, one torch thread a rank;
@@ -15,12 +16,22 @@ params rtol 2e-3 / atol 2e-6 (tests/test_distributed.py); ring against
 all-gather, losses rtol 2e-5 / atol 2e-6 and params rtol 1e-4 / atol 1e-6
 (tests/test_ring_parity.py, fp32). The one-loss cases hold the loss to 2e-5 and
 each gradient to 2e-5 of its largest |g| plus 2e-6.
+
+The sharded index (N = 93 rows of tiny-BERT reps over the 4 ranks: 96
+padded rows, 24 a rank) is held bit for bit to a replicated Retriever in
+each rank, its blocks, ids and scores, and to JAX's replicated Retriever at
+tests/test_torch_retrieval.py's tolerances (fp32: ids equal, scores 1e-5;
+bf16_banks: the search on the port's own bf16 reps); ties across shards
+and empty slots exactly, on integer vectors.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import ContrastiveConfig as JConfig
 from repro.core import RetrievalBatch as JBatch
@@ -28,10 +39,20 @@ from repro.core import build_step_program as jax_build
 from repro.core import init_state as jax_init_state
 from repro.core.loss import ExtraColumns as JExtraColumns
 from repro.core.loss import ExtraRows as JExtraRows
+from repro.core.dist import DistCtx as JDistCtx
 from repro.core.loss import contrastive_loss as jax_contrastive_loss
+from repro.data.retrieval import SyntheticRetrievalCorpus as JaxCorpus
+from repro.kernels.fused_topk.ops import fused_topk_scores
+from repro.launch.train import tiny_bert as jax_tiny_bert
+from repro.models.towers import make_bert_dual_encoder as jax_dual_encoder
 from repro.optim import chain as jchain
 from repro.optim import clip_by_global_norm as jclip
 from repro.optim import sgd as jsgd
+from repro.retrieval import IndexStore as JIndexStore
+from repro.retrieval import Retriever as JaxRetriever
+from repro.retrieval import RetrieverConfig as JaxRetrieverConfig
+from repro_torch.core.precision import NEG_INF
+from repro_torch.retrieval import merge_shard_candidates
 
 import torch_dist_worker
 from helpers import make_batch, make_mlp_encoder
@@ -61,6 +82,15 @@ JAX_TWIN = {"dpr_xdev": "dpr"}
 SHARDED = [("contaccum", 16), ("contcache", 128)]
 RING = [("contaccum", 16), ("contaccum", 24), ("contcache", 128)]
 BACKENDS = ("dense", "fused")
+#: the sharded index (tests/test_retrieval.py:354 at 4 ranks): 93 % 4 != 0
+SERVE_LAYOUTS = [("fp32", "dense"), ("bf16_banks", "fused")]
+SERVE_CORPUS = dict(n_passages=93, q_len=16, p_len=32, seed=1)
+SERVE_RETRIEVER = dict(top_k=9, encode_batch=32, score_block=16)
+N_QUERIES = 17
+ROWS, PER_RANK = 96, 24
+SERVE_BATCHES = [8, 8, 4]          # 20 requests queued before the server starts
+#: ties: 10 integer rows over 4 ranks (12 padded, 3 a rank), k past the valid rows
+TIE_ROWS, TIE_K = 10, 12
 
 
 def _bank_case(method, bank, impl, comm="all_gather"):
@@ -151,6 +181,19 @@ def _jax_loss(spec):
             **dict(zip(("dq", "dpp", "dph", "dbank_p"), (np.asarray(g) for g in grads)))}
 
 
+def _serve_spec():
+    layouts = {lay: jax.device_get(jax_dual_encoder(jax_tiny_bert(), precision=lay[0]).init(
+        jax.random.PRNGKey(5))) for lay in SERVE_LAYOUTS}
+    rng = np.random.default_rng(4)
+    p = rng.integers(-2, 3, size=(TIE_ROWS, 8)).astype(np.float32)
+    p[7], p[9] = p[1], p[4]              # rank 2's row = rank 0's, rank 3's = rank 1's
+    q = rng.integers(-2, 3, size=(6, 8)).astype(np.float32)
+    return {"corpus": SERVE_CORPUS, "n_queries": N_QUERIES, "layouts": layouts,
+            "retriever": SERVE_RETRIEVER, "serve_layout": ("bf16_banks", "fused"),
+            "serve": {"max_batch": 8, "n": sum(SERVE_BATCHES)},
+            "eval_ks": (1, 9), "ties": {"p": p, "q": q, "k": TIE_K, "batch": 4}}
+
+
 @pytest.fixture(scope="module")
 def inputs():
     rng = np.random.default_rng(0)
@@ -158,7 +201,8 @@ def inputs():
     return {"params0": params0, "batches": _batches(), "programs": _programs(),
             "loss": _loss_spec(),
             "x": rng.normal(size=(D, 2, 3)).astype(np.float32),
-            "c": rng.normal(size=(D, 2 * D, 3)).astype(np.float32)}
+            "c": rng.normal(size=(D, 2 * D, 3)).astype(np.float32),
+            "serve": _serve_spec()}
 
 
 @pytest.fixture(scope="module")
@@ -213,7 +257,15 @@ def test_dist_ctx_describes_the_group(ranks):
         assert c["is_distributed"] and c["count"] == D and c["index"] == rank
         assert c["perm"] == [(i, (i + 1) % D) for i in range(D)]
         # one call of each kind, counted once
-        assert c["collectives"] == {"all_gather": 1, "all_reduce": 1, "ring": 1}
+        assert c["collectives"] == {"all_gather": 1, "all_reduce": 1, "ring": 1, "broadcast": 1}
+
+
+def test_broadcast_from_any_rank(ranks):
+    for rank, r in enumerate(ranks):
+        c = r["collectives"]
+        assert c["broadcast"].tolist() == [0, 7]
+        assert c["broadcast_kept"].tolist() == [rank, 7]
+        assert c["broadcast_bool"].tolist() == [True, False]
 
 
 def test_gather_value_and_gradient(ranks, inputs):
@@ -352,3 +404,205 @@ def test_xdev_cells_match_the_jax_cells():
                        ("contaccum_xdev_ring", port_cells.CONTACCUM_XDEV_RING),
                        ("contcache_xdev", port_cells.CONTCACHE_XDEV)):
         assert cell == DPR_SHAPES[name].params, name
+
+
+# ------------------------------------------------------ the sharded index
+@pytest.mark.parametrize("layout", SERVE_LAYOUTS)
+def test_sharded_index_layout(layout, ranks):
+    """Each rank holds only its 24-row block of the 96 padded rows, bit-equal
+    to the same rows of the replicated store (zeros past row 93, masked);
+    bytes_per_device x 4 is the padded matrix's bytes."""
+    itemsize = 4 if layout[0] == "fp32" else 2
+    for rank, r in enumerate(ranks):
+        st, full = r["serve"][layout]["store"], r["serve"][layout]["replicated"]
+        assert (full["rows"], full["shards"], full["shard"]) == (93, 1, None)
+        assert (st["n_total"], st["shards"], st["shard"], st["rows"], st["rows_per_shard"]) == \
+            (93, D, rank, ROWS, PER_RANK)
+        assert st["reps"].shape == (PER_RANK, 64)
+        lo, hi = rank * PER_RANK, min((rank + 1) * PER_RANK, 93)
+        np.testing.assert_array_equal(st["reps"][: hi - lo], full["reps"][lo:hi])
+        assert not st["reps"][hi - lo :].any()
+        np.testing.assert_array_equal(st["row_valid"], np.arange(lo, lo + PER_RANK) < 93)
+        assert st["bytes_per_device"] * D == ROWS * 64 * itemsize
+
+
+@pytest.mark.parametrize("layout", SERVE_LAYOUTS)
+def test_sharded_search_equals_replicated_bit_for_bit(layout, ranks):
+    for r in ranks:
+        got = r["serve"][layout]
+        assert got["ids"].shape == (N_QUERIES, 9) and got["ids"].dtype == np.int32
+        assert ((got["ids"] >= 0) & (got["ids"] < 93)).all()
+        np.testing.assert_array_equal(got["ids"], got["replicated_ids"])
+        np.testing.assert_array_equal(got["scores"], got["replicated_scores"])
+        np.testing.assert_array_equal(got["ids"], ranks[0]["serve"][layout]["ids"])
+
+
+@pytest.mark.parametrize("layout", SERVE_LAYOUTS)
+def test_sharded_search_matches_jax(layout, ranks, inputs):
+    """Against JAX's replicated Retriever on the same params: fp32 ids equal
+    and scores within 1e-5; bf16 towers to bf16 rounding, then the search
+    on the port's own bf16 reps (tests/test_torch_retrieval.py:180)."""
+    precision, impl = layout
+    corpus = JaxCorpus(**SERVE_CORPUS)
+    queries = corpus.queries[:N_QUERIES]
+    jr = JaxRetriever(jax_dual_encoder(jax_tiny_bert(), precision=precision),
+                      inputs["serve"]["layouts"][layout],
+                      JaxRetrieverConfig(search_impl=impl, precision=precision, block_q=8,
+                                         block_n=16, **SERVE_RETRIEVER))
+    jr.build_index(corpus.passages)
+    ji, js = jr.search(queries)
+    port = ranks[0]["serve"][layout]
+    if precision != "fp32":
+        jq = np.asarray(jr.encoder.encode_query(jr.params, jnp.asarray(queries)).astype(jnp.float32))
+        np.testing.assert_allclose(port["q_reps"], jq, rtol=0, atol=0.05)
+        np.testing.assert_allclose(port["replicated"]["reps"],
+                                   np.asarray(jr.index.reps.astype(jnp.float32)), rtol=0, atol=0.05)
+        js, ji = fused_topk_scores(jnp.asarray(port["q_reps"]).astype(jnp.bfloat16),
+                                   jnp.asarray(port["replicated"]["reps"]).astype(jnp.bfloat16),
+                                   9, block_q=8, block_n=16)
+    for r in ranks:
+        np.testing.assert_array_equal(r["serve"][layout]["ids"], np.asarray(ji))
+        np.testing.assert_allclose(r["serve"][layout]["scores"], np.asarray(js),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _shard_candidates(scores, valid, k, d):
+    """Each of d shards' stable top-k over its row block of (Q, N) scores,
+    ids global: (NEG_INF, -1) past a shard's valid rows."""
+    q, n = scores.shape
+    per = n // d
+    out_s = np.full((d, q, k), NEG_INF, np.float32)
+    out_i = np.full((d, q, k), -1, np.int32)
+    for r in range(d):
+        blk = np.where(valid[r * per : (r + 1) * per], scores[:, r * per : (r + 1) * per], NEG_INF)
+        order = np.argsort(-blk, axis=1, kind="stable")[:, :k]
+        top = np.take_along_axis(blk, order, axis=1)
+        m = top.shape[1]
+        out_s[r, :, :m] = top
+        out_i[r, :, :m] = np.where(top > NEG_INF / 2, order + r * per, -1)
+    return out_s, out_i
+
+
+@pytest.mark.parametrize("case", ["ties_across_shards", "k_exceeds_valid"])
+def test_merge_matches_jax_merge_shards(case):
+    """merge_shard_candidates against JAX's Retriever._merge_shards (the
+    psum of a zeroed (Q, D, k) buffer, then lax.top_k) run under
+    jax.vmap(axis_name="data") over the 4 shards, and against the stable
+    top-k of the whole score matrix."""
+    rng = np.random.default_rng(11)
+    n, q, k = 4 * 5, 6, 4
+    scores = rng.integers(-1, 2, size=(q, n)).astype(np.float32)   # many ties
+    valid = np.ones((n,), bool)
+    if case == "k_exceeds_valid":
+        k = 9
+        valid[:] = False
+        valid[[2, 5, 11, 13, 19]] = True            # 5 valid rows, 3 shards hold some
+    cand_s, cand_i = _shard_candidates(scores, valid, k, 4)
+    got_s, got_i = merge_shard_candidates(torch.from_numpy(cand_s), torch.from_numpy(cand_i), k)
+
+    def jax_merge(s, i):
+        return JaxRetriever._merge_shards(SimpleNamespace(shards=4), s, i,
+                                          jax.lax.axis_index("data"), JDistCtx("data"))
+
+    js, ji = jax.vmap(jax_merge, axis_name="data")(jnp.asarray(cand_s), jnp.asarray(cand_i))
+    for shard in range(4):
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji[shard]))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(js[shard]))
+    want_s, want_i = _shard_candidates(scores, valid, k, 1)
+    np.testing.assert_array_equal(got_i.numpy(), want_i[0])
+    np.testing.assert_array_equal(got_s.numpy(), want_s[0])
+    if case == "k_exceeds_valid":
+        assert (got_i[:, 5:] == -1).all() and (got_s[:, 5:] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("impl", BACKENDS)
+def test_sharded_search_ties_and_empty_slots_match_jax(impl, ranks, inputs):
+    """Integer rows, two of them duplicated across shards, 12 slots for 10
+    valid rows (each rank 3 rows, rank 3 one real and two padding): every
+    rank's sharded search equals JAX's replicated one exactly, the lower
+    global id first in each tie and -1 in the empty slots."""
+    t = inputs["serve"]["ties"]
+    jr = JaxRetriever(make_mlp_encoder(), None,
+                      JaxRetrieverConfig(top_k=TIE_K, search_impl=impl, score_block=16,
+                                         block_q=8, block_n=16),
+                      index=JIndexStore(reps=jnp.asarray(t["p"]),
+                                        row_valid=jnp.ones((TIE_ROWS,), bool), n_total=TIE_ROWS))
+    ji, js = (np.asarray(x) for x in jr.search_reps(jnp.asarray(t["q"])))
+    assert (ji[:, TIE_ROWS:] == -1).all()
+    for row in ji:                       # both copies returned, the lower id first
+        pos = {int(i): j for j, i in enumerate(row)}
+        assert pos[1] < pos[7] and pos[4] < pos[9]
+    for rank, r in enumerate(ranks):
+        got = r["serve"]["ties", impl]
+        assert got["store"]["rows_per_shard"] == 3 and got["store"]["shard"] == rank
+        np.testing.assert_array_equal(got["ids"], ji)
+        np.testing.assert_array_equal(got["scores"], js)
+
+
+def test_serving_loop_across_ranks(ranks):
+    """Requests through rank 0's server give the replicated Retriever's
+    answers for the same padded batches; each batch costs every rank one
+    broadcast and two all-gathers (scores, ids); the stop word is one more
+    broadcast and ends every follower. The wrong role is refused on every
+    rank before any collective."""
+    lead = ranks[0]["serve"]["serve"]
+    b = len(SERVE_BATCHES)
+    assert lead["batch_sizes"] == SERVE_BATCHES and not lead["alive"]
+    np.testing.assert_array_equal(lead["ids"], lead["replicated_ids"])
+    np.testing.assert_array_equal(lead["scores"], lead["replicated_scores"])
+    each = {"all_gather": 2 * b, "all_reduce": 0, "ring": 0}
+    assert lead["collectives_during"] == {**each, "broadcast": b}
+    assert lead["collectives"] == {**each, "broadcast": b + 1}
+    for r in ranks[1:]:
+        follower = r["serve"]["serve"]
+        assert follower["served"] == b
+        assert follower["collectives"] == {**each, "broadcast": b + 1}
+    # rank 0 cannot follow, another rank cannot serve, and a server needs q_len
+    for r in ranks:
+        role, q_len = r["serve"]["serve"]["refused"]
+        assert "rank 0 of a sharded Retriever runs the server" in role
+        assert "needs q_len" in q_len
+
+
+@pytest.mark.parametrize("case,held,searched", [
+    ("sharded_given_every_row", "every row", "sharded Retriever searches block {r} of 4"),
+    ("sharded_given_another_block", "block {n} of 4", "sharded Retriever searches block {r} of 4"),
+    ("replicated_given_a_block", "block {r} of 4", "replicated Retriever searches every row"),
+])
+def test_search_refuses_an_index_of_another_layout(case, held, searched, ranks):
+    """A store set from outside (``index=``) is held to the Retriever's
+    layout: a sharded search over every row would return each id D times,
+    a replicated one over a block would miss the other rows."""
+    for rank, r in enumerate(ranks):
+        fmt = dict(r=rank, n=(rank + 1) % D)
+        assert r["serve"]["mismatch"][case] == (
+            f"the index holds {held.format(**fmt)}, but this {searched.format(**fmt)}")
+
+
+#: the idle server: 2 gloo ranks whose group times out after 3 s, no
+#: request for 6 s, a keep-alive word every 0.25 s
+IDLE = dict(timeout_s=3, idle_s=6.0, keepalive_s=0.25, max_batch=4,
+            corpus=dict(n_passages=32, q_len=16, p_len=32, seed=2))
+
+
+def test_idle_sharded_server_outlives_the_group_timeout(tmp_path):
+    """Followers wait for the next batch inside a broadcast that the group's
+    timeout bounds; the server's keep-alive words, skipped by the followers,
+    keep an idle gap twice that timeout from ending the ranks. The one
+    request after it gets the replicated answer, and every rank counts the
+    same broadcasts: the keep-alives, the batch and the stop word."""
+    lead, follower = torch_dist_worker.spawn_idle(tmp_path, IDLE, 2)
+    assert follower["served"] == 1 and lead["batch_sizes"] == [1] and not lead["alive"]
+    np.testing.assert_array_equal(lead["ids"], lead["want_ids"])
+    np.testing.assert_array_equal(lead["scores"], lead["want_scores"])
+    keepalives = lead["collectives"]["broadcast"] - 2
+    assert keepalives >= IDLE["idle_s"] / IDLE["timeout_s"]
+    assert lead["collectives"] == follower["collectives"] == {
+        "all_gather": 2, "all_reduce": 0, "ring": 0, "broadcast": keepalives + 2}
+
+
+def test_evaluate_topk_through_the_sharded_retriever(ranks):
+    want = ranks[0]["serve"]["eval_replicated"]
+    assert set(want) == {"top@1", "top@9", "recall@1", "recall@9"}
+    for r in ranks:
+        assert r["serve"]["eval"] == r["serve"]["eval_replicated"] == want

@@ -1,6 +1,6 @@
-"""DistCtx, the sharded bank push and the ring-streamed loss on the card,
-in a one-rank NCCL group (a FileStore under the test's temporary
-directory). Marked ``cuda``: without a GPU every test here skips. No JAX:
+"""DistCtx, the sharded bank push, the ring-streamed loss and the sharded
+serving index on the card, in a one-rank NCCL group (a FileStore under the
+test's temporary directory). Marked ``cuda``: without a GPU every test here skips. No JAX:
 the port against itself; the multi-rank semantics are held to the JAX
 package on the CPU by tests/test_torch_dist.py.
 
@@ -14,8 +14,12 @@ card as on the CPU, bit for bit. The ring's loss (the in-batch chunk and
 the bank chunk merged) is held to the all-gather loss on the fused kernels
 at 1e-5 relative, and each gradient to 1e-4 of its largest |g| in fp32 and
 1e-2 in bf16 (the chip_smoke tolerances: fp32 sums in another order; the
-kernels round each softmax coefficient to bf16).
+kernels round each softmax coefficient to bf16). The sharded Retriever's
+search, served and replayed as 4 blocks, equals the replicated one's bit
+for bit on the fused kernel.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -28,7 +32,18 @@ from repro_torch.core.loss import (
     sharded_bank_extra_rows,
 )
 from repro_torch.core.memory_bank import init_bank, shard_push, shard_push_pair
+from repro_torch.data.retrieval import SyntheticRetrievalCorpus
 from repro_torch.kernels.fused_infonce import ops
+from repro_torch.kernels.fused_topk import ops as topk_ops
+from repro_torch.launch.serve import make_bert_dual_encoder, tiny_bert
+from repro_torch.retrieval import (
+    IndexStore,
+    Retriever,
+    RetrieverConfig,
+    make_dp_mesh,
+    make_server,
+    merge_shard_candidates,
+)
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +73,7 @@ def test_gather_psum_and_their_gradients_through_nccl(group):
     y = ctx.gather(x)
     (y * c).sum().backward()
     assert torch.equal(y, x) and torch.equal(x.grad, c)
-    assert port_dist.collectives == {"all_gather": 1, "all_reduce": 1, "ring": 0}
+    assert port_dist.collectives == {"all_gather": 1, "all_reduce": 1, "ring": 0, "broadcast": 0}
     valid = torch.tensor([True, False, True], device=group)
     assert torch.equal(ctx.gather(valid), valid)
     assert torch.equal(ctx.psum(x.detach()), x.detach())
@@ -130,3 +145,71 @@ def test_ring_loss_matches_all_gather_on_the_fused_kernels(group, dtype):
     rtol = 1e-4 if dtype == torch.float32 else 1e-2
     for a, r in zip(ga, gr):
         assert (a.float() - r.float()).abs().max().item() <= rtol * a.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_sharded_retriever_matches_replicated_on_the_fused_kernel(group):
+    """Tiny bf16 towers over 1000 passages: the one-rank sharded store equals
+    the replicated one, and its searches, direct and through the server
+    (one broadcast and two all-gathers a batch, one broadcast more at the
+    stop), equal the replicated ones bit for bit, every fused_topk launch
+    on the Hopper path."""
+    enc = make_bert_dual_encoder(tiny_bert(), precision="bf16_banks")
+    params = enc.init(torch.Generator().manual_seed(0), group)
+    corpus = SyntheticRetrievalCorpus(n_passages=1000, q_len=16, p_len=32, seed=3)
+    cfg = RetrieverConfig(top_k=20, search_impl="fused", precision="bf16_banks", encode_batch=128)
+    rep = Retriever(enc, params, cfg, device=group)
+    sh = Retriever(enc, params, dataclasses.replace(cfg, index_layout="sharded"), device=group,
+                   mesh=make_dp_mesh(1))
+    rep.build_index(corpus.passages)
+    sh.build_index(corpus.passages)
+    assert (sh.index.shard, sh.index.shards, sh.index.rows) == (0, 1, 1000)
+    assert torch.equal(sh.index.reps, rep.index.reps)
+    queries = corpus.queries[:16]
+    topk_ops.reset_launches()
+    port_dist.reset_collectives()
+    ids, scores = sh.search(queries)
+    assert port_dist.collectives == {"all_gather": 2, "all_reduce": 0, "ring": 0, "broadcast": 0}
+    want_ids, want_scores = rep.search(queries)
+    assert (ids == want_ids).all() and (scores == want_scores).all()
+    server = make_server(sh, max_batch=16, max_wait_s=0.001, q_len=16)
+    futures = [server.submit(q) for q in queries]
+    port_dist.reset_collectives()
+    server.start()
+    try:
+        answers = [f.get(timeout=60) for f in futures]
+    finally:
+        server.stop()
+    assert not server._thread.is_alive() and server.batch_sizes == [16]
+    assert port_dist.collectives == {"all_gather": 2, "all_reduce": 0, "ring": 0, "broadcast": 2}
+    for (got_ids, got_scores), w_ids, w_scores in zip(answers, want_ids, want_scores):
+        assert (got_ids == w_ids).all() and (got_scores == w_scores).all()
+    assert topk_ops.fused_topk.paths["hopper"] == topk_ops.fused_topk.launches == 3
+
+
+@pytest.mark.cuda
+def test_four_block_replay_equals_the_replicated_search(group):
+    """A D = 4 layout of 4099 bf16 rows at d = 768 (4100 padded rows, the
+    last block one padding row), each block searched by _local_topk and
+    the blocks merged, against the replicated search: ids and scores bit
+    for bit, ties included (rows repeated across blocks)."""
+    g = torch.Generator(device=group).manual_seed(4)
+    n, d, shards, k = 4099, 768, 4, 100
+    reps = torch.randn((n, d), generator=g, device=group).to(torch.bfloat16)
+    reps[3000:3050] = reps[10:60]                     # ties across blocks 0 and 2
+    rows = -(-n // shards) * shards
+    whole = IndexStore(reps=torch.cat([reps, reps.new_zeros((rows - n, d))]),
+                       row_valid=torch.arange(rows, device=group) < n, n_total=n, shards=shards)
+    replicated = IndexStore(reps=reps, row_valid=torch.ones((n,), dtype=torch.bool, device=group),
+                            n_total=n)
+    r = Retriever(None, None, RetrieverConfig(top_k=k, search_impl="fused"), device=group)
+    q = torch.randn((32, d), generator=g, device=group).to(torch.bfloat16)
+    q[:4] = reps[10:14]                               # queries that hit the repeated rows
+    topk_ops.reset_launches()
+    cands = [r._local_topk(q, whole.block(b)) for b in range(shards)]
+    got_s, got_i = merge_shard_candidates(torch.stack([c[0] for c in cands]),
+                                          torch.stack([c[1] for c in cands]), k)
+    want_s, want_i = r._local_topk(q, replicated)
+    assert topk_ops.fused_topk.paths["hopper"] == topk_ops.fused_topk.launches == shards + 1
+    assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+    assert bool((got_i[:4, 0] == torch.arange(10, 14, device=group)).all())

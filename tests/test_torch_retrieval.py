@@ -98,7 +98,8 @@ def test_resolve_search_backend_and_layouts():
         resolve_search_backend("faiss")
     with pytest.raises(ValueError, match="index_layout"):
         Retriever(None, None, RetrieverConfig(index_layout="interleaved"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the sharded layout runs over the default process group: none here
+    with pytest.raises(RuntimeError, match="initialized torch.distributed process group"):
         Retriever(None, None, RetrieverConfig(index_layout="sharded"), device="cpu")
 
 
@@ -112,7 +113,8 @@ def test_retriever_config_takes_the_jax_fields():
     assert isinstance(backend, FusedSearchBackend) and (backend.block_q, backend.block_n) == (16, 32)
     assert resolve_search_backend("fused", block_q=8, block_n=64).block_n == 64
     assert cfg.dp_axis == "model"
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    # the sharded layout's DistCtx is built over dp_axis
+    with pytest.raises(RuntimeError, match=r"DistCtx\(axis=\('model',\)\)"):
         Retriever(None, None, dataclasses.replace(cfg, index_layout="sharded"), device="cpu")
 
 
@@ -295,5 +297,15 @@ def test_load_trained_params_rejects_foreign_checkpoint(tmp_path):
 
 
 def test_serve_cli_rejects_dp():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve.main(["--dp", "2", "--device", "cpu"])
+    """--dp 2 on 2 gloo ranks gives --dp 0's recall with half the index
+    bytes a device (96 rows: no padding); --dp N needs N cards unless
+    --device cpu (none here)."""
+    argv = ["--device", "cpu", "--n-passages", "96", "--n-queries", "24", "--top-k", "40",
+            "--precision", "bf16_banks", "--search-impl", "fused", "--max-batch", "8"]
+    want = serve.main(argv)
+    got = serve.main(argv + ["--dp", "2"])
+    assert 0 < want["recall"] < 1
+    assert got["recall"] == want["recall"]
+    assert got["index_bytes_per_device"] * 2 == want["index_bytes_per_device"] == 96 * 64 * 2
+    with pytest.raises(SystemExit, match="--dp 2 needs >= 2 devices"):
+        serve.main(["--dp", "2"])
